@@ -1,0 +1,211 @@
+"""Multi-head Latent Attention (DeepSeek-V2 family), absorbed decode form.
+
+Fold W_uk into the query ("absorbed" q, width d_qk = kv_lora_rank +
+rope_dim = 576), attend directly against the latent cache, fold W_uv into
+the output. The absorbed query row IS the routed wire object of the paper
+(§2.1: "a routed query row and a cached token are the same d_qk-wide
+object").
+
+The latent cache entry per token is [c_kv (512) | k_rope (64)]: the k_rope
+band is the only position-dependent part — the delta-rotation splice
+(core/splice.py, kernels/delta_rotate) re-homes exactly that band.
+
+absorbed_partial is the decode-path entry: unmasked, it goes through the
+mla_decode kernel wrapper (the CUDA kernel on the card, its plain version on
+the CPU); absorbed_partial_ref is the plain version the exactness oracle
+uses everywhere.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.merge import Partial, partial_from_logits
+from repro_torch.kernels.mla_decode import mla_decode
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int = 2048
+    n_heads: int = 16
+    kv_lora_rank: int = 512          # d_c — latent value/nope-key width
+    q_lora_rank: Optional[int] = None  # None => direct q projection (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+    @property
+    def d_qk(self) -> int:           # absorbed query row width (576 for V2)
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / np.sqrt(self.qk_head_dim)
+
+    @property
+    def cache_width(self) -> int:    # latent cache entry bytes/2 (bf16)
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+def param_shapes(cfg: MLAConfig):
+    """{name: shape} of the MLA parameters cfg implies."""
+    h, dm = cfg.n_heads, cfg.d_model
+    shapes = {}
+    if cfg.q_lora_rank:
+        shapes["q_down"] = (dm, cfg.q_lora_rank)
+        shapes["q_norm"] = (cfg.q_lora_rank,)
+        shapes["q_up"] = (cfg.q_lora_rank, h, cfg.qk_head_dim)
+    else:
+        shapes["q_proj"] = (dm, h, cfg.qk_head_dim)
+    shapes["kv_down"] = (dm, cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    shapes["kv_norm"] = (cfg.kv_lora_rank,)
+    shapes["k_up"] = (cfg.kv_lora_rank, h, cfg.qk_nope_head_dim)
+    shapes["v_up"] = (cfg.kv_lora_rank, h, cfg.v_head_dim)
+    shapes["o_proj"] = (h, cfg.v_head_dim, dm)
+    return shapes
+
+
+class MLA(nn.Module):
+    """The MLA parameters. Norm scales (q_norm, kv_norm) init to ones, the
+    projections to a truncated normal of std 1/sqrt(fan_in) drawn from the
+    given generator, as repro.models.mla.init_mla draws them from a key."""
+
+    def __init__(self, cfg: MLAConfig, dtype=torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        draw = torch.device(device).type != "meta"   # meta: shapes only
+        for name, shape in param_shapes(cfg).items():
+            t = torch.empty(shape, dtype=torch.float32,
+                            device="cpu" if draw else "meta")
+            if name.endswith("_norm"):
+                t.fill_(1.0)
+            elif draw:
+                nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                t.mul_(1.0 / np.sqrt(max(1, shape[0])))
+            self.register_parameter(
+                name, nn.Parameter(t.to(device=device, dtype=dtype),
+                                   requires_grad=False))
+
+    def decode(self, x, ckv_cache, positions):
+        return absorbed_decode(self, self.cfg, x, ckv_cache, positions)
+
+
+# ---------------------------------------------------------------------------
+# Shared projections
+# ---------------------------------------------------------------------------
+
+def project_q(p: MLA, cfg: MLAConfig, x, positions):
+    """x (B, S, D) -> q_nope (B, S, H, dn), q_rope (B, S, H, dr) (rotated)."""
+    if cfg.q_lora_rank:
+        qc = L.rmsnorm(p.q_norm, x @ p.q_down)
+        q = torch.einsum("bsc,chd->bshd", qc, p.q_up)
+    else:
+        q = torch.einsum("bsm,mhd->bshd", x, p.q_proj)
+    q_nope = q[..., :cfg.qk_nope_head_dim]
+    q_rope = q[..., cfg.qk_nope_head_dim:]
+    cos, sin = L.rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    q_rope = L.apply_rope(q_rope, cos[:, :, None, :], sin[:, :, None, :])
+    return q_nope, q_rope
+
+
+def latent_cache_entries(p: MLA, cfg: MLAConfig, x, positions):
+    """x (B, S, D) -> c^KV entries (B, S, d_qk): [c_kv | rotated k_rope]."""
+    kv = x @ p.kv_down
+    c_kv = L.rmsnorm(p.kv_norm, kv[..., :cfg.kv_lora_rank])
+    k_rope = kv[..., cfg.kv_lora_rank:]
+    cos, sin = L.rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    k_rope = L.apply_rope(k_rope, cos, sin)
+    return torch.cat([c_kv, k_rope], dim=-1)
+
+
+def absorb_query(p: MLA, cfg: MLAConfig, q_nope, q_rope):
+    """Fold W_uk into q: (B, S, H, dn) -> absorbed q (B, S, H, d_qk)."""
+    q_abs = torch.einsum("bshd,chd->bshc", q_nope, p.k_up)
+    return torch.cat([q_abs, q_rope], dim=-1)
+
+
+def unabsorb_output(p: MLA, cfg: MLAConfig, o_latent):
+    """Latent partial output (B, S, H, d_c) -> model output (B, S, D):
+    fold W_uv then o_proj."""
+    o = torch.einsum("bshc,chd->bshd", o_latent, p.v_up)
+    return torch.einsum("bshd,hdm->bsm", o, p.o_proj)
+
+
+# ---------------------------------------------------------------------------
+# Absorbed partial attention — the holder-side compute of ROUTE (§6.3).
+# ---------------------------------------------------------------------------
+
+def absorbed_partial_ref(cfg: MLAConfig, q_abs, ckv, mask=None) -> Partial:
+    """Plain version: q_abs (..., H, d_qk) x ckv (S, d_qk) -> Partial over
+    the resident set, through an optional (S,)-style token mask."""
+    logits = torch.matmul(q_abs.to(torch.float32),
+                          ckv.to(torch.float32).transpose(-1, -2)) * cfg.scale
+    values = ckv[:, :cfg.kv_lora_rank]
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=logits.device)
+        if mask.ndim < logits.ndim:   # (S,)-style residency masks
+            mask = mask.reshape((1,) * (logits.ndim - mask.ndim)
+                                + tuple(mask.shape))
+    return partial_from_logits(logits, values, mask)
+
+
+def absorbed_partial(cfg: MLAConfig, q_abs, ckv, mask=None) -> Partial:
+    """q_abs (..., H, d_qk) x ckv (S, d_qk) -> Partial over the resident set.
+
+    Unmasked, the leading query axes fold into the kernel's row axis and the
+    chunk is the kernel's single batch row: one mla_decode call, no copy of
+    the cache. A masked partial (the selection regime) runs the plain
+    version on the CPU; on the card it is not ported yet."""
+    if mask is not None:
+        if ckv.device.type != "cpu":
+            raise NotImplementedError(
+                "masked absorbed_partial on the card is the selection "
+                "regime, which ports with the sparse_select kernel in the "
+                "next slice (ROADMAP A.6)")
+        return absorbed_partial_ref(cfg, q_abs, ckv, mask)
+    lead = tuple(q_abs.shape[:-1])
+    q = q_abs.reshape(1, -1, q_abs.shape[-1]).contiguous()
+    part = mla_decode(q, ckv.unsqueeze(0), d_v=cfg.kv_lora_rank,
+                      scale=cfg.scale)
+    return Partial(o=part.o.reshape(lead + (cfg.kv_lora_rank,)),
+                   m=part.m.reshape(lead), l=part.l.reshape(lead))
+
+
+def absorbed_decode(p: MLA, cfg: MLAConfig, x, ckv_cache, positions, *,
+                    partial_fn=None):
+    """Single decode step in absorbed form.
+
+    x (B, 1, D); ckv_cache (B, S, d_qk); positions (B, 1) absolute position
+    of the new token. Returns (out (B, 1, D), new_entry (B, 1, d_qk)).
+    partial_fn overrides the attention inner op; by default the batch goes
+    through one mla_decode call, (B, H, d_qk) against (B, S + 1, d_qk)."""
+    q_nope, q_rope = project_q(p, cfg, x, positions)
+    q_abs = absorb_query(p, cfg, q_nope, q_rope)            # (B, 1, H, d_qk)
+    new_entry = latent_cache_entries(p, cfg, x, positions)  # (B, 1, d_qk)
+    full = torch.cat([ckv_cache, new_entry], dim=1)         # (B, S+1, d_qk)
+    if partial_fn is not None:
+        part = partial_fn(q_abs, full)
+    else:
+        B = q_abs.shape[0]
+        flat = mla_decode(q_abs.reshape(B, -1, cfg.d_qk).contiguous(),
+                          full.contiguous(), d_v=cfg.kv_lora_rank,
+                          scale=cfg.scale)
+        part = Partial(o=flat.o.reshape(q_abs.shape[:-1]
+                                        + (cfg.kv_lora_rank,)),
+                       m=flat.m.reshape(q_abs.shape[:-1]),
+                       l=flat.l.reshape(q_abs.shape[:-1]))
+    out = unabsorb_output(p, cfg, part.o[..., :cfg.kv_lora_rank].to(x.dtype))
+    return out, new_entry
