@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the serving decode path.
 
-Each kernel package (mla_decode, softmax_merge, delta_rotate) holds:
+Each kernel package (mla_decode, softmax_merge, delta_rotate, sparse_select)
+holds:
 
 * ops.py — the wrapper. On CUDA tensors it checks device, dtype, shape and
   strides, allocates its outputs with torch.empty, launches the CUDA kernel

@@ -3,8 +3,8 @@
 Each source compiles with one `nvcc` call into its own shared library with a
 plain C interface, loaded with ctypes: no PyTorch headers, so a build takes
 seconds. Libraries land in build/kernels/ at the repository root (listed in
-.gitignore), named by a hash of the source and the flags, so an edited
-source never loads a stale library. build_all() starts every nvcc at once
+.gitignore), named by a hash of the source, the shared headers and the
+flags, so an edited source never loads a stale library. build_all() starts every nvcc at once
 and waits for all of them; library() builds on first use.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -24,11 +24,12 @@ from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mla_decode", "softmax_merge", "delta_rotate")
+SOURCES = ("mla_decode", "softmax_merge", "delta_rotate", "sparse_select")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_SM_COUNT: Dict[int, int] = {}
 
 
 def nvcc_path() -> str:
@@ -45,6 +46,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # what the sources include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -94,6 +97,17 @@ def check(status: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launcher."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (cached per device index)."""
+    import torch
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def stream_of(t) -> int:

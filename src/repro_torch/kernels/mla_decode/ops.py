@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,14 +22,12 @@ from repro_torch.core.merge import Partial
 from repro_torch.kernels import build
 from repro_torch.kernels.mla_decode.ref import mla_decode_ref
 
-ROWS = 16                 # query rows per block (csrc ROWS)
-TILE = 32                 # cache rows per tile (csrc BS)
+ROWS = 16                 # query rows per block (csrc/attend.cuh ROWS)
+TILE = 32                 # cache rows per tile (csrc/attend.cuh BS)
 MAX_DV = 512
 MIN_SPLIT_TILES = 2       # a span of S is at least this many tiles
 MAX_SPLITS = 256          # csrc MERGE_MAX_SLOTS: spans the combine can merge
 BLOCKS_PER_SM = 2         # two ~111 KB blocks fit in an SM's shared memory
-
-_SM_COUNT: Dict[int, int] = {}
 
 
 def _launcher():
@@ -52,15 +50,6 @@ def split_plan(B: int, R: int, S: int, n_sm: int) -> Tuple[int, int]:
     n = max(1, min(want, tiles // MIN_SPLIT_TILES, MAX_SPLITS))
     split_len = math.ceil(tiles / n) * TILE
     return split_len, max(1, math.ceil(S / split_len))
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _SM_COUNT[idx]
 
 
 def _check(q, ckv, lengths, d_v) -> None:
@@ -116,7 +105,7 @@ def mla_decode(q: torch.Tensor, ckv: torch.Tensor,
     _check_cuda(q, ckv, lengths, d_v)
     B, R, D = q.shape
     S = ckv.shape[1]
-    split_len, n_split = split_plan(B, R, S, _sm_count(q.device))
+    split_len, n_split = split_plan(B, R, S, build.sm_count(q.device))
     with torch.cuda.device(q.device):
         o = torch.empty((B, R, d_v), dtype=torch.float32, device=q.device)
         m = torch.empty((B, R), dtype=torch.float32, device=q.device)

@@ -15,17 +15,28 @@ backend:
     PYTHONPATH=src python -m repro_torch.launch.serve --backend exec \
         --device cpu --verify --selection-frac 0
 
+    # the §5.4 selection regime: the indexer scores and selects per step,
+    # the exec backend attends the selected blocks (sparse_select), and
+    # selection requests verify against the selection_k oracle
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend exec \
+        --exec-geometry v2-lite --selection --selection-frac 0.5 \
+        --selection-k 512 --verify --save-selection-trace /tmp/sel.json
+    # ... and a recorded selection trace replays through the planner
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --selection-trace /tmp/sel.json
+
     # replay a saved trace (the SAME trace drives both backends)
     PYTHONPATH=src python -m repro_torch.launch.serve --save-trace /tmp/t.json
     PYTHONPATH=src python -m repro_torch.launch.serve --trace /tmp/t.json \
         --backend exec
 
 Same flags and output as repro.launch.serve, plus --device and
---exec-geometry. Not in this slice: --selection, --selection-trace,
---save-selection-trace, --block-tokens, --backend shard_map and
---serial-exec. Without a selector, selection-regime sessions of the
-workload (--selection-frac > 0) are priced as selection and executed dense,
-with the engine's warn-once notice, as in the reference.
+--exec-geometry; --backend shard_map and --serial-exec come with the
+multi-instance backend. The live indexer (--selection) materializes chunks
+and queries as the exec backend does, on --device. Without a selector,
+selection-regime sessions of the workload (--selection-frac > 0) are priced
+as selection and executed dense, with the engine's warn-once notice, as in
+the reference.
 """
 
 import argparse
@@ -43,6 +54,11 @@ from repro_torch.serving.workload import (WorkloadConfig, agentic_trace,
 # must reconstruct them from the trace's meta header, not trust the flags
 TRACE_META_ARGS = ("instances", "pods", "chunks", "chunk_tokens",
                    "agents", "steps", "seed")
+# a SELECTION trace additionally depends on the workload's selection knobs:
+# k_selected flows into every selection dispatch's pricing and
+# selection_frac decides WHICH sessions select — replaying with different
+# values would silently produce different StepStats
+SELECTION_META_ARGS = TRACE_META_ARGS + ("selection_k", "selection_frac")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,12 +99,24 @@ def build_parser() -> argparse.ArgumentParser:
                          "register before building the engine")
     ap.add_argument("--intra-fabric", default="tpu_ici")
     ap.add_argument("--cross-fabric", default="tpu_dcn")
+    # §5.4 selection regime
+    ap.add_argument("--selection", action="store_true",
+                    help="run the distributed indexer service: score -> "
+                         "select -> scatter-attend through the scheduler")
     ap.add_argument("--selection-k", type=int, default=2048,
                     help="per-request selection budget in tokens (the "
                          "workload's k_selected)")
     ap.add_argument("--selection-frac", type=float, default=0.1,
                     help="fraction of agent sessions in the selection "
                          "regime (workload generator)")
+    ap.add_argument("--block-tokens", type=int, default=64,
+                    help="NSA selection granularity (indexer block size)")
+    ap.add_argument("--selection-trace", default="",
+                    help="replay a recorded selection trace through the "
+                         "planner (numpy-only) instead of live scoring")
+    ap.add_argument("--save-selection-trace", default="",
+                    help="with --selection: record the indexer's per-step "
+                         "verdicts as JSON")
     # flight recorder
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace-event / Perfetto JSON of the "
@@ -117,17 +145,36 @@ def build_obs(args):
     return Obs(tracer=tracer, drift=drift)
 
 
+def exec_geometry(args):
+    """The MLA geometry the exec backend and the live indexer share."""
+    if args.exec_geometry == "v2-lite":
+        from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA
+        return V2_LITE_MLA
+    from repro_torch.serving.backends.torch_exec import TINY_MLA
+    return TINY_MLA
+
+
 def build_backend(args):
     if args.backend != "exec":
         return None
-    from repro_torch.serving.backends.torch_exec import (TINY_MLA,
-                                                         TorchExecBackend)
-    if args.exec_geometry == "v2-lite":
-        from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA
-        cfg = V2_LITE_MLA
-    else:
-        cfg = TINY_MLA
-    return TorchExecBackend(cfg, device=args.device)
+    from repro_torch.serving.backends.torch_exec import TorchExecBackend
+    return TorchExecBackend(exec_geometry(args), device=args.device)
+
+
+def build_selector(args):
+    """The engine's selection seam: live indexer (--selection, on the exec
+    geometry and device), recorded trace (--selection-trace, numpy-only),
+    or None (selection requests are priced but executed dense — the engine
+    warns once and counts them)."""
+    if args.selection:
+        from repro_torch.serving.selection import (IndexerService,
+                                                   SelectionConfig)
+        return IndexerService(SelectionConfig(block_tokens=args.block_tokens),
+                              mla=exec_geometry(args), device=args.device)
+    if args.selection_trace:
+        from repro_torch.serving.selection import ReplaySelector
+        return ReplaySelector(args.selection_trace)
+    return None
 
 
 def build_engine(args) -> ServingEngine:
@@ -139,7 +186,8 @@ def build_engine(args) -> ServingEngine:
                          cross_pod_fabric=args.cross_fabric,
                          pipeline_depth=args.pipeline_depth),
         instances_per_pod=max(1, args.instances // args.pods),
-        backend=build_backend(args), obs=build_obs(args))
+        backend=build_backend(args), selector=build_selector(args),
+        obs=build_obs(args))
 
 
 def apply_trace_meta(args, meta: dict, keys=TRACE_META_ARGS,
@@ -183,10 +231,23 @@ def main(argv=None) -> ServingEngine:
     if args.trace and args.save_trace:
         raise SystemExit("--save-trace records a GENERATED trace; it cannot "
                          "be combined with --trace (replay)")
+    if args.selection and args.selection_trace:
+        raise SystemExit("--selection scores live; it cannot be combined "
+                         "with --selection-trace (replay)")
+    if args.save_selection_trace and not args.selection:
+        raise SystemExit("--save-selection-trace records the live "
+                         "indexer's verdicts: it requires --selection")
     replay = None
     if args.trace:
         meta, replay = read_trace(args.trace)
         apply_trace_meta(args, meta)
+    if args.selection_trace:
+        # the selection trace defines its world too — including the
+        # selection knobs, which flow into pricing
+        from repro_torch.serving.selection import load_selection_trace
+        sel_meta, _ = load_selection_trace(args.selection_trace)
+        apply_trace_meta(args, sel_meta, keys=SELECTION_META_ARGS,
+                         source="--selection-trace")
     eng = build_engine(args)
     steps = build_trace(args, eng, replay)
 
@@ -202,6 +263,8 @@ def main(argv=None) -> ServingEngine:
             line = (f"[serve] step {s.step}: {len(recs)} dispatches "
                     f"{s.primitives}, {s.n_resident}/{s.n_pairs} resident, "
                     f"makespan {s.latency_s*1e6:.0f}us")
+            if eng.selector is not None:
+                line += f", {s.n_selected} selected pairs"
             if args.verify:
                 from repro_torch.serving.backends.torch_exec import \
                     max_oracle_err
@@ -221,6 +284,22 @@ def main(argv=None) -> ServingEngine:
         print(f"[serve] pipeline: depth {depth}, planner overlap hidden "
               f"{eng.planner_overlap_s*1e3:.2f}ms, "
               f"{eng.misspeculation_replans} replans")
+
+    if args.save_selection_trace:
+        from repro_torch.serving.selection import save_selection_trace
+        save_selection_trace(args.save_selection_trace, eng.selector.log,
+                             eng.selector.block_tokens, eng.selector.d_index,
+                             meta={key: getattr(args, key)
+                                   for key in SELECTION_META_ARGS})
+        print(f"[serve] selection trace -> {args.save_selection_trace} "
+              f"({len(eng.selector.log)} steps)")
+    if eng.selector is not None:
+        index_s = sum(s.stage_totals.get("index", 0.0) for s in eng.stats)
+        mk = sum(s.latency_s for s in eng.stats)
+        print(f"[serve] selection: selector={eng.selector.name}, "
+              f"{sum(s.n_selected for s in eng.stats)} selected pairs, "
+              f"indexer-stage share of makespan "
+              f"{index_s / mk if mk else 0.0:.3f}")
 
     lat = transport_latencies(eng.stats)
     n_route = sum(1 for r in eng.log if r.primitive == "route")

@@ -11,9 +11,11 @@ band is the only position-dependent part — the delta-rotation splice
 (core/splice.py, kernels/delta_rotate) re-homes exactly that band.
 
 absorbed_partial is the decode-path entry: unmasked, it goes through the
-mla_decode kernel wrapper (the CUDA kernel on the card, its plain version on
-the CPU); absorbed_partial_ref is the plain version the exactness oracle
-uses everywhere.
+mla_decode kernel wrapper, masked through sparse_select at token
+granularity; selected_partial attends a block selection through
+sparse_select (each wrapper runs its CUDA kernel on the card and its plain
+version on the CPU). absorbed_partial_ref is the plain version the exactness
+oracle uses everywhere.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 
 from repro_torch.core.merge import Partial, partial_from_logits
 from repro_torch.kernels.mla_decode import mla_decode
+from repro_torch.kernels.sparse_select import sparse_select
 from repro_torch.models import layers as L
 
 
@@ -167,19 +170,51 @@ def absorbed_partial(cfg: MLAConfig, q_abs, ckv, mask=None) -> Partial:
 
     Unmasked, the leading query axes fold into the kernel's row axis and the
     chunk is the kernel's single batch row: one mla_decode call, no copy of
-    the cache. A masked partial (the selection regime) runs the plain
-    version on the CPU; on the card it is not ported yet."""
+    the cache. Masked, it is sparse_select at block_tokens = 1 over the
+    mask's indices: an (S,) mask keeps one batch row, a mask that differs
+    per query row gives each row its own index list over the same chunk
+    (batch stride 0). Finding the indices waits for the mask's values; the
+    serving path passes block ids instead (selected_partial)."""
+    lead = tuple(q_abs.shape[:-1])
     if mask is not None:
-        if ckv.device.type != "cpu":
-            raise NotImplementedError(
-                "masked absorbed_partial on the card is the selection "
-                "regime, which ports with the sparse_select kernel in the "
-                "next slice (ROADMAP A.6)")
-        return absorbed_partial_ref(cfg, q_abs, ckv, mask)
+        mask = torch.as_tensor(mask, device=ckv.device)
+        if mask.ndim == 1:
+            q = q_abs.reshape(1, -1, q_abs.shape[-1])
+            masks = mask[None]
+        else:                              # one index list per query row
+            masks = mask.expand(lead + mask.shape[-1:]).reshape(
+                -1, mask.shape[-1])
+            q = q_abs.reshape(-1, 1, q_abs.shape[-1])
+        kb = masks.sum(-1)
+        width = int(kb.max()) if kb.numel() else 0
+        # stable sort puts each row's True positions first, in order
+        order = torch.argsort((~masks).to(torch.uint8), dim=-1,
+                              stable=True)[:, :width]
+        part = sparse_select(
+            q.contiguous(), ckv.unsqueeze(0).expand(q.shape[0], -1, -1),
+            order.to(torch.int32), kb.to(torch.int32), d_v=cfg.kv_lora_rank,
+            scale=cfg.scale, block_tokens=1)
+    else:
+        q = q_abs.reshape(1, -1, q_abs.shape[-1]).contiguous()
+        part = mla_decode(q, ckv.unsqueeze(0), d_v=cfg.kv_lora_rank,
+                          scale=cfg.scale)
+    return Partial(o=part.o.reshape(lead + (cfg.kv_lora_rank,)),
+                   m=part.m.reshape(lead), l=part.l.reshape(lead))
+
+
+def selected_partial(cfg: MLAConfig, q_abs, ckv, blocks,
+                     block_tokens: int) -> Partial:
+    """q_abs (..., H, d_qk) over the rows of ckv (S, d_qk) that the selected
+    blocks cover (block ids, ascending; a partial tail block attends only
+    its rows below S): one sparse_select call with the query rows folded
+    into its row axis, the chunk read in place. No block selected gives the
+    merge identity."""
     lead = tuple(q_abs.shape[:-1])
     q = q_abs.reshape(1, -1, q_abs.shape[-1]).contiguous()
-    part = mla_decode(q, ckv.unsqueeze(0), d_v=cfg.kv_lora_rank,
-                      scale=cfg.scale)
+    idx = torch.tensor([list(blocks)], dtype=torch.int32, device=ckv.device)
+    part = sparse_select(q, ckv.unsqueeze(0), idx,
+                         d_v=cfg.kv_lora_rank, scale=cfg.scale,
+                         block_tokens=block_tokens)
     return Partial(o=part.o.reshape(lead + (cfg.kv_lora_rank,)),
                    m=part.m.reshape(lead), l=part.l.reshape(lead))
 

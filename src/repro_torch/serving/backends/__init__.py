@@ -5,9 +5,9 @@ The planner (repro_torch.serving.engine) emits a StepPlan; a backend runs it:
 * AnalyticBackend — schedules the plan on the overlap-aware transport
   timeline. Pure simulation.
 * TorchExecBackend — ALSO executes the planned attention on real c^KV
-  tensors (on the card by default) through the mla_decode, softmax_merge
-  and delta_rotate kernels, returning decode outputs next to the analytic
-  stage costs.
+  tensors (on the card by default) through the mla_decode, softmax_merge,
+  delta_rotate and sparse_select kernels, returning decode outputs next to
+  the analytic stage costs.
 """
 
 from repro_torch.serving.backends.base import ExecutionBackend, StepExecution

@@ -17,15 +17,24 @@ group; this backend EXECUTES those decisions, by default on the card:
   requester (same deterministic materialization) and attended locally.
 * resident pairs (no transport planned) attend their local copy.
 
+Under an active selection (the plan carries the indexer's verdicts in
+StepPlan.selections), every primitive narrows to the chosen set: ROUTE,
+LOCAL and resident accesses attend that chunk's selected blocks in place
+through the sparse_select kernel (the block ids go straight to the kernel:
+no mask tensor, no device sync), and FETCH becomes the scattered gather —
+pull ONLY the selected rows at canonical positions into a new buffer,
+attend it with mla_decode, persist nothing. The merged outputs then
+reproduce single-instance selection_k decode to float round-off
+(selection_oracle_partial).
+
 Every request's per-chunk partials merge in one softmax_merge launch, so
 the output per request equals single-instance attention over the
 concatenated chunks to float round-off regardless of which primitive the
 predicate picked (§3.3).
 
-On CUDA tensors the three kernels (mla_decode, softmax_merge, delta_rotate)
-do the array work; on CPU tensors the same call sites take their plain
-versions. The selection regime is not part of this slice: a plan carrying
-selections raises NotImplementedError.
+On CUDA tensors the four kernels (mla_decode, softmax_merge, delta_rotate,
+sparse_select) do the array work; on CPU tensors the same call sites take
+their plain versions.
 
 State can be carried in from elsewhere (repro_torch.convert): chunk arrays
 attached to the store before step 1 are used as they are, and
@@ -47,7 +56,7 @@ from repro_torch.core.routing import route_batched
 from repro_torch.core.splice import splice_delta_rotate
 from repro_torch.kernels.softmax_merge import softmax_merge
 from repro_torch.models.mla import (MLAConfig, absorbed_partial,
-                                    absorbed_partial_ref)
+                                    absorbed_partial_ref, selected_partial)
 from repro_torch.serving import timeline as TL
 from repro_torch.serving.backends.base import StepExecution, StepTicket
 from repro_torch.serving.plan import Request, StepPlan, build_timeline
@@ -121,18 +130,46 @@ def oracle_partial(cfg: MLAConfig, store: ChunkStore, rq: Request, step: int,
     return absorbed_partial_ref(cfg, q, cat)
 
 
+def selection_oracle_partial(cfg: MLAConfig, store: ChunkStore, rq: Request,
+                             sel, step: int, dtype=torch.float32,
+                             device="cuda",
+                             q: Optional[torch.Tensor] = None) -> Partial:
+    """The selection-regime exactness reference: single-instance
+    selection_k decode. One instance holds the request's CONCATENATED
+    chunks, applies the GLOBAL selection mask (sel: a RequestSelection) and
+    attends the chosen entries in place (canonical positions — no
+    re-rotation, §3.3), with the plain version. The scheduler-driven
+    scatter-attend must reproduce this to float round-off however the
+    selection was split across holders and whichever primitives served
+    the shards."""
+    if q is None:
+        q = query_for(cfg, rq, step, dtype, device)
+    cat = torch.cat([store.lookup(c).data for c in rq.chunk_ids], dim=0)
+    gmask = np.concatenate([np.asarray(sel.masks[c]) for c in rq.chunk_ids])
+    return absorbed_partial_ref(cfg, q, cat,
+                                torch.as_tensor(gmask, device=cat.device))
+
+
 def max_oracle_err(engine: "ServingEngine", reqs: List[Request],
                    step: int) -> float:
     """Worst |exec output - oracle| over a step's requests. The engine must
     be running a TorchExecBackend (its cfg/dtype/device/query source define
-    the oracle)."""
+    the oracle). Requests under an active selection verify against the
+    selection oracle; everything else against dense single-instance
+    attention."""
     backend = engine.backend
     outs = engine.outputs_of(step)
+    sels = (engine.plans[step - 1].selections
+            if 1 <= step <= len(engine.plans) else {})
     worst = 0.0
     for rq in reqs:
-        want = oracle_partial(backend.cfg, engine.store, rq, step,
-                              backend.dtype, backend.device,
-                              q=backend.fresh_query(rq, step))
+        sel = sels.get(rq.req_id)
+        q = backend.fresh_query(rq, step)
+        if sel is not None:
+            want = selection_oracle_partial(backend.cfg, engine.store, rq,
+                                            sel, step, q=q)
+        else:
+            want = oracle_partial(backend.cfg, engine.store, rq, step, q=q)
         worst = max(worst, float(torch.max(torch.abs(
             outs[rq.req_id].o - want.o))))
     return worst
@@ -228,37 +265,45 @@ class TorchExecBackend:
 
     def execute(self, engine: "ServingEngine",
                 plan: StepPlan) -> StepExecution:
-        if plan.selections:
-            raise NotImplementedError(
-                "TorchExecBackend: the selection regime (plan.selections) "
-                "ports with the sparse_select kernel in the next slice "
-                "(ROADMAP A.6)")
         store = engine.store
         reqs: Dict[int, Request] = {rq.req_id: rq for rq in plan.requests}
+        sels = plan.selections
 
         def q_of(rid: int) -> torch.Tensor:
             return self.query_of(reqs[rid], plan.step)
+
+        def attend(rid: int, chunk_id: str, arr: torch.Tensor) -> Partial:
+            """The request's partial over one copy of a chunk: dense, or
+            through the indexer's selected blocks when it chose for this
+            request (plan.selections is the §5.4 handoff)."""
+            sel = sels.get(rid)
+            if sel is None:
+                return absorbed_partial(self.cfg, q_of(rid), arr)
+            return selected_partial(self.cfg, q_of(rid), arr,
+                                    sel.blocks[chunk_id], sel.block_tokens)
 
         parts: Dict[int, List[Partial]] = defaultdict(list)
 
         # resident accesses: local attention on the instance's copy
         for rp in plan.resident_pairs:
             arr = self._array_on(store, rp.chunk_id, rp.instance)
-            parts[rp.req_id].append(
-                absorbed_partial(self.cfg, q_of(rp.req_id), arr))
+            parts[rp.req_id].append(attend(rp.req_id, rp.chunk_id, arr))
 
         for rec in plan.records:
             if rec.backup or not rec.req_ids:
                 continue
             if rec.primitive == "route":
-                self._exec_route(store, rec, q_of, parts)
+                self._exec_route(store, rec, q_of, parts, sels)
             elif rec.primitive in ("fetch", "fetch_replica"):
-                self._exec_fetch(store, rec, q_of, parts)
+                if rec.req_ids[0] in sels:
+                    self._exec_fetch_selected(store, rec, q_of, parts,
+                                              sels[rec.req_ids[0]])
+                else:
+                    self._exec_fetch(store, rec, q_of, parts)
             else:                                     # local re-prefill
                 arr = self.ensure_chunk_data(store, rec.chunk_id)
                 for rid in rec.req_ids:
-                    parts[rid].append(
-                        absorbed_partial(self.cfg, q_of(rid), arr))
+                    parts[rid].append(attend(rid, rec.chunk_id, arr))
 
         outputs = {rid: self._merge(ps) for rid, ps in parts.items()}
         return StepExecution(timeline=analytic_timeline(plan),
@@ -281,13 +326,23 @@ class TorchExecBackend:
                      ticket: StepTicket) -> StepExecution:
         return ticket.execution
 
-    def _exec_route(self, store: ChunkStore, rec, q_of, parts) -> None:
+    def _exec_route(self, store: ChunkStore, rec, q_of, parts,
+                    sels) -> None:
         """One batched dispatch: stack the group's queries, one holder-side
-        partial over the holder's resident copy, slice back per request."""
+        partial over the holder's resident copy, slice back per request.
+        A selection-regime dispatch (single-request by construction: the
+        planner groups selection pairs per request) attends the request's
+        selected blocks of the holder's copy in place (§5.4)."""
         holder_arr = self._array_on(store, rec.chunk_id, rec.holder)
         qs = [q_of(rid) for rid in rec.req_ids]
-        stacked = torch.cat(qs, dim=0) if len(qs) > 1 else qs[0]
-        merged = route_batched(self.cfg, [stacked], [[holder_arr]])[0]
+        sel = sels.get(rec.req_ids[0])
+        if sel is not None:
+            merged = route_batched(self.cfg, [qs[0]], [[holder_arr]],
+                                   blocks=[[sel.blocks[rec.chunk_id]]],
+                                   block_tokens=sel.block_tokens)[0]
+        else:
+            stacked = torch.cat(qs, dim=0) if len(qs) > 1 else qs[0]
+            merged = route_batched(self.cfg, [stacked], [[holder_arr]])[0]
         off = 0
         for rid, q in zip(rec.req_ids, qs):
             n = q.shape[0]
@@ -312,3 +367,34 @@ class TorchExecBackend:
                 store.set_replica_index_keys(rec.chunk_id, dest, keys)
         for rid in rec.req_ids:
             parts[rid].append(absorbed_partial(self.cfg, q_of(rid), moved))
+
+    def _exec_fetch_selected(self, store: ChunkStore, rec, q_of, parts,
+                             sel) -> None:
+        """FETCH under selection: the scattered gather (§5.4) — pull ONLY
+        the selected rows of the source copy, at their canonical positions
+        (no splice: re-rotating a selection diverges, see core/splice),
+        into a new contiguous buffer (the moved bytes), attend it at the
+        requester with mla_decode, persist nothing (the selection is
+        re-chosen every step)."""
+        # fetch_replica under selection is unreachable by construction:
+        # replica spawns batch only DENSE fan-in overflow (selection pairs
+        # group per request and never join a dense group), so a selected
+        # request never rides a fetch_replica record, and the source below
+        # (fetch_source == rec.holder for plain fetch records) holds.
+        if rec.primitive != "fetch":
+            raise RuntimeError(
+                f"selection fetch arrived as {rec.primitive!r}: replica "
+                "spawns must never batch selected requests")
+        rid = rec.req_ids[0]
+        q = q_of(rid)
+        idx = np.nonzero(np.asarray(sel.masks[rec.chunk_id]))[0]
+        if idx.size == 0:
+            # the indexer chose nothing on this holder: the gather is
+            # empty and the request's partial is the merge identity
+            parts[rid].append(Partial.identity(
+                q.shape[:-1], self.cfg.kv_lora_rank, device=q.device))
+            return
+        src_arr = self._array_on(store, rec.chunk_id, fetch_source(rec))
+        gathered = src_arr.index_select(
+            0, torch.as_tensor(idx, device=src_arr.device))
+        parts[rid].append(absorbed_partial(self.cfg, q, gathered))

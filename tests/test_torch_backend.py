@@ -32,7 +32,6 @@ from repro.serving.backends import AnalyticBackend as JaxAnalytic
 from repro.serving.backends import JaxExecBackend
 from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA
 from repro_torch.convert import chunks_from_numpy
-from repro_torch.models import mla as TM
 from repro_torch.serving import engine as TE
 from repro_torch.serving.backends.torch_exec import (
     TINY_MLA, TorchExecBackend, chunk_array, fetch_source, max_oracle_err,
@@ -218,21 +217,6 @@ def test_fetch_source_resolution():
     rec = dataclasses.make_dataclass(
         "R", ["link_instance", "holder"])(link_instance=-1, holder=5)
     assert fetch_source(rec) == 5
-
-
-def test_selection_regime_is_refused_not_run_dense():
-    """The selection regime belongs to the next slice: a plan carrying
-    selections raises, and a masked partial off the CPU raises, instead of
-    quietly running something else."""
-    backend = TorchExecBackend(device="cpu")
-    plan = types.SimpleNamespace(selections={0: object()})
-    with pytest.raises(NotImplementedError, match="sparse_select"):
-        backend.execute(None, plan)
-    q = torch.zeros((1, TINY_MLA.n_heads, TINY_MLA.d_qk), device="meta")
-    ckv = torch.zeros((8, TINY_MLA.d_qk), device="meta")
-    with pytest.raises(NotImplementedError, match="sparse_select"):
-        TM.absorbed_partial(TINY_MLA, q, ckv,
-                            torch.ones(8, dtype=torch.bool, device="meta"))
 
 
 def test_oracle_uses_the_backend_query():

@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels.delta_rotate import ops as rot_ops
 from repro_torch.kernels.mla_decode import ops as mla_ops
 from repro_torch.kernels.softmax_merge import ops as merge_ops
+from repro_torch.kernels.sparse_select import ops as sel_ops
 from repro_torch.serving.backends.torch_exec import TorchExecBackend
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -35,7 +36,8 @@ COPIES = ("core/constants.py", "core/cost_model.py", "core/predicate.py",
           "core/chunk_store.py", "serving/timeline.py", "serving/plan.py",
           "serving/backends/base.py", "serving/backends/analytic.py",
           "obs/__init__.py", "obs/trace.py", "obs/metrics.py",
-          "obs/drift.py", "serving/engine.py", "serving/workload.py")
+          "obs/drift.py", "serving/engine.py", "serving/workload.py",
+          "serving/selection/types.py", "serving/selection/replay.py")
 
 _IMPORT_REPRO = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)
 # The copies also drop the reference's development-history tags (which
@@ -120,9 +122,11 @@ def test_exec_backend_refuses_without_a_card():
 
 def test_cpu_calls_take_the_plain_versions_and_count_nothing():
     counters = (mla_ops.mla_decode, merge_ops.softmax_merge,
-                rot_ops.delta_rotate)
+                rot_ops.delta_rotate, sel_ops.sparse_select)
     before = [fn.launches for fn in counters]
     mla_ops.mla_decode(torch.randn(1, 4, 24), torch.randn(1, 9, 24), d_v=16)
+    sel_ops.sparse_select(torch.randn(1, 4, 24), torch.randn(1, 70, 24),
+                          torch.tensor([[1]], dtype=torch.int32), d_v=16)
     merge_ops.softmax_merge(torch.randn(2, 4, 16), torch.randn(2, 4),
                             torch.rand(2, 4))
     rot_ops.delta_rotate_band(torch.randn(5, 8), 3, head_dim=8)
