@@ -8,12 +8,13 @@ repository's src/ beside this file; imports nothing of JAX or of the JAX
 package. Phases, each fatal on failure:
 
 1. device — require CUDA, disable TF32, print the card and its power limit;
-2. build  — compile the four kernels from src/repro_torch/kernels/csrc
+2. build  — compile the six kernels from src/repro_torch/kernels/csrc
    (one nvcc per source, all at once) into build/kernels/;
 3. kernels against their plain PyTorch versions on the card, at main-path
    shapes, with the tolerance printed beside the error reached; each timed
-   with CUDA events next to its plain version (and SDPA for mla_decode and,
-   with the selection as a boolean mask, for sparse_select);
+   with CUDA events next to its plain version (and SDPA for mla_decode,
+   flash_prefill (causal) and, with the selection as a boolean mask, for
+   sparse_select);
 4. serve  — repro_torch.launch.serve at DeepSeek-V2-Lite width over the
    CLI's default world, every step verified against the plain oracle;
 4b. selection serve — the same world with the live indexer (--selection,
@@ -23,14 +24,26 @@ package. Phases, each fatal on failure:
    the selection scenario and a FETCH forced under selection, at V2-Lite
    width: StepStats equal to the analytic backend's (replaying the live
    indexer's selections), outputs within tolerance of the oracle;
+5b. model — the model's serving form (repro_torch.models.model):
+   (a) DeepSeek-V2-Lite at full depth and width in bf16, weights drawn on
+   the card from seed 0: prefill of 2 x 2048 tokens, then 8 greedy
+   decode_steps on a 2056-slot cache holding the prefill caches — finite
+   logits, the cache layout, wall times; (b) the same width in f32 with the
+   depth cut to 4 layers (1 dense + 3 MoE): prefill of 2 x 512 tokens and 8
+   decode steps (2 more with selection_k = 512) through the kernels against the same steps
+   through their plain versions — equal MoE routes, logits and every
+   layer's latent cache within tolerance; (c) Mamba2-370m at full config in
+   f32: prefill of 2 x 2048 tokens and 8 decode steps, kernels against
+   plain versions;
 6. proof of the path — each kernel's launch counter, zeroed before each of
-   phases 4, 4b and 5 and read after it, is > 0 over the phases that run
-   it;
+   phases 4, 4b, 5 and the three parts of 5b and read after it, is > 0
+   over the phases that run it;
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -53,10 +66,19 @@ PEAK_F32_S = 67e12
 # (tiled online softmax with rescaling vs one max then one sum), so it is
 # held at 1e-5 absolute and relative; softmax_merge and delta_rotate round
 # every product and sum as the plain version does, and are held at 1e-6.
-# sparse_select sums over the selected rows in another order in the same
-# way as mla_decode and is held to the same.
+# sparse_select and flash_prefill sum over the attended rows in another
+# order in the same way as mla_decode and are held to the same. ssd_chunk
+# sums its gated products and state terms in another order than the
+# cuBLAS-based plain version, at outputs of order 10-100: 1e-4 absolute and
+# relative, the reference kernel test's own (tests/test_ssd_kernel.py).
 TOL = {"mla_decode": (1e-5, 1e-5), "softmax_merge": (1e-6, 0.0),
-       "delta_rotate": (1e-6, 0.0), "sparse_select": (1e-5, 1e-5)}
+       "delta_rotate": (1e-6, 0.0), "sparse_select": (1e-5, 1e-5),
+       "flash_prefill": (1e-5, 1e-5), "ssd_chunk": (1e-4, 1e-4)}
+# The model phase, kernels against plain versions through a whole model in
+# f32: every f32 reordering (about 1e-6 relative per kernel call) passes
+# through the layers, and the logits are O(1). V2-Lite cut to 4 layers:
+# 1e-4 absolute and relative; Mamba2-370m, 48 layers deep: 1e-3.
+MODEL_TOL = {"v2_lite": (1e-4, 1e-4), "mamba2": (1e-3, 1e-3)}
 # serve and goldens against the plain single-instance oracle (a tree of
 # merged partials vs one attention over the concatenated chunks)
 ORACLE_ATOL = 1e-5
@@ -422,6 +444,102 @@ def check_sparse_select(torch, dev, cfg):
     return worst, cases
 
 
+def check_flash_prefill(torch, dev, cfg):
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_ref)
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    atol, rtol = TOL["flash_prefill"]
+    D, d_v, scale, H = cfg.d_qk, cfg.kv_lora_rank, cfg.scale, cfg.n_heads
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst, cases = 0.0, []
+    # one V2-Lite sequence, its last 256 queries over the whole cache
+    # (tail-aligned), a ragged length no tile divides
+    for Sq, Sk in ((CHUNK, CHUNK), (256, CHUNK), (2000, 2000)):
+        q = torch.randn((1, Sq, H, D), device=dev, generator=g)
+        ckv = torch.randn((1, Sk, D), device=dev, generator=g)
+        got = flash_prefill(q, ckv, d_v=d_v, scale=scale)
+        want = flash_prefill_ref(q, ckv, d_v, scale)
+        torch.cuda.synchronize()
+        e = max_err(torch, got, want)
+        ok = within(torch, got, want, atol, rtol)
+        tag = f"q(1,{Sq},{H},{D}) ckv(1,{Sk},{D})"
+        log(f"[kernels] flash_prefill {tag}: max|err| {e:.3e} (atol "
+            f"{atol:g}, rtol {rtol:g}) {'ok' if ok else 'OVER TOLERANCE'}")
+        if not ok:
+            fail(f"flash_prefill {tag} disagrees with its plain version")
+        worst = max(worst, e)
+        ms, host_ms = time_ms(
+            torch, lambda: flash_prefill(q, ckv, d_v=d_v, scale=scale), 10)
+        plain_ms, _ = time_ms(
+            torch, lambda: flash_prefill_ref(q, ckv, d_v, scale), 10)
+        lib_ms = None
+        if Sq == Sk:     # SDPA's is_causal aligns to the top left
+            q4 = q.transpose(1, 2)
+            k4 = ckv[:, None].expand(1, H, Sk, D)
+            v4 = ckv[:, None, :, :d_v].expand(1, H, Sk, d_v)
+            try:
+                lib_ms, _ = time_ms(torch, lambda: sdpa(
+                    q4, k4, v4, is_causal=True, scale=scale), 10)
+            except RuntimeError as exc:   # a yardstick only, never a check
+                log(f"[kernels] sdpa yardstick unavailable: {exc}")
+        seen = sum(Sk - Sq + i + 1 for i in range(Sq))   # causal pairs
+        nbytes = 4 * (Sq * H * D + Sk * D + Sq * H * d_v)
+        flops = 2.0 * H * seen * (D + d_v)
+        b_ms, b_by = bound(nbytes, flops)
+        cases.append({"shape": tag, "ms": ms, "host_ms": host_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[kernels] flash_prefill {tag}: {ms:.4f} ms device, "
+            f"{host_ms:.4f} ms as issued (plain {plain_ms:.4f}, sdpa causal "
+            f"{lib_ms}, bound {b_ms:.5f} by {b_by})")
+    return worst, cases
+
+
+def check_ssd_chunk(torch, dev, mcfg):
+    from repro_torch.kernels.ssd_chunk import (ssd_intra_chunk,
+                                               ssd_intra_chunk_ref)
+    atol, rtol = TOL["ssd_chunk"]
+    Q, H, P, N = mcfg.chunk, mcfg.n_heads, mcfg.head_dim, mcfg.d_state
+    g = torch.Generator(device=dev).manual_seed(7)
+    worst, cases = 0.0, []
+    # one 2048-token sequence of mamba2-370m; a head block that does not
+    # divide H
+    for nc, hb in ((CHUNK // Q, 4), (CHUNK // Q, 5)):
+        # drawn as the reference's kernel test draws them
+        rnd = lambda *shape: torch.randn(shape, device=dev, generator=g)
+        ins = (rnd(1, nc, Q, H, P),
+               torch.nn.functional.softplus(rnd(1, nc, Q, H)),
+               -torch.exp(0.5 * rnd(H)), rnd(1, nc, Q, N), rnd(1, nc, Q, N))
+        got = ssd_intra_chunk(*ins, hb=hb)
+        want = ssd_intra_chunk_ref(*ins)
+        torch.cuda.synchronize()
+        errs = [max_err(torch, a, w) for a, w in zip(got, want)]
+        ok = all(within(torch, a, w, atol, rtol) for a, w in zip(got, want))
+        tag = f"x(1,{nc},{Q},{H},{P}) B/C(1,{nc},{Q},{N}) hb={hb}"
+        log(f"[kernels] ssd_chunk {tag}: max|err| y {errs[0]:.3e} states "
+            f"{errs[1]:.3e} cum {errs[2]:.3e} (atol {atol:g}, rtol {rtol:g})"
+            f" {'ok' if ok else 'OVER TOLERANCE'}")
+        if not ok:
+            fail(f"ssd_chunk {tag} disagrees with its plain version")
+        worst = max(worst, *errs)
+        ms, host_ms = time_ms(torch, lambda: ssd_intra_chunk(*ins, hb=hb),
+                              50)
+        plain_ms, _ = time_ms(torch, lambda: ssd_intra_chunk_ref(*ins),
+                              PLAIN_ITERS)
+        seen = Q * (Q + 1) // 2
+        flops = 2.0 * nc * (H * (seen * P + Q * P * N) + Q * Q * N)
+        nbytes = 4 * nc * (2 * Q * H * P + 2 * Q * H + 2 * Q * N
+                           + H * P * N) + 4 * H
+        b_ms, b_by = bound(nbytes, flops)
+        cases.append({"shape": tag, "ms": ms, "host_ms": host_ms,
+                      "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[kernels] ssd_chunk {tag}: {ms:.4f} ms device, {host_ms:.4f} "
+            f"ms as issued (plain {plain_ms:.4f}, bound {b_ms:.5f} by "
+            f"{b_by})")
+    return worst, cases
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the golden scenarios, built with the port's engine
 # ---------------------------------------------------------------------------
@@ -606,6 +724,197 @@ def run_goldens(torch, cfg, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the model's serving form
+# ---------------------------------------------------------------------------
+
+MODEL_BATCH = 2       # sequences per prefill
+MODEL_PROMPT = 2048   # tokens per sequence
+MODEL_STEPS = 8       # decode steps after the prefill
+# The V2-Lite f32 verify prefills 2 x 512 tokens. Its route check compares
+# ~3000 top-6-of-64 router choices per MoE layer that the two runs make on
+# hidden states differing by f32 reordering (~1e-6): at 2 x 2048 tokens one
+# near-tie flipped (one token of 12288 token-layers, on an H100).
+VERIFY_PROMPT = 512
+
+
+def profiled(torch, fn, top: int = 6):
+    """fn() once under torch.profiler (CUPTI): (result, device busy ms,
+    {kernel: ms} of the `top` kernels by device time). On one stream the
+    kernels do not overlap, so their sum is the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    by = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us > 0:
+            name = evt.key.replace("(anonymous namespace)::", "")
+            by[name.split("(")[0][:60]] = us / 1e3
+    ranked = dict(sorted(by.items(), key=lambda kv: -kv[1])[:top])
+    return out, sum(by.values()), ranked
+
+
+def run_model(torch, M, params, cfg, tokens, step_cfgs, *, dtype, ops,
+              feed=None, routes=None, profile_last=False):
+    """prefill tokens (B, S) through the entry points, then one decode_step
+    per config of step_cfgs on a cache of S + len(step_cfgs) slots holding
+    the prefill caches. Greedy tokens, or `feed`'s. Returns the prefill
+    logits and caches, the decode logits, the tokens fed and the walls;
+    with profile_last, the last step's device busy time and top kernels
+    (that step runs under the profiler, its wall is not kept)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    t0 = time.perf_counter()
+    logits, caches = M.prefill(params, cfg, {"tokens": tokens}, ops=ops,
+                               routes=routes)
+    torch.cuda.synchronize(dev)
+    t_prefill = time.perf_counter() - t0
+    if cfg.family == "ssm":
+        state = {"blocks": tuple(c.clone() for c in caches["blocks"])}
+    else:
+        state = M.init_decode_state(cfg, B, S + len(step_cfgs), dtype=dtype,
+                                    device=dev)
+        for k, c in caches.items():
+            state[k][:, :, :S] = c
+    tok = logits.argmax(-1)
+    fed, outs, walls, prof = [], [], [], None
+    for i, scfg in enumerate(step_cfgs):
+        tok = tok if feed is None else feed[i]
+        fed.append(tok)
+
+        def step():
+            return M.decode_step(params, scfg, state, tok,
+                                 torch.full((B, 1), S + i, device=dev),
+                                 S + i, ops=ops, routes=routes)
+        if profile_last and i == len(step_cfgs) - 1:
+            (lg, state), busy, top = profiled(torch, step)
+            prof = {"busy_ms": busy, "top_ms": top}
+        else:
+            t0 = time.perf_counter()
+            lg, state = step()
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+        outs.append(lg)
+        tok = lg.argmax(-1)
+    return {"prefill": logits, "caches": caches, "decode": outs, "fed": fed,
+            "prefill_s": t_prefill, "decode_s": walls, "profile": prof}
+
+
+def _prompt(torch, dev, vocab, length):
+    g = torch.Generator(device=dev).manual_seed(1)
+    return torch.randint(0, vocab, (MODEL_BATCH, length), device=dev,
+                         generator=g)
+
+
+def _finite(torch, t, what):
+    if not bool(torch.isfinite(t.float()).all()):
+        fail(f"{what}: non-finite values")
+
+
+def model_full_bf16(torch, dev, cfg):
+    """(a) the full-depth model in bf16: prefill, greedy decode, finite
+    logits and the reference's cache layout."""
+    from repro_torch.models import model as M
+    from repro_torch.models.module import count_params
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n = count_params(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tokens = _prompt(torch, dev, cfg.vocab, MODEL_PROMPT)
+    out = run_model(torch, M, params, cfg, tokens, [cfg] * (MODEL_STEPS + 1),
+                    dtype=torch.bfloat16, ops=M.KERNELS, profile_last=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the first prefill above pays each kernel's and GEMM's first call: a
+    # second one gives the warm wall, a third the device busy time
+    t0 = time.perf_counter()
+    M.prefill(params, cfg, {"tokens": tokens})
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    _, pf_busy, pf_top = profiled(
+        torch, lambda: M.prefill(params, cfg, {"tokens": tokens}))
+    _finite(torch, out["prefill"], f"{cfg.name} prefill logits")
+    for i, lg in enumerate(out["decode"]):
+        _finite(torch, lg, f"{cfg.name} decode step {i} logits")
+    want = {"dense_blocks": (cfg.first_k_dense, MODEL_BATCH, MODEL_PROMPT,
+                             cfg.mla.d_qk),
+            "blocks": (cfg.n_layers - cfg.first_k_dense, MODEL_BATCH,
+                       MODEL_PROMPT, cfg.mla.d_qk)}
+    got = {k: tuple(v.shape) for k, v in out["caches"].items()}
+    if got != want:
+        fail(f"{cfg.name} caches {got}, want {want}")
+    shape = tuple(out["prefill"].shape)
+    if shape != (MODEL_BATCH, 1, cfg.vocab):
+        fail(f"{cfg.name} prefill logits {shape}")
+    log(f"[model] (a) {cfg.name} full depth ({cfg.n_layers} layers, {n} "
+        f"parameters) in bf16, weights from seed 0 on the card in "
+        f"{init_s:.2f} s: prefill {MODEL_BATCH} x {MODEL_PROMPT} tokens "
+        f"{out['prefill_s']:.3f} s (warm {warm_s:.3f} s), {MODEL_STEPS} "
+        "decode steps "
+        + ", ".join(f"{w * 1e3:.1f}" for w in out["decode_s"])
+        + f" ms; logits finite, caches {got}; peak {peak:.1f} GiB")
+    dp = out["profile"]
+    log(f"[model] (a) device busy (profiler): prefill {pf_busy:.1f} ms of "
+        f"{warm_s * 1e3:.1f} ms warm wall, top kernels ms {pf_top}; a "
+        f"decode step {dp['busy_ms']:.2f} ms of {min(out['decode_s']) * 1e3:.1f}"
+        f"-{max(out['decode_s']) * 1e3:.1f} ms wall, top kernels ms "
+        f"{dp['top_ms']}")
+    del params, out
+    torch.cuda.empty_cache()
+
+
+def _compare(torch, what, got, want, tol):
+    atol, rtol = tol
+    e = max_err(torch, got.float(), want.float())
+    ok = within(torch, got.float(), want.float(), atol, rtol)
+    if not ok:
+        fail(f"{what}: kernels off the plain ops by {e:.3e} (atol {atol:g},"
+             f" rtol {rtol:g})")
+    return e
+
+
+def model_verify(torch, dev, cfg, tol, step_cfgs, label, prompt):
+    """The model in f32 through the kernels and through their plain
+    versions on the same weights and tokens (a prefill of MODEL_BATCH x
+    prompt, then step_cfgs' decode steps): equal MoE routes, prefill and
+    decode logits and every layer's cache within tol."""
+    from repro_torch.models import model as M
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.float32)
+    tokens = _prompt(torch, dev, cfg.vocab, prompt)
+    rk, rp = [], []
+    k = run_model(torch, M, params, cfg, tokens, step_cfgs,
+                  dtype=torch.float32, ops=M.KERNELS, routes=rk)
+    p = run_model(torch, M, params, cfg, tokens, step_cfgs,
+                  dtype=torch.float32, ops=M.PLAIN, feed=k["fed"], routes=rp)
+    if len(rk) != len(rp) or not all(torch.equal(a, b)
+                                     for a, b in zip(rk, rp)):
+        where = [(i, (a != b).any(-1).nonzero().flatten().tolist())
+                 for i, (a, b) in enumerate(zip(rk, rp))
+                 if a.shape != b.shape or bool((a != b).any())]
+        fail(f"{label}: MoE routes differ, (call, tokens): {where}")
+    errs = {"prefill": _compare(torch, f"{label} prefill logits",
+                                k["prefill"], p["prefill"], tol)}
+    cache_err = 0.0
+    for key in k["caches"]:
+        for i, (a, b) in enumerate(zip(k["caches"][key],
+                                       p["caches"][key])):
+            cache_err = max(cache_err, _compare(
+                torch, f"{label} cache {key}[{i}]", a, b, tol))
+    errs["caches"] = cache_err
+    errs["decode"] = max(_compare(torch, f"{label} decode step {i}", a, b,
+                                  tol)
+                         for i, (a, b) in enumerate(zip(k["decode"],
+                                                        p["decode"])))
+    del params
+    torch.cuda.empty_cache()
+    return errs, sum(int(r.numel()) for r in rk), k, p
+
 
 def main() -> int:
     import torch
@@ -643,22 +952,30 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
 
     # 3. kernels against plain versions
+    from repro_torch.configs import deepseek_v2_lite, mamba2_370m
     from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA as cfg
+    v2_lite, mamba2 = deepseek_v2_lite.config(), mamba2_370m.config()
     checks = {"mla_decode": check_mla_decode(torch, dev, cfg),
               "softmax_merge": check_softmax_merge(torch, dev, cfg),
               "delta_rotate": check_delta_rotate(torch, dev, cfg),
-              "sparse_select": check_sparse_select(torch, dev, cfg)}
+              "sparse_select": check_sparse_select(torch, dev, cfg),
+              "flash_prefill": check_flash_prefill(torch, dev, cfg),
+              "ssd_chunk": check_ssd_chunk(torch, dev, mamba2.ssm)}
 
     # 4-5. the main path: serve, the selection serve, then the goldens;
     # every counter is zeroed just before each phase and read just after
     from repro_torch.kernels.delta_rotate import ops as rot_ops
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
     from repro_torch.kernels.mla_decode import ops as mla_ops
     from repro_torch.kernels.softmax_merge import ops as merge_ops
     from repro_torch.kernels.sparse_select import ops as sel_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     wrappers = {"mla_decode": mla_ops.mla_decode,
                 "softmax_merge": merge_ops.softmax_merge,
                 "delta_rotate": rot_ops.delta_rotate,
-                "sparse_select": sel_ops.sparse_select}
+                "sparse_select": sel_ops.sparse_select,
+                "flash_prefill": fp_ops.flash_prefill,
+                "ssd_chunk": ssd_ops.ssd_intra_chunk}
 
     def counted(fn):
         for w in wrappers.values():
@@ -702,17 +1019,55 @@ def main() -> int:
         f"launches {sel_launches}")
     (golden_err, sel_golden_err), golden_launches = counted(
         lambda: (run_goldens(torch, cfg), run_selection_goldens(torch, cfg)))
+
+    # 5b. the model's serving form
+    t0 = time.perf_counter()
+    _, full_launches = counted(lambda: model_full_bf16(torch, dev, v2_lite))
+    cut = dataclasses.replace(v2_lite, n_layers=4)
+    sel = dataclasses.replace(cut, selection_k=512)
+    log(f"[model] (b) {cut.name} at full width in f32, depth cut from "
+        f"{v2_lite.n_layers} to {cut.n_layers} layers ({cut.first_k_dense} "
+        f"dense + {cut.n_layers - cut.first_k_dense} MoE; the f32 weights of "
+        f"all 27 would not leave room), prefill {MODEL_BATCH} x "
+        f"{VERIFY_PROMPT} tokens: kernels against plain versions")
+    (v_errs, n_routes, _, _), verify_launches = counted(lambda: model_verify(
+        torch, dev, cut, MODEL_TOL["v2_lite"],
+        [cut] * MODEL_STEPS + [sel] * 2, "V2-Lite f32 cut", VERIFY_PROMPT))
+    log(f"[model] (b) {n_routes} MoE routes equal in both runs; max|err| "
+        f"prefill logits {v_errs['prefill']:.3e}, latent caches "
+        f"{v_errs['caches']:.3e}, decode logits ({MODEL_STEPS} steps + 2 "
+        f"with selection_k {sel.selection_k}) {v_errs['decode']:.3e} (atol "
+        f"{MODEL_TOL['v2_lite'][0]:g}, rtol {MODEL_TOL['v2_lite'][1]:g})")
+    (m_errs, _, mk, _), mamba_launches = counted(lambda: model_verify(
+        torch, dev, mamba2, MODEL_TOL["mamba2"], [mamba2] * MODEL_STEPS,
+        "Mamba2-370m f32", MODEL_PROMPT))
+    log(f"[model] (c) {mamba2.name} full config ({mamba2.n_layers} layers) "
+        f"in f32: prefill {MODEL_BATCH} x {MODEL_PROMPT} tokens "
+        f"{mk['prefill_s']:.3f} s, decode steps "
+        + ", ".join(f"{w * 1e3:.1f}" for w in mk["decode_s"])
+        + f" ms; max|err| kernels vs plain: prefill logits "
+        f"{m_errs['prefill']:.3e}, states {m_errs['caches']:.3e}, decode "
+        f"logits {m_errs['decode']:.3e} (atol {MODEL_TOL['mamba2'][0]:g}, "
+        f"rtol {MODEL_TOL['mamba2'][1]:g})")
+    model_s = time.perf_counter() - t0
     by_phase = {"serve": serve_launches, "selection_serve": sel_launches,
-                "goldens": golden_launches}
+                "goldens": golden_launches, "model_v2_lite": full_launches,
+                "model_verify": verify_launches,
+                "model_mamba2": mamba_launches}
     launches = {k: sum(p[k] for p in by_phase.values()) for k in wrappers}
 
-    # 6. proof of the path: the dense kernels over serve + goldens, and
-    # sparse_select over the selection serve + goldens
+    # 6. proof of the path: the dense kernels over serve + goldens,
+    # sparse_select over the selection serve + goldens, and the model's
+    # kernels over the model phase
     log(f"[path] launches by phase: {by_phase}")
     missing = [k for k in ("mla_decode", "softmax_merge", "delta_rotate")
                if serve_launches[k] + golden_launches[k] <= 0]
     if sel_launches["sparse_select"] + golden_launches["sparse_select"] <= 0:
         missing.append("sparse_select")
+    model_phases = (full_launches, verify_launches, mamba_launches)
+    missing += [f"{k} (model)" for k in ("flash_prefill", "ssd_chunk",
+                                         "mla_decode")
+                if sum(p[k] for p in model_phases) <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
 
@@ -721,12 +1076,15 @@ def main() -> int:
         "mla_decode": "src/repro/kernels/mla_decode/kernel.py:69",
         "softmax_merge": "src/repro/kernels/softmax_merge/kernel.py:33",
         "delta_rotate": "src/repro/kernels/delta_rotate/kernel.py:30",
-        "sparse_select": "src/repro/kernels/sparse_select/kernel.py:58"}
+        "sparse_select": "src/repro/kernels/sparse_select/kernel.py:58",
+        "flash_prefill": "src/repro/kernels/flash_prefill/kernel.py:74",
+        "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:66"}
     # the representative main-path shape of each kernel: a 16-request
     # ROUTE group (m_q = 16) for mla_decode, M = 2 for softmax_merge, one
-    # request over 8 selected blocks for sparse_select
+    # request over 8 selected blocks for sparse_select, one 2048-token
+    # sequence for flash_prefill and ssd_chunk
     pick = {"mla_decode": 1, "softmax_merge": 0, "delta_rotate": 0,
-            "sparse_select": 0}
+            "sparse_select": 0, "flash_prefill": 0, "ssd_chunk": 0}
     kernels = []
     for name, (worst, cases) in checks.items():
         c = cases[pick[name]]
@@ -742,7 +1100,8 @@ def main() -> int:
             "library_ms": c["library_ms"], "cases": cases})
     log(f"[summary] serve {serve_s:.2f} s, selection serve {sel_s:.2f} s, "
         f"goldens max|err| {golden_err:.3e}, selection goldens "
-        f"{sel_golden_err:.3e}, total {time.perf_counter() - t_all:.1f} s")
+        f"{sel_golden_err:.3e}, model phase {model_s:.1f} s, total "
+        f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,14 @@ implementation), they arrive here as numpy arrays:
   (TorchExecBackend only materializes a chunk whose data is None);
 * TorchExecBackend(query_source=...) takes the queries;
 * mla_params_from_numpy turns an MLA parameter tree (the nested dict of
-  repro.models.mla.init_mla's values, as numpy) into the port's MLA module.
+  repro.models.mla.init_mla's values, as numpy) into the port's MLA module;
+* model_params_from_numpy does the same for a whole model: the value tree
+  of repro.models.model.init_model (after module.split), stacked leaves
+  carrying the leading layer axis, becomes the port's parameter tree.
+
+Every parameter is checked against the shape its config implies and takes
+the dtype the port's init gives it (the MoE router and the SSM's a_log,
+dt_bias and d_skip stay f32, as in the reference).
 
 Arrays are copied (torch.tensor(np.array(x))): a read-only numpy view would
 otherwise be shared with torch.
@@ -20,9 +27,11 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.chunk_store import ChunkStore
-from repro_torch.models.mla import MLA, MLAConfig, param_shapes
+from repro_torch.models.mla import MLA, MLAConfig
+from repro_torch.models.model import ModelConfig, init_model
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -36,18 +45,52 @@ def chunks_from_numpy(store: ChunkStore, arrays: Mapping[str, np.ndarray],
         store.attach_data(chunk_id, _tensor(arr, dtype, device))
 
 
+def _layer(tree, i: int):
+    """Layer i of a stacked numpy tree."""
+    if isinstance(tree, Mapping):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _load(node: nn.Module, tree, device, path: str) -> None:
+    """Replace the (meta) parameters of node by the arrays of tree, in place:
+    same names, shapes checked, each parameter keeping its own dtype."""
+    if isinstance(node, nn.ModuleList):
+        for i, child in enumerate(node):
+            _load(child, _layer(tree, i), device, f"{path}[{i}]")
+        return
+    own = dict(node.named_parameters(recurse=False))
+    children = dict(node.named_children())
+    if set(tree) != set(own) | set(children):
+        raise ValueError(f"{path or 'params'}: got keys {sorted(tree)}, the "
+                         f"config implies {sorted(set(own) | set(children))}")
+    for name, old in own.items():
+        value = tree[name]
+        if isinstance(value, Mapping):          # an MLA norm {"scale": ...}
+            value = value["scale"]
+        t = _tensor(value, old.dtype, device)
+        if t.shape != old.shape:
+            raise ValueError(f"{path}.{name}: got shape {tuple(t.shape)}, "
+                             f"cfg implies {tuple(old.shape)}")
+        setattr(node, name, nn.Parameter(t, requires_grad=False))
+    for name, child in children.items():
+        _load(child, tree[name], device, f"{path}.{name}")
+
+
 def mla_params_from_numpy(params: Mapping, cfg: MLAConfig,
                           dtype=torch.float32, device="cuda") -> MLA:
     """{name: array} with norms as {"scale": array} -> the MLA module, each
     parameter checked against the shape cfg implies."""
     mod = MLA(cfg, dtype=dtype, device="meta")
-    for name, shape in param_shapes(cfg).items():
-        value = params[name]
-        if isinstance(value, Mapping):
-            value = value["scale"]
-        t = _tensor(value, dtype, device)
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: got shape {tuple(t.shape)}, cfg "
-                             f"implies {shape}")
-        setattr(mod, name, torch.nn.Parameter(t, requires_grad=False))
+    _load(mod, params, device, "mla")
     return mod
+
+
+def model_params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                            dtype=torch.float32, device="cuda") -> nn.Module:
+    """The reference's init_model value tree, as numpy (stacked leaves with
+    the leading layer axis) -> the port's model parameters (init_model's
+    tree), every shape checked against what cfg implies."""
+    model = init_model(cfg, device="meta", dtype=dtype)
+    _load(model, tree, device, "params")
+    return model

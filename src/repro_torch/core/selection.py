@@ -10,8 +10,8 @@ selected set is scattered across holders; each holder attends its resident
 subset of the selection in place and the partials merge — no gather, no
 re-rotation.
 
-The indexer's parameters (init_indexer) come with the model substrate; the
-functions here take them as a {"q_proj", "k_proj"} dict of tensors.
+The learned indexer's parameters are a {"q_proj", "k_proj"} dict of tensors
+(init_indexer); the serving indexer needs none (latent_index_keys).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import constants as C
+from repro_torch.models.module import param
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +31,14 @@ class IndexerConfig:
     d_index: int = 64          # lightweight score-projection width
     k_tokens: int = 2048       # selection budget (V3.2/GLM-5.1 default)
     block_tokens: int = C.NSA_BLOCK_TOKENS   # 64
+
+
+def init_indexer(gen, cfg: IndexerConfig, *, dtype=torch.bfloat16,
+                 device="cuda"):
+    """The lightweight score projections, drawn from gen on device."""
+    shape = (cfg.d_model, cfg.d_index)
+    return {"q_proj": param(shape, gen, dtype=dtype, device=device),
+            "k_proj": param(shape, gen, dtype=dtype, device=device)}
 
 
 def index_scores(p, x_q: torch.Tensor, keys_idx: torch.Tensor) -> torch.Tensor:

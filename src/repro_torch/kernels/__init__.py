@@ -1,7 +1,8 @@
-"""Hand-written Hopper kernels of the serving decode path.
+"""Hand-written Hopper kernels of the serving decode path and the model's
+prefill.
 
-Each kernel package (mla_decode, softmax_merge, delta_rotate, sparse_select)
-holds:
+Each kernel package (mla_decode, softmax_merge, delta_rotate, sparse_select,
+flash_prefill, ssd_chunk) holds:
 
 * ops.py — the wrapper. On CUDA tensors it checks device, dtype, shape and
   strides, allocates its outputs with torch.empty, launches the CUDA kernel

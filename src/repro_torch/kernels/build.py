@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mla_decode", "softmax_merge", "delta_rotate", "sparse_select")
+SOURCES = ("mla_decode", "softmax_merge", "delta_rotate", "sparse_select",
+           "flash_prefill", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

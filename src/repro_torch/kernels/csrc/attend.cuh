@@ -1,5 +1,6 @@
 // The attention tile loop shared by mla_decode.cu (a contiguous span of the
-// cache) and sparse_select.cu (the cache rows that selected blocks cover).
+// cache), sparse_select.cu (the cache rows that selected blocks cover) and
+// flash_prefill.cu (a contiguous span under a causal limit per query row).
 //
 // One block owns ROWS query rows and walks its span of positions in BS-row
 // tiles, carrying the online-softmax state (m, l, acc) in registers. A
@@ -8,7 +9,10 @@
 // selected tail block beyond the chunk); such positions score -inf and add
 // nothing. Dense spans map position s to row s; gathered spans look their
 // rows up once per tile into shared memory, so each tile row is still one
-// contiguous run of D floats, read with 16-byte loads.
+// contiguous run of D floats, read with 16-byte loads. A `Limit` functor
+// gives each query row the end of the positions it may see (causal prefill);
+// positions at or past it score -inf for that row alone. Decode sees the
+// whole span (NoLimit).
 //
 // * The (ROWS, D) query tile and each (BS, D) cache tile sit in shared
 //   memory (~111 KB at D = 576, so two blocks fit on an SM). The PV product
@@ -69,6 +73,11 @@ struct BlockRows {
   }
 };
 
+// Every row sees the whole span.
+struct NoLimit {
+  __device__ __forceinline__ int operator()(int) const { return 0x7fffffff; }
+};
+
 inline int pitch_of(int D) {
   int dp = (D + 3) / 4 * 4;
   while (dp % 32 != 4) dp += 4;           // 16-byte lanes on distinct banks
@@ -83,13 +92,15 @@ inline int smem_bytes(int D, bool table) {
 
 // Attend query rows [r0, r0 + ROWS) of qb (row stride q_r) over span
 // positions [s_begin, s_end), cache rows from cb (row stride c_r) through
-// `rows`. Writes o (R-row slab at out_base, d_v columns), m and l.
-template <class Rows>
+// `rows`, row r seeing positions below limit(r). Writes o (R-row slab at
+// out_base, d_v columns), m and l.
+template <class Rows, class Limit = NoLimit>
 __device__ __forceinline__ void attend_span(
     const float* __restrict__ qb, long q_r, const float* __restrict__ cb,
     long c_r, int R, int r0, int D, int DP, int d_v, float scale,
     int s_begin, int s_end, Rows rows, float* __restrict__ o,
-    float* __restrict__ m_out, float* __restrict__ l_out, long out_base) {
+    float* __restrict__ m_out, float* __restrict__ l_out, long out_base,
+    Limit limit = Limit{}) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                       // (ROWS, DP)
   float* ks = qs + ROWS * DP;             // (BS, DP)
@@ -113,6 +124,7 @@ __device__ __forceinline__ void attend_span(
   const int ra = 2 * warp, rb = ra + 1;   // this warp's score rows
   float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F;
   float l_a = 0.f, l_b = 0.f;
+  const int lim_a = limit(r0 + ra), lim_b = limit(r0 + rb);
   float acc[ROWS][COLS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
@@ -154,8 +166,8 @@ __device__ __forceinline__ void attend_span(
     bool valid;
     if constexpr (Rows::kTable) valid = rows_s[lane] >= 0;
     else valid = s0 + lane < s_end;
-    sa = valid ? sa * scale : -CUDART_INF_F;
-    sb = valid ? sb * scale : -CUDART_INF_F;
+    sa = valid && s0 + lane < lim_a ? sa * scale : -CUDART_INF_F;
+    sb = valid && s0 + lane < lim_b ? sb * scale : -CUDART_INF_F;
 
     // online softmax for the two rows; every lane keeps the same (m, l)
     const float mna = fmaxf(m_a, warp_max(sa));

@@ -1,0 +1,107 @@
+"""Wrapper of the causal latent flash-prefill kernel (csrc/flash_prefill.cu).
+
+Replaces src/repro/kernels/flash_prefill/kernel.py:flash_prefill_pallas. On
+this card one 2048-token sequence at V2-Lite width is operation-bound (~73
+GFLOP); the kernel runs the (position, head) pairs as the query rows of
+mla_decode's tile loop (csrc/attend.cuh) under a per-row causal limit, in f32
+on CUDA cores (see the source for the design). Unlike the Pallas kernel, Sq
+and Sk need not be multiples of a block.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.kernels.mla_decode.ops import (MAX_DV, partial_buffers,
+                                                split_plan)
+
+MAX_GRID_Y = 65535        # batch rows per launch (grid.y)
+
+
+def _launcher():
+    fn = build.library("flash_prefill").flash_prefill_f32
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+        fn.argtypes = [P, L, P, L, L, I, I, I, I, I, ctypes.c_float, I, I, I,
+                       I, P, P, P, P, P, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, ckv, d_v) -> None:
+    if q.ndim != 4 or ckv.ndim != 3:
+        raise ValueError(f"flash_prefill: q must be (B, Sq, H, D) and ckv "
+                         f"(B, Sk, D), got {tuple(q.shape)} and "
+                         f"{tuple(ckv.shape)}")
+    if q.shape[0] != ckv.shape[0] or q.shape[3] != ckv.shape[2]:
+        raise ValueError(f"flash_prefill: q {tuple(q.shape)} and ckv "
+                         f"{tuple(ckv.shape)} disagree on B or D")
+    if q.shape[1] > ckv.shape[1]:
+        raise ValueError(f"flash_prefill: Sq={q.shape[1]} > Sk="
+                         f"{ckv.shape[1]} (queries align to the cache tail)")
+    if not 0 < d_v <= ckv.shape[2]:
+        raise ValueError(f"flash_prefill: d_v={d_v} outside "
+                         f"(0, D={ckv.shape[2]}]")
+    if q.device != ckv.device:
+        raise ValueError("flash_prefill: q and ckv must share a device")
+
+
+def _check_cuda(q, ckv, d_v) -> None:
+    if q.dtype != torch.float32 or ckv.dtype != torch.float32:
+        raise TypeError(f"flash_prefill kernel takes f32, got {q.dtype} / "
+                        f"{ckv.dtype}")
+    B, Sq, H, D = q.shape
+    if D % 4 or d_v > MAX_DV:
+        raise ValueError(f"flash_prefill kernel needs D % 4 == 0 and d_v <= "
+                         f"{MAX_DV}, got D={D}, d_v={d_v}")
+    if not q.is_contiguous():
+        raise ValueError("flash_prefill kernel: q must be contiguous")
+    if (ckv.stride(2) != 1 or ckv.stride(1) % 4 or ckv.stride(0) % 4
+            or ckv.data_ptr() % 16 or q.data_ptr() % 16):
+        raise ValueError(f"flash_prefill kernel: ckv needs unit column "
+                         f"stride, row/batch strides divisible by 4 and "
+                         f"16-byte alignment, got strides {ckv.stride()}")
+    if B > MAX_GRID_Y or Sq * H >= 2**31:
+        raise ValueError(f"flash_prefill kernel: at most {MAX_GRID_Y} batch "
+                         f"rows and 2^31 query rows, got B={B}, "
+                         f"Sq*H={Sq * H}")
+
+
+def flash_prefill(q: torch.Tensor, ckv: torch.Tensor, *, d_v: int = 512,
+                  scale: float = 1.0) -> torch.Tensor:
+    """Causal absorbed-MLA attention: q (B, Sq, H, D) over ckv (B, Sk, D),
+    Sq <= Sk, query i seeing cache rows [0, Sk - Sq + i]; values the first
+    d_v columns of ckv. Returns (B, Sq, H, d_v) f32. CPU tensors take the
+    plain version."""
+    _check(q, ckv, d_v)
+    if q.device.type == "cpu":
+        return flash_prefill_ref(q, ckv, d_v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill: unsupported device {q.device}")
+    _check_cuda(q, ckv, d_v)
+    B, Sq, H, D = q.shape
+    Sk = ckv.shape[1]
+    R = Sq * H
+    split_len, n_split = split_plan(B, R, Sk, build.sm_count(q.device))
+    with torch.cuda.device(q.device):
+        o = torch.empty((B, Sq, H, d_v), dtype=torch.float32,
+                        device=q.device)
+        m = torch.empty((B, R), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        parts = partial_buffers(n_split, B, R, d_v, q.device)
+        status = _launcher()(
+            q.data_ptr(), q.stride(0), ckv.data_ptr(), ckv.stride(0),
+            ckv.stride(1), B, R, Sk, D, d_v, float(scale), H, Sk - Sq,
+            split_len, n_split, o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in parts),
+            build.stream_of(q))
+        build.check(status, "flash_prefill")
+        flash_prefill.launches += 1
+    return o
+
+
+flash_prefill.launches = 0

@@ -52,6 +52,16 @@ def split_plan(B: int, R: int, S: int, n_sm: int) -> Tuple[int, int]:
     return split_len, max(1, math.ceil(S / split_len))
 
 
+def partial_buffers(n_split: int, B: int, R: int, d_v: int, device):
+    """The (o, m, l) partials of n_split spans that the combine merges, or
+    three Nones when one span writes the result directly."""
+    if n_split == 1:
+        return (None, None, None)
+    m = torch.empty((n_split, B, R), dtype=torch.float32, device=device)
+    return (torch.empty((n_split, B, R, d_v), dtype=torch.float32,
+                        device=device), m, torch.empty_like(m))
+
+
 def _check(q, ckv, lengths, d_v) -> None:
     if q.ndim != 3 or ckv.ndim != 3:
         raise ValueError(f"mla_decode: q must be (B, R, D) and ckv (B, S, D), "
@@ -110,21 +120,14 @@ def mla_decode(q: torch.Tensor, ckv: torch.Tensor,
         o = torch.empty((B, R, d_v), dtype=torch.float32, device=q.device)
         m = torch.empty((B, R), dtype=torch.float32, device=q.device)
         l = torch.empty((B, R), dtype=torch.float32, device=q.device)
-        if n_split > 1:
-            o_p = torch.empty((n_split, B, R, d_v), dtype=torch.float32,
-                              device=q.device)
-            m_p = torch.empty((n_split, B, R), dtype=torch.float32,
-                              device=q.device)
-            l_p = torch.empty_like(m_p)
-            parts = (o_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr())
-        else:
-            parts = (None, None, None)
+        parts = partial_buffers(n_split, B, R, d_v, q.device)
         status = _launcher()(
             q.data_ptr(), q.stride(0), q.stride(1),
             ckv.data_ptr(), ckv.stride(0), ckv.stride(1),
             None if lengths is None else lengths.data_ptr(),
             B, R, S, D, d_v, float(scale), split_len, n_split,
-            o.data_ptr(), m.data_ptr(), l.data_ptr(), *parts,
+            o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in parts),
             build.stream_of(q))
         build.check(status, "mla_decode")
         mla_decode.launches += 1

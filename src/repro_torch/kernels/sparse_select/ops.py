@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.core.merge import Partial
 from repro_torch.kernels import build
-from repro_torch.kernels.mla_decode.ops import MAX_DV, split_plan
+from repro_torch.kernels.mla_decode.ops import (MAX_DV, partial_buffers,
+                                                split_plan)
 from repro_torch.kernels.sparse_select.ref import sparse_select_ref
 
 MAX_GRID_Y = 65535        # batch rows per launch (grid.y)
@@ -124,15 +125,7 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
         o = torch.empty((B, R, d_v), dtype=torch.float32, device=q.device)
         m = torch.empty((B, R), dtype=torch.float32, device=q.device)
         l = torch.empty((B, R), dtype=torch.float32, device=q.device)
-        if n_split > 1:
-            o_p = torch.empty((n_split, B, R, d_v), dtype=torch.float32,
-                              device=q.device)
-            m_p = torch.empty((n_split, B, R), dtype=torch.float32,
-                              device=q.device)
-            l_p = torch.empty_like(m_p)
-            parts = (o_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr())
-        else:
-            parts = (None, None, None)
+        parts = partial_buffers(n_split, B, R, d_v, q.device)
         status = _launcher()(
             q.data_ptr(), q.stride(0), q.stride(1),
             ckv.data_ptr(), ckv.stride(0), ckv.stride(1),
@@ -140,7 +133,8 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
             None if kb is None else kb.data_ptr(),
             None if lengths is None else lengths.data_ptr(),
             B, R, S, D, d_v, float(scale), block_tokens, KB, split_len,
-            n_split, o.data_ptr(), m.data_ptr(), l.data_ptr(), *parts,
+            n_split, o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in parts),
             build.stream_of(q))
         build.check(status, "sparse_select")
         sparse_select.launches += 1

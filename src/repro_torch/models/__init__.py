@@ -1,1 +1,2 @@
-# Model layers of the port: the absorbed MLA decode form and the rope subset.
+# Model layers of the port: MLA (absorbed decode and prefill), MoE, Mamba2
+# and the model assembly of their serving form.

@@ -1,4 +1,6 @@
-"""Shared layers, the subset the decode path needs: RMSNorm and RoPE.
+"""Shared layers: norms, dense and MLPs (SwiGLU / squared-ReLU / GELU), the
+tied embedding, RoPE. Each init_* returns a dict of tensors for
+module.Tree; the apply functions index it as the reference's value trees.
 
 RoPE uses the NeoX half-split pairing. rope(p + delta) = R(delta) . rope(p)
 per frequency pair — the composition property the FETCH delta-rotation
@@ -10,6 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.module import ones, param, zeros
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, *, dtype, device):
+    return {"scale": ones((d,), dtype=dtype, device=device)}
+
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
@@ -18,6 +30,93 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * scale.to(torch.float32)).to(dt)
+
+
+def init_layernorm(d: int, *, dtype, device):
+    return {"scale": ones((d,), dtype=dtype, device=device),
+            "bias": zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    out = x * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return out.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Dense / MLP
+# ---------------------------------------------------------------------------
+
+def init_dense(gen, d_in: int, d_out: int, *, bias: bool = False, dtype,
+               device):
+    p = {"w": param((d_in, d_out), gen, dtype=dtype, device=device)}
+    if bias:
+        p["b"] = zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def init_mlp(gen, d_model: int, d_ff: int, kind: str = "swiglu", *, dtype,
+             device):
+    """kind: swiglu (gate+up+down) | squared_relu (up+down) | gelu (up+down,
+    with biases). Drawn in the reference's order: gate, up, down."""
+    p = {}
+    if kind == "swiglu":
+        p["gate"] = init_dense(gen, d_model, d_ff, dtype=dtype, device=device)
+        p["up"] = init_dense(gen, d_model, d_ff, dtype=dtype, device=device)
+    else:
+        p["up"] = init_dense(gen, d_model, d_ff, bias=(kind == "gelu"),
+                             dtype=dtype, device=device)
+    p["down"] = init_dense(gen, d_ff, d_model, bias=(kind == "gelu"),
+                           dtype=dtype, device=device)
+    return p
+
+
+def mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    if kind == "swiglu":
+        h = torch.nn.functional.silu(dense(p["gate"], x)) * dense(p["up"], x)
+    elif kind == "squared_relu":
+        h = torch.square(torch.relu(dense(p["up"], x)))
+    elif kind == "gelu":
+        h = torch.nn.functional.gelu(dense(p["up"], x), approximate="tanh")
+    else:
+        raise ValueError(kind)
+    return dense(p["down"], h)
+
+
+# ---------------------------------------------------------------------------
+# Embedding (tied head)
+# ---------------------------------------------------------------------------
+
+def init_embed(gen, vocab: int, d_model: int, *, dtype, device):
+    return {"table": param((vocab, d_model), gen, dtype=dtype, device=device,
+                           scale=1.0)}
+
+
+def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    """Tied head: the table is unit-scale for the input lookup, so the head
+    side is scaled 1/sqrt(d) to keep initial logits O(1)."""
+    d = x.shape[-1]
+    return (x @ p["table"].T) * (1.0 / np.sqrt(d))
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0) -> np.ndarray:

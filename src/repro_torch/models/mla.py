@@ -1,4 +1,4 @@
-"""Multi-head Latent Attention (DeepSeek-V2 family), absorbed decode form.
+"""Multi-head Latent Attention (DeepSeek-V2 family), in absorbed form.
 
 Fold W_uk into the query ("absorbed" q, width d_qk = kv_lora_rank +
 rope_dim = 576), attend directly against the latent cache, fold W_uv into
@@ -16,6 +16,12 @@ granularity; selected_partial attends a block selection through
 sparse_select (each wrapper runs its CUDA kernel on the card and its plain
 version on the CPU). absorbed_partial_ref is the plain version the exactness
 oracle uses everywhere.
+
+mla_attention is the prefill form: it also runs absorbed, through the
+flash_prefill kernel (causal attention of the absorbed queries over the
+latent entries it writes), where the reference decompresses c^KV into
+per-head keys and values. The two are equal up to rounding
+(tests/test_mla.py holds them at 2e-5 / 1e-4 in f32).
 """
 
 from __future__ import annotations
@@ -28,9 +34,11 @@ import torch
 from torch import nn
 
 from repro_torch.core.merge import Partial, partial_from_logits
+from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.kernels.sparse_select import sparse_select
 from repro_torch.models import layers as L
+from repro_torch.models.module import ones, param
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,27 +88,22 @@ def param_shapes(cfg: MLAConfig):
 
 
 class MLA(nn.Module):
-    """The MLA parameters. Norm scales (q_norm, kv_norm) init to ones, the
-    projections to a truncated normal of std 1/sqrt(fan_in) drawn from the
-    given generator, as repro.models.mla.init_mla draws them from a key."""
+    """The MLA parameters (init_mla). Norm scales (q_norm, kv_norm) init to
+    ones, the projections to a truncated normal of std 1/sqrt(fan_in) drawn
+    from `generator` on `device` (module.param), in the order
+    repro.models.mla.init_mla draws them from its keys."""
 
     def __init__(self, cfg: MLAConfig, dtype=torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        draw = torch.device(device).type != "meta"   # meta: shapes only
         for name, shape in param_shapes(cfg).items():
-            t = torch.empty(shape, dtype=torch.float32,
-                            device="cpu" if draw else "meta")
             if name.endswith("_norm"):
-                t.fill_(1.0)
-            elif draw:
-                nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                      generator=generator)
-                t.mul_(1.0 / np.sqrt(max(1, shape[0])))
-            self.register_parameter(
-                name, nn.Parameter(t.to(device=device, dtype=dtype),
-                                   requires_grad=False))
+                t = ones(shape, dtype=dtype, device=device)
+            else:
+                t = param(shape, generator, dtype=dtype, device=device)
+            self.register_parameter(name, nn.Parameter(t,
+                                                       requires_grad=False))
 
     def decode(self, x, ckv_cache, positions):
         return absorbed_decode(self, self.cfg, x, ckv_cache, positions)
@@ -244,3 +247,26 @@ def absorbed_decode(p: MLA, cfg: MLAConfig, x, ckv_cache, positions, *,
                        l=flat.l.reshape(q_abs.shape[:-1]))
     out = unabsorb_output(p, cfg, part.o[..., :cfg.kv_lora_rank].to(x.dtype))
     return out, new_entry
+
+
+# ---------------------------------------------------------------------------
+# Prefill form (absorbed, causal) — fills the latent cache while computing.
+# ---------------------------------------------------------------------------
+
+def mla_attention(p: MLA, cfg: MLAConfig, x, positions, *,
+                  prefill_fn=flash_prefill):
+    """Causal self-attention of x (B, S, D) -> (out (B, S, D), latent cache
+    entries (B, S, d_qk)).
+
+    prefill_fn is the attention inner op, (q (B, S, H, d_qk), ckv (B, S,
+    d_qk), *, d_v, scale) -> (B, S, H, d_v) f32: the flash_prefill wrapper
+    by default, or its plain version. Both take f32 operands, so a bf16
+    model casts its queries and entries to f32 for this one call. The
+    reference's `mask` argument has no caller and is left out."""
+    q_nope, q_rope = project_q(p, cfg, x, positions)
+    q_abs = absorb_query(p, cfg, q_nope, q_rope)            # (B, S, H, d_qk)
+    entries = latent_cache_entries(p, cfg, x, positions)    # (B, S, d_qk)
+    o_lat = prefill_fn(q_abs.to(torch.float32).contiguous(),
+                       entries.to(torch.float32).contiguous(),
+                       d_v=cfg.kv_lora_rank, scale=cfg.scale)
+    return unabsorb_output(p, cfg, o_lat.to(x.dtype)), entries

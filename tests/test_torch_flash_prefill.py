@@ -1,0 +1,154 @@
+"""Port parity: the causal latent flash prefill (repro_torch.kernels.
+flash_prefill, its plain version on CPU tensors) against the JAX package's
+flash_prefill_ref and the Pallas kernel in interpret mode, on the cases of
+tests/test_kernels.py:TestFlashPrefill (Sq < Sk included), plus a ragged
+Sk that no block of the Pallas kernel divides, and the absorbed prefill
+form of mla_attention against the reference's decompressed one.
+
+Tolerances: f32 atol 3e-6 / rtol 1e-5 for the kernel (tests/test_kernels.py
+:207-208); the absorbed against the decompressed attention at atol 2e-5 /
+rtol 1e-4 (tests/test_mla.py:41-42: the two forms sum in other orders); in
+bf16 2e-2 absolute and relative (both packages round the projections to
+bf16, in other places)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_prefill import flash_prefill as jax_flash_prefill
+from repro.kernels.flash_prefill import flash_prefill_ref as jax_ref
+from repro.models import mla as JM
+from repro.models.module import KeyGen, split
+from repro_torch.convert import mla_params_from_numpy
+from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
+from repro_torch.kernels.flash_prefill import ops as fp_ops
+from repro_torch.models import mla as TM
+
+SCALE = 1.0 / np.sqrt(192.0)
+ATOL, RTOL = 3e-6, 1e-5
+
+
+def _qc(seed, B, Sq, Sk, H, D=64):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, D)).astype(np.float32))
+
+
+def _plain(q, ckv, d_v=48):
+    before = fp_ops.flash_prefill.launches
+    out = flash_prefill(torch.tensor(q), torch.tensor(ckv), d_v=d_v,
+                        scale=SCALE)
+    assert fp_ops.flash_prefill.launches == before
+    return out.numpy()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H", [(1, 64, 64, 2), (2, 128, 256, 4),
+                                       (1, 256, 256, 8)])
+def test_plain_matches_ref_and_pallas(B, Sq, Sk, H):
+    q, ckv = _qc(Sq + Sk, B, Sq, Sk, H)
+    got = _plain(q, ckv)
+    assert got.shape == (B, Sq, H, 48) and got.dtype == np.float32
+    np.testing.assert_allclose(
+        got, np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(ckv), 48, SCALE)),
+        atol=ATOL, rtol=RTOL)
+    pallas = jax_flash_prefill(jnp.asarray(q), jnp.asarray(ckv), d_v=48,
+                               scale=SCALE, block_q=64, block_k=64)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(50, 50), (37, 101), (1, 77)])
+def test_ragged_lengths_match_ref(Sq, Sk):
+    """Sq and Sk that no tile divides (the Pallas kernel asserts they are
+    multiples of its blocks; the port's kernel masks the ragged edge)."""
+    q, ckv = _qc(Sq * Sk, 2, Sq, Sk, 3)
+    np.testing.assert_allclose(
+        _plain(q, ckv),
+        np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(ckv), 48, SCALE)),
+        atol=ATOL, rtol=RTOL)
+
+
+def test_tail_alignment_and_causality():
+    """Query i sees exactly rows [0, Sk - Sq + i]: changing a later row
+    leaves it unchanged, and the last query equals full attention."""
+    q, ckv = _qc(3, 1, 8, 20, 2)
+    base = _plain(q, ckv)
+    moved = ckv.copy()
+    moved[0, 15] += 10.0                    # row 15: seen from query 3 on
+    after = _plain(q, moved)
+    np.testing.assert_array_equal(after[0, :3], base[0, :3])
+    assert not np.allclose(after[0, 3:], base[0, 3:])
+    full = flash_prefill_ref(torch.tensor(q[:, -1:]), torch.tensor(ckv), 48,
+                             SCALE).numpy()
+    np.testing.assert_allclose(base[:, -1:], full, atol=ATOL, rtol=RTOL)
+
+
+def test_rejects_bad_inputs():
+    with pytest.raises(ValueError, match="Sq=9 > Sk=8"):
+        flash_prefill(torch.zeros((1, 9, 2, 16)), torch.zeros((1, 8, 16)),
+                      d_v=8)
+    with pytest.raises(ValueError):
+        flash_prefill(torch.zeros((1, 4, 2, 16)), torch.zeros((1, 8, 12)),
+                      d_v=8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_prefill(torch.zeros((1, 4, 2, 16), device="meta"),
+                      torch.zeros((1, 8, 16), device="meta"), d_v=8)
+
+
+CFG = TM.MLAConfig(d_model=96, n_heads=4, kv_lora_rank=32,
+                   qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
+
+
+@pytest.fixture(scope="module")
+def carried():
+    jcfg = JM.MLAConfig(**CFG.__dict__)
+    params, _ = split(JM.init_mla(KeyGen(jax.random.PRNGKey(3)), jcfg,
+                                  dtype=jnp.float32))
+    np_params = jax.tree.map(np.asarray, params)
+    return jcfg, np_params
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    ("float32", 2e-5, 1e-4), ("bfloat16", 2e-2, 2e-2)])
+def test_absorbed_prefill_matches_reference(carried, dtype, atol, rtol):
+    """The port's mla_attention (absorbed, through flash_prefill) against
+    the reference's decompressed mla_attention on the same weights: the
+    output and the latent cache entries."""
+    jcfg, np_params = carried
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    B, S = 2, 24
+    x = rng.standard_normal((B, S, CFG.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    jparams = jax.tree.map(lambda a: jnp.asarray(a, jdt), np_params)
+    want_out, want_e = JM.mla_attention(jparams, jcfg, jnp.asarray(x, jdt),
+                                        jnp.asarray(pos))
+    mod = mla_params_from_numpy(
+        jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jdt), np.float32),
+                     np_params), CFG, dtype=tdt, device="cpu")
+    got_out, got_e = TM.mla_attention(
+        mod, CFG, torch.tensor(np.asarray(jnp.asarray(x, jdt), np.float32),
+                               dtype=tdt), torch.tensor(pos))
+    assert got_out.dtype == tdt and got_e.dtype == tdt
+    np.testing.assert_allclose(got_e.float().numpy(),
+                               np.asarray(want_e, np.float32),
+                               atol=atol, rtol=rtol)
+    np.testing.assert_allclose(got_out.float().numpy(),
+                               np.asarray(want_out, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+def test_mla_attention_takes_the_plain_op_explicitly(carried):
+    """The prefill inner op is an argument: the plain version gives the same
+    result as the wrapper (on CPU tensors the wrapper runs it)."""
+    _, np_params = carried
+    mod = mla_params_from_numpy(np_params, CFG, device="cpu")
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((1, 16, CFG.d_model)),
+                     dtype=torch.float32)
+    pos = torch.arange(16, dtype=torch.int32)[None]
+    a, ea = TM.mla_attention(mod, CFG, x, pos)
+    b, eb = TM.mla_attention(mod, CFG, x, pos, prefill_fn=flash_prefill_ref)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    torch.testing.assert_close(ea, eb, atol=0, rtol=0)

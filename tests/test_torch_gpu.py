@@ -5,9 +5,12 @@ no CUDA card is present; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances (f32): mla_decode and sparse_select 1e-5 absolute and relative
-(another summation order over the attended rows and D); softmax_merge and
-delta_rotate 1e-6 (they round as the plain versions do)."""
+Tolerances (f32): mla_decode, sparse_select and flash_prefill 1e-5
+absolute and relative (another summation order over the attended rows and
+D); softmax_merge and delta_rotate 1e-6 (they round as the plain versions
+do); ssd_chunk 1e-4 absolute and relative (tests/test_ssd_kernel.py:26-29:
+the gated products and the state sums in another order, with outputs of
+order 10-100)."""
 
 import math
 
@@ -190,3 +193,81 @@ def test_exec_backend_runs_the_selection_regime(dev):
         assert eng.plans[-1].selections
         assert max_oracle_err(eng, reqs, eng.step_idx) <= 1e-5
     assert sel_ops.sparse_select.launches > before
+
+
+# (B, Sq, Sk, H): a V2-Lite sequence, a tail-aligned chunk of it, a ragged
+# length, a short prefill (its cache span split across blocks) and heads
+# that do not fill a 16-row block
+PREFILL_CASES = {"full": (1, 2048, 2048, 16), "tail": (1, 256, 2048, 16),
+                 "ragged": (2, 2000, 2000, 16), "short": (1, 40, 300, 16),
+                 "h4": (2, 77, 101, 4)}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_flash_prefill_kernel_matches_plain(dev, case):
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_ref)
+    B, Sq, Sk, H = PREFILL_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk)
+    q = torch.randn((B, Sq, H, 576), device=dev, generator=g)
+    ckv = torch.randn((B, Sk, 576), device=dev, generator=g)
+    before = flash_prefill.launches
+    got = flash_prefill(q, ckv, d_v=512, scale=1 / math.sqrt(192))
+    assert flash_prefill.launches == before + 1
+    _close(got, flash_prefill_ref(q, ckv, 512, 1 / math.sqrt(192)), 1e-5,
+           1e-5)
+
+
+# (b, nc, Q, H, P, N, hb): mamba2-370m's geometry, a head block that does
+# not divide H, and the reference kernel test's small shapes
+SSD_CASES = {"mamba2": (1, 16, 128, 32, 64, 128, 4),
+             "hb5": (2, 3, 128, 32, 64, 128, 5),
+             "small": (2, 2, 32, 8, 16, 32, 8), "odd": (1, 2, 24, 6, 12, 20, 4)}
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_chunk_kernel_matches_plain(dev, case):
+    from repro_torch.kernels.ssd_chunk import (ssd_intra_chunk,
+                                               ssd_intra_chunk_ref)
+    b, nc, Q, H, P, N, hb = SSD_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(Q + H)
+    x = torch.randn((b, nc, Q, H, P), device=dev, generator=g)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, nc, Q, H), device=dev, generator=g))
+    A = -torch.exp(0.5 * torch.randn((H,), device=dev, generator=g))
+    B = torch.randn((b, nc, Q, N), device=dev, generator=g)
+    C = torch.randn((b, nc, Q, N), device=dev, generator=g)
+    before = ssd_intra_chunk.launches
+    got = ssd_intra_chunk(x, dt, A, B, C, hb=hb)
+    assert ssd_intra_chunk.launches == before + 1
+    for a, w in zip(got, ssd_intra_chunk_ref(x, dt, A, B, C)):
+        _close(a, w, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite", "mamba2-370m"])
+def test_model_smoke_runs_the_kernels(dev, arch):
+    """The smoke configs' prefill and decode on the card, kernels against
+    the plain ops on the same weights."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    cfg = get_smoke_config(arch)
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab, (2, 32), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    outs = {}
+    for name, ops in (("kernels", M.KERNELS), ("plain", M.PLAIN)):
+        logits, caches = M.prefill(params, cfg, {"tokens": tok}, ops=ops)
+        state = M.init_decode_state(cfg, 2, 40, dtype=torch.float32,
+                                    device=dev)
+        if cfg.family == "ssm":
+            state = {"blocks": tuple(c.clone() for c in caches["blocks"])}
+        else:
+            for k in caches:
+                state[k][:, :, :32] = caches[k]
+        step, state = M.decode_step(params, cfg, state, tok[:, :1],
+                                    torch.full((2, 1), 32, device=dev), 32,
+                                    ops=ops)
+        outs[name] = (logits, step)
+    for a, b in zip(outs["kernels"], outs["plain"]):
+        _close(a, b, 1e-4, 1e-4)

@@ -20,9 +20,11 @@ import pytest
 import torch
 
 from repro_torch.kernels.delta_rotate import ops as rot_ops
+from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.mla_decode import ops as mla_ops
 from repro_torch.kernels.softmax_merge import ops as merge_ops
 from repro_torch.kernels.sparse_select import ops as sel_ops
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.serving.backends.torch_exec import TorchExecBackend
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -134,3 +136,45 @@ def test_cpu_calls_take_the_plain_versions_and_count_nothing():
     with pytest.raises(ValueError, match="unsupported device"):
         mla_ops.mla_decode(torch.zeros(1, 4, 24, device="meta"),
                            torch.zeros(1, 9, 24, device="meta"), d_v=16)
+
+
+def _prefill_call(device):
+    return fp_ops.flash_prefill(torch.randn(1, 5, 2, 24, device=device),
+                                torch.randn(1, 9, 24, device=device), d_v=16)
+
+
+def _ssd_call(device):
+    mk = lambda *s: torch.randn(*s, device=device)
+    return ssd_ops.ssd_intra_chunk(mk(1, 2, 8, 4, 6), mk(1, 2, 8, 4).abs(),
+                                   -mk(4).abs(), mk(1, 2, 8, 5),
+                                   mk(1, 2, 8, 5), hb=3)
+
+
+@pytest.mark.parametrize("call,counter", [
+    (_prefill_call, fp_ops.flash_prefill),
+    (_ssd_call, ssd_ops.ssd_intra_chunk)], ids=["flash_prefill", "ssd_chunk"])
+def test_model_kernel_wrappers_take_plain_versions_on_cpu(call, counter):
+    """The model path's wrappers run their plain versions on CPU tensors,
+    count no launch, and refuse any other device instead of falling back."""
+    before = counter.launches
+    out = call("cpu")
+    assert counter.launches == before
+    assert all(t.device.type == "cpu" and t.dtype == torch.float32
+               for t in (out if isinstance(out, tuple) else (out,)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        call("meta")
+
+
+def test_model_path_takes_its_ops_as_an_argument():
+    """The kernels or their plain versions are chosen by the caller (Ops),
+    never by an environment variable or a fallback."""
+    from repro_torch.models import model as M
+    assert M.KERNELS.flash_prefill is fp_ops.flash_prefill
+    assert M.KERNELS.ssd_intra_chunk is ssd_ops.ssd_intra_chunk
+    assert M.KERNELS.mla_decode is mla_ops.mla_decode
+    assert M.KERNELS.sparse_select is sel_ops.sparse_select
+    assert all(getattr(M.PLAIN, f).__name__.endswith("_ref")
+               for f in ("flash_prefill", "mla_decode", "sparse_select",
+                         "ssd_intra_chunk"))
+    src = (PORT / "models" / "model.py").read_text()
+    assert "os.environ" not in src and "except" not in src
