@@ -8,13 +8,15 @@ repository's src/ beside this file; imports nothing of JAX or of the JAX
 package. Phases, each fatal on failure:
 
 1. device — require CUDA, disable TF32, print the card and its power limit;
-2. build  — compile the six kernels from src/repro_torch/kernels/csrc
+2. build  — compile the seven kernels from src/repro_torch/kernels/csrc
    (one nvcc per source, all at once) into build/kernels/;
 3. kernels against their plain PyTorch versions on the card, at main-path
    shapes, with the tolerance printed beside the error reached; each timed
    with CUDA events next to its plain version (and SDPA for mla_decode,
-   flash_prefill (causal) and, with the selection as a boolean mask, for
-   sparse_select);
+   flash_prefill (causal, in the operands' dtype) and, with the selection
+   as a boolean mask, for sparse_select); flash_prefill once with f32
+   operands (csrc/flash_prefill.cu) and once with bf16 operands
+   (csrc/flash_prefill_bf16.cu);
 4. serve  — repro_torch.launch.serve at DeepSeek-V2-Lite width over the
    CLI's default world, every step verified against the plain oracle;
 4b. selection serve — the same world with the live indexer (--selection,
@@ -34,10 +36,15 @@ package. Phases, each fatal on failure:
    through their plain versions — equal MoE routes, logits and every
    layer's latent cache within tolerance; (c) Mamba2-370m at full config in
    f32: prefill of 2 x 2048 tokens and 8 decode steps, kernels against
-   plain versions;
+   plain versions; (d) one V2-Lite MLA layer (mla_attention, no MoE) in
+   bf16 at 2 x 2048 tokens through the bf16 flash_prefill kernel against
+   its plain version: the latent attention and the entries elementwise,
+   the layer output in norm, each within 2e-2;
 6. proof of the path — each kernel's launch counter, zeroed before each of
-   phases 4, 4b, 5 and the three parts of 5b and read after it, is > 0
-   over the phases that run it;
+   phases 4, 4b, 5 and the four parts of 5b and read after it, is > 0
+   over the phases that run it (flash_prefill's f32 and bf16 kernels
+   counted apart: (a) launches the bf16 one once per layer in each prefill
+   and the f32 one never, (d) the bf16 one once);
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -56,10 +63,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM data-sheet peaks (at the 700 W limit): HBM3 bytes/s and f32
-# operations/s outside the tensor cores.
+# H100 SXM data-sheet peaks (at the 700 W limit): HBM3 bytes/s, f32
+# operations/s outside the tensor cores, dense bf16 tensor-core operations/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12
 
 # Tolerances, card kernel against its plain version, f32:
 # mla_decode sums over S = 2048 rows and D = 576 columns in another order
@@ -71,9 +79,14 @@ PEAK_F32_S = 67e12
 # sums its gated products and state terms in another order than the
 # cuBLAS-based plain version, at outputs of order 10-100: 1e-4 absolute and
 # relative, the reference kernel test's own (tests/test_ssd_kernel.py).
+# flash_prefill_bf16 (bf16 operands, f32 accumulation) rounds P to bf16
+# before the PV product, <= 2^-9 relative per weight, where the plain
+# version keeps it in f32: 2e-2 absolute and relative, under the reference
+# kernel tests' own bf16 5e-2 (tests/test_kernels.py:50).
 TOL = {"mla_decode": (1e-5, 1e-5), "softmax_merge": (1e-6, 0.0),
        "delta_rotate": (1e-6, 0.0), "sparse_select": (1e-5, 1e-5),
-       "flash_prefill": (1e-5, 1e-5), "ssd_chunk": (1e-4, 1e-4)}
+       "flash_prefill": (1e-5, 1e-5), "flash_prefill_bf16": (2e-2, 2e-2),
+       "ssd_chunk": (1e-4, 1e-4)}
 # The model phase, kernels against plain versions through a whole model in
 # f32: every f32 reordering (about 1e-6 relative per kernel call) passes
 # through the layers, and the logits are O(1). V2-Lite cut to 4 layers:
@@ -173,8 +186,10 @@ def device_split_us(torch, fn, iters: int = 20) -> dict:
     return out
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_S):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over `peak`, the rate of their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -444,32 +459,44 @@ def check_sparse_select(torch, dev, cfg):
     return worst, cases
 
 
-def check_flash_prefill(torch, dev, cfg):
+def check_flash_prefill(torch, dev, cfg, dtype):
+    """flash_prefill with operands of `dtype`: f32 runs csrc/flash_prefill.cu
+    (CUDA cores), bf16 csrc/flash_prefill_bf16.cu (tensor cores); each
+    against the plain version on the same inputs, timed beside it and
+    beside SDPA in the same dtype."""
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_ref)
     from torch.nn.functional import scaled_dot_product_attention as sdpa
-    atol, rtol = TOL["flash_prefill"]
+    bf16 = dtype == torch.bfloat16
+    name = "flash_prefill_bf16" if bf16 else "flash_prefill"
+    key = "bfloat16" if bf16 else "float32"
+    atol, rtol = TOL[name]
     D, d_v, scale, H = cfg.d_qk, cfg.kv_lora_rank, cfg.scale, cfg.n_heads
     g = torch.Generator(device=dev).manual_seed(6)
     worst, cases = 0.0, []
     # one V2-Lite sequence, its last 256 queries over the whole cache
     # (tail-aligned), a ragged length no tile divides
     for Sq, Sk in ((CHUNK, CHUNK), (256, CHUNK), (2000, 2000)):
-        q = torch.randn((1, Sq, H, D), device=dev, generator=g)
-        ckv = torch.randn((1, Sk, D), device=dev, generator=g)
+        q = torch.randn((1, Sq, H, D), device=dev, generator=g).to(dtype)
+        ckv = torch.randn((1, Sk, D), device=dev, generator=g).to(dtype)
+        before = flash_prefill.launches_by_dtype[key]
         got = flash_prefill(q, ckv, d_v=d_v, scale=scale)
+        if flash_prefill.launches_by_dtype[key] != before + 1:
+            fail(f"{name}: the {key} operands did not launch the {key} "
+                 "kernel")
         want = flash_prefill_ref(q, ckv, d_v, scale)
         torch.cuda.synchronize()
         e = max_err(torch, got, want)
         ok = within(torch, got, want, atol, rtol)
-        tag = f"q(1,{Sq},{H},{D}) ckv(1,{Sk},{D})"
-        log(f"[kernels] flash_prefill {tag}: max|err| {e:.3e} (atol "
+        tag = f"q(1,{Sq},{H},{D}) ckv(1,{Sk},{D}) {key}"
+        log(f"[kernels] {name} {tag}: max|err| {e:.3e} (atol "
             f"{atol:g}, rtol {rtol:g}) {'ok' if ok else 'OVER TOLERANCE'}")
         if not ok:
-            fail(f"flash_prefill {tag} disagrees with its plain version")
+            fail(f"{name} {tag} disagrees with its plain version")
         worst = max(worst, e)
         ms, host_ms = time_ms(
-            torch, lambda: flash_prefill(q, ckv, d_v=d_v, scale=scale), 10)
+            torch, lambda: flash_prefill(q, ckv, d_v=d_v, scale=scale),
+            50 if bf16 else 10)
         plain_ms, _ = time_ms(
             torch, lambda: flash_prefill_ref(q, ckv, d_v, scale), 10)
         lib_ms = None
@@ -483,15 +510,23 @@ def check_flash_prefill(torch, dev, cfg):
             except RuntimeError as exc:   # a yardstick only, never a check
                 log(f"[kernels] sdpa yardstick unavailable: {exc}")
         seen = sum(Sk - Sq + i + 1 for i in range(Sq))   # causal pairs
-        nbytes = 4 * (Sq * H * D + Sk * D + Sq * H * d_v)
+        width = 2 if bf16 else 4                         # operand bytes
+        nbytes = width * (Sq * H * D + Sk * D) + 4 * Sq * H * d_v
         flops = 2.0 * H * seen * (D + d_v)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S if bf16 else PEAK_F32_S)
         cases.append({"shape": tag, "ms": ms, "host_ms": host_ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": b_ms, "bound_by": b_by})
-        log(f"[kernels] flash_prefill {tag}: {ms:.4f} ms device, "
+        split = ""
+        if bf16:
+            us = device_split_us(
+                torch, lambda: flash_prefill(q, ckv, d_v=d_v, scale=scale))
+            cases[-1]["device_us_by_kernel"] = us
+            split = "; profiler µs/call " + ", ".join(
+                f"{k} {v:.1f}" for k, v in us.items())
+        log(f"[kernels] {name} {tag}: {ms:.4f} ms device, "
             f"{host_ms:.4f} ms as issued (plain {plain_ms:.4f}, sdpa causal "
-            f"{lib_ms}, bound {b_ms:.5f} by {b_by})")
+            f"{lib_ms}, bound {b_ms:.5f} by {b_by}){split}")
     return worst, cases
 
 
@@ -817,8 +852,11 @@ def _finite(torch, t, what):
 def model_full_bf16(torch, dev, cfg):
     """(a) the full-depth model in bf16: prefill, greedy decode, finite
     logits and the reference's cache layout."""
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
     from repro_torch.models import model as M
     from repro_torch.models.module import count_params
+    by_dtype = fp_ops.flash_prefill.launches_by_dtype
+    at_start = dict(by_dtype)
     t0 = time.perf_counter()
     params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                           device=dev, dtype=torch.bfloat16)
@@ -832,12 +870,22 @@ def model_full_bf16(torch, dev, cfg):
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     # the first prefill above pays each kernel's and GEMM's first call: a
     # second one gives the warm wall, a third the device busy time
+    before = dict(by_dtype)
     t0 = time.perf_counter()
     M.prefill(params, cfg, {"tokens": tokens})
     torch.cuda.synchronize(dev)
     warm_s = time.perf_counter() - t0
+    per_prefill = {k: by_dtype[k] - before[k] for k in by_dtype}
+    if per_prefill != {"float32": 0, "bfloat16": cfg.n_layers}:
+        fail(f"{cfg.name} bf16 prefill launched flash_prefill {per_prefill}, "
+             f"want the bf16 kernel once per layer ({cfg.n_layers}) and the "
+             "f32 one never")
     _, pf_busy, pf_top = profiled(
         torch, lambda: M.prefill(params, cfg, {"tokens": tokens}))
+    # three prefills (cold, warm, profiled), each the bf16 kernel per layer
+    in_phase = {k: by_dtype[k] - at_start[k] for k in by_dtype}
+    if in_phase != {"float32": 0, "bfloat16": 3 * cfg.n_layers}:
+        fail(f"{cfg.name} bf16 prefills launched flash_prefill {in_phase}")
     _finite(torch, out["prefill"], f"{cfg.name} prefill logits")
     for i, lg in enumerate(out["decode"]):
         _finite(torch, lg, f"{cfg.name} decode step {i} logits")
@@ -857,7 +905,8 @@ def model_full_bf16(torch, dev, cfg):
         f"{out['prefill_s']:.3f} s (warm {warm_s:.3f} s), {MODEL_STEPS} "
         "decode steps "
         + ", ".join(f"{w * 1e3:.1f}" for w in out["decode_s"])
-        + f" ms; logits finite, caches {got}; peak {peak:.1f} GiB")
+        + f" ms; logits finite, caches {got}; peak {peak:.1f} GiB; "
+        f"flash_prefill per prefill {per_prefill}")
     dp = out["profile"]
     log(f"[model] (a) device busy (profiler): prefill {pf_busy:.1f} ms of "
         f"{warm_s * 1e3:.1f} ms warm wall, top kernels ms {pf_top}; a "
@@ -916,6 +965,63 @@ def model_verify(torch, dev, cfg, tol, step_cfgs, label, prompt):
     return errs, sum(int(r.numel()) for r in rk), k, p
 
 
+def mla_layer_bf16(torch, dev, cfg):
+    """(d) one V2-Lite MLA layer (mla_attention: no MoE, so no route can
+    flip) in bf16 at MODEL_BATCH x MODEL_PROMPT tokens, weights and input
+    from seed 0 on the card: through the flash_prefill wrapper (the bf16
+    kernel) against the same layer through its plain version.
+
+    The latent attention the inner op returns (the kernel's own output)
+    and the cache entries are held elementwise at the bf16 tolerance. The
+    layer output is the latent attention rounded to bf16 and carried
+    through two bf16 products (512 and 2048 terms, to outputs of order
+    10): a one-ulp difference of a rounded input moves every output element
+    by an amount set by the output's scale, not its own, so it is held at
+    the same 2e-2 as a relative error in norm, ||kernel - plain|| / ||plain||."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_ref)
+    from repro_torch.models import mla as MLA
+    mcfg = cfg.mla
+    g = torch.Generator(device=dev).manual_seed(0)
+    mod = MLA.MLA(mcfg, dtype=torch.bfloat16, device=dev, generator=g)
+    x = torch.randn((MODEL_BATCH, MODEL_PROMPT, mcfg.d_model), device=dev,
+                    generator=g).to(torch.bfloat16)
+    pos = torch.arange(MODEL_PROMPT, dtype=torch.int32,
+                       device=dev)[None].expand(MODEL_BATCH, -1)
+    runs = {}
+    for name, fn in (("kernel", flash_prefill), ("plain", flash_prefill_ref)):
+        lat = []
+
+        def keep(q, ckv, **kw):
+            lat.append(fn(q, ckv, **kw))
+            return lat[-1]
+        out, entries = MLA.mla_attention(mod, mcfg, x, pos, prefill_fn=keep)
+        runs[name] = {"latent attention": lat[0], "output": out,
+                      "entries": entries}
+    tol = TOL["flash_prefill_bf16"]
+    label = f"(d) {cfg.name} MLA layer bf16"
+    errs = {what: _compare(torch, f"{label} {what}", runs["kernel"][what],
+                           runs["plain"][what], tol)
+            for what in ("latent attention", "entries")}
+    got = runs["kernel"]["output"].float()
+    want = runs["plain"]["output"].float()
+    errs["output"] = max_err(torch, got, want)
+    rel = float((got - want).norm() / want.norm())
+    if not rel <= tol[1]:
+        fail(f"{label} output: kernels off the plain ops by {rel:.3e} in "
+             f"norm (relative tolerance {tol[1]:g})")
+    log(f"[model] {label}, {MODEL_BATCH} x {MODEL_PROMPT} tokens, bf16 "
+        f"flash_prefill against its plain version: max|err| latent "
+        f"attention {errs['latent attention']:.3e}, entries "
+        f"{errs['entries']:.3e} (atol {tol[0]:g}, rtol {tol[1]:g}); layer "
+        f"output ||err||/||plain|| {rel:.3e} (<= {tol[1]:g}), max|err| "
+        f"{errs['output']:.3e} at max|plain| {float(want.abs().max()):.3e}, "
+        f"rms {float(want.pow(2).mean().sqrt()):.3e}")
+    del mod
+    torch.cuda.empty_cache()
+    return errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -949,7 +1055,9 @@ def main() -> int:
     took = build.build_all()
     log(f"[build] {len(took)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel: "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
+        + ", ".join(f"{k} {v[0]:.1f} s" for k, v in took.items()) + ")")
+    for name, (_, ptxas) in took.items():       # registers and spills
+        log(f"[build] {name}.cu ptxas -v: " + " | ".join(ptxas))
 
     # 3. kernels against plain versions
     from repro_torch.configs import deepseek_v2_lite, mamba2_370m
@@ -959,7 +1067,10 @@ def main() -> int:
               "softmax_merge": check_softmax_merge(torch, dev, cfg),
               "delta_rotate": check_delta_rotate(torch, dev, cfg),
               "sparse_select": check_sparse_select(torch, dev, cfg),
-              "flash_prefill": check_flash_prefill(torch, dev, cfg),
+              "flash_prefill": check_flash_prefill(torch, dev, cfg,
+                                                   torch.float32),
+              "flash_prefill_bf16": check_flash_prefill(torch, dev, cfg,
+                                                        torch.bfloat16),
               "ssd_chunk": check_ssd_chunk(torch, dev, mamba2.ssm)}
 
     # 4-5. the main path: serve, the selection serve, then the goldens;
@@ -976,13 +1087,20 @@ def main() -> int:
                 "sparse_select": sel_ops.sparse_select,
                 "flash_prefill": fp_ops.flash_prefill,
                 "ssd_chunk": ssd_ops.ssd_intra_chunk}
+    # flash_prefill's wrapper counts its two kernels apart
+    by_dtype = fp_ops.flash_prefill.launches_by_dtype
 
     def counted(fn):
         for w in wrappers.values():
             w.launches = 0
+        for k in by_dtype:
+            by_dtype[k] = 0
         result = fn()
         torch.cuda.synchronize()
-        return result, {k: w.launches for k, w in wrappers.items()}
+        n = {k: w.launches for k, w in wrappers.items()}
+        n["flash_prefill"] = by_dtype["float32"]
+        n["flash_prefill_bf16"] = by_dtype["bfloat16"]
+        return result, n
 
     from repro_torch.launch import serve
 
@@ -1049,12 +1167,20 @@ def main() -> int:
         f"{m_errs['prefill']:.3e}, states {m_errs['caches']:.3e}, decode "
         f"logits {m_errs['decode']:.3e} (atol {MODEL_TOL['mamba2'][0]:g}, "
         f"rtol {MODEL_TOL['mamba2'][1]:g})")
+    d_errs, layer_launches = counted(
+        lambda: mla_layer_bf16(torch, dev, v2_lite))
+    if (layer_launches["flash_prefill_bf16"], layer_launches["flash_prefill"]) \
+            != (1, 0):
+        fail(f"(d) launched flash_prefill bf16 "
+             f"{layer_launches['flash_prefill_bf16']} and f32 "
+             f"{layer_launches['flash_prefill']} times, want 1 and 0")
     model_s = time.perf_counter() - t0
     by_phase = {"serve": serve_launches, "selection_serve": sel_launches,
                 "goldens": golden_launches, "model_v2_lite": full_launches,
                 "model_verify": verify_launches,
-                "model_mamba2": mamba_launches}
-    launches = {k: sum(p[k] for p in by_phase.values()) for k in wrappers}
+                "model_mamba2": mamba_launches,
+                "model_mla_bf16": layer_launches}
+    launches = {k: sum(p[k] for p in by_phase.values()) for k in checks}
 
     # 6. proof of the path: the dense kernels over serve + goldens,
     # sparse_select over the selection serve + goldens, and the model's
@@ -1064,8 +1190,10 @@ def main() -> int:
                if serve_launches[k] + golden_launches[k] <= 0]
     if sel_launches["sparse_select"] + golden_launches["sparse_select"] <= 0:
         missing.append("sparse_select")
-    model_phases = (full_launches, verify_launches, mamba_launches)
-    missing += [f"{k} (model)" for k in ("flash_prefill", "ssd_chunk",
+    model_phases = (full_launches, verify_launches, mamba_launches,
+                    layer_launches)
+    missing += [f"{k} (model)" for k in ("flash_prefill",
+                                         "flash_prefill_bf16", "ssd_chunk",
                                          "mla_decode")
                 if sum(p[k] for p in model_phases) <= 0]
     if missing:
@@ -1078,13 +1206,15 @@ def main() -> int:
         "delta_rotate": "src/repro/kernels/delta_rotate/kernel.py:30",
         "sparse_select": "src/repro/kernels/sparse_select/kernel.py:58",
         "flash_prefill": "src/repro/kernels/flash_prefill/kernel.py:74",
+        "flash_prefill_bf16": "src/repro/kernels/flash_prefill/kernel.py:74",
         "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:66"}
     # the representative main-path shape of each kernel: a 16-request
     # ROUTE group (m_q = 16) for mla_decode, M = 2 for softmax_merge, one
     # request over 8 selected blocks for sparse_select, one 2048-token
-    # sequence for flash_prefill and ssd_chunk
+    # sequence for flash_prefill (f32 and bf16 operands) and ssd_chunk
     pick = {"mla_decode": 1, "softmax_merge": 0, "delta_rotate": 0,
-            "sparse_select": 0, "flash_prefill": 0, "ssd_chunk": 0}
+            "sparse_select": 0, "flash_prefill": 0, "flash_prefill_bf16": 0,
+            "ssd_chunk": 0}
     kernels = []
     for name, (worst, cases) in checks.items():
         c = cases[pick[name]]
@@ -1100,7 +1230,8 @@ def main() -> int:
             "library_ms": c["library_ms"], "cases": cases})
     log(f"[summary] serve {serve_s:.2f} s, selection serve {sel_s:.2f} s, "
         f"goldens max|err| {golden_err:.3e}, selection goldens "
-        f"{sel_golden_err:.3e}, model phase {model_s:.1f} s, total "
+        f"{sel_golden_err:.3e}, (d) bf16 latent attention "
+        f"{d_errs['latent attention']:.3e}, model phase {model_s:.1f} s, total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -5,7 +5,8 @@ plain C interface, loaded with ctypes: no PyTorch headers, so a build takes
 seconds. Libraries land in build/kernels/ at the repository root (listed in
 .gitignore), named by a hash of the source, the shared headers and the
 flags, so an edited source never loads a stale library. build_all() starts every nvcc at once
-and waits for all of them; library() builds on first use.
+and waits for all of them, and returns what ptxas reports of each kernel
+(registers, spills); library() builds on first use.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no nvcc.
@@ -18,16 +19,17 @@ import hashlib
 import os
 import pathlib
 import shutil
+import re
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("mla_decode", "softmax_merge", "delta_rotate", "sparse_select",
-           "flash_prefill", "ssd_chunk")
+           "flash_prefill", "flash_prefill_bf16", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SM_COUNT: Dict[int, int] = {}
@@ -53,10 +55,11 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, list]]:
     """Compile every named source that has no library yet, all nvcc calls
-    in parallel. Returns {name: seconds} for the ones it built; raises with
-    the compiler's output if any build fails."""
+    in parallel. Returns {name: (seconds, ptxas lines)} for the ones it
+    built, the lines being ptxas -v's registers, spills and notes of each
+    function; raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -73,10 +76,13 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     took, errors = {}, []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        took[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue
+        took[name] = (time.perf_counter() - t0, [
+            re.sub(r" in function '.*", "", line.strip())
+            for line in log.splitlines()
+            if re.search(r"Used \d+ registers|spill|Compiling entry|C75", line)])
         os.replace(tmp, out)              # atomic: a reader never sees half
     if errors:
         raise RuntimeError("\n".join(errors))

@@ -1,11 +1,21 @@
-"""Wrapper of the causal latent flash-prefill kernel (csrc/flash_prefill.cu).
+"""Wrapper of the causal latent flash-prefill kernels (csrc/flash_prefill.cu,
+csrc/flash_prefill_bf16.cu).
 
 Replaces src/repro/kernels/flash_prefill/kernel.py:flash_prefill_pallas. On
 this card one 2048-token sequence at V2-Lite width is operation-bound (~73
-GFLOP); the kernel runs the (position, head) pairs as the query rows of
-mla_decode's tile loop (csrc/attend.cuh) under a per-row causal limit, in f32
-on CUDA cores (see the source for the design). Unlike the Pallas kernel, Sq
-and Sk need not be multiples of a block.
+GFLOP). The wrapper dispatches on the operands' dtype, and on nothing else:
+
+  * bf16 on the card: flash_prefill_bf16.cu, TMA tiles and wgmma on the
+    tensor cores (64 query rows a block, f32 accumulation), the model's
+    path in bf16;
+  * f32 on the card: flash_prefill.cu, the (position, head) pairs as the
+    query rows of mla_decode's f32 tile loop (csrc/attend.cuh) on CUDA
+    cores, the f32 verification path;
+  * either on the CPU: the plain version;
+  * mixed or other dtypes: TypeError, on every device.
+
+Both return f32. Unlike the Pallas kernel, Sq and Sk need not be multiples
+of a block (see the sources for the designs).
 """
 
 from __future__ import annotations
@@ -20,14 +30,29 @@ from repro_torch.kernels.mla_decode.ops import (MAX_DV, partial_buffers,
                                                 split_plan)
 
 MAX_GRID_Y = 65535        # batch rows per launch (grid.y)
+DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+# csrc/flash_prefill_bf16.cu: 64 query rows a block, 64 cache rows a tile,
+# nine 64-column boxes of shared memory a tile, one block per SM
+BF16_PLAN = {"rows": 64, "tile": 64, "blocks_per_sm": 1}
+BF16_MAX_D = 576
 
 
-def _launcher():
+def _launcher_f32():
     fn = build.library("flash_prefill").flash_prefill_f32
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
         fn.argtypes = [P, L, P, L, L, I, I, I, I, I, ctypes.c_float, I, I, I,
                        I, P, P, P, P, P, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launcher_bf16():
+    fn = build.library("flash_prefill_bf16").flash_prefill_bf16
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+        fn.argtypes = [P, P, L, L, I, I, I, I, I, ctypes.c_float, I, I, I, I,
+                       P, P, P, P, P, P, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -46,15 +71,23 @@ def _check(q, ckv, d_v) -> None:
     if not 0 < d_v <= ckv.shape[2]:
         raise ValueError(f"flash_prefill: d_v={d_v} outside "
                          f"(0, D={ckv.shape[2]}]")
+    if q.dtype != ckv.dtype or q.dtype not in DTYPES:
+        raise TypeError(f"flash_prefill takes q and ckv both f32 or both "
+                        f"bf16, got {q.dtype} / {ckv.dtype}")
     if q.device != ckv.device:
         raise ValueError("flash_prefill: q and ckv must share a device")
 
 
-def _check_cuda(q, ckv, d_v) -> None:
-    if q.dtype != torch.float32 or ckv.dtype != torch.float32:
-        raise TypeError(f"flash_prefill kernel takes f32, got {q.dtype} / "
-                        f"{ckv.dtype}")
-    B, Sq, H, D = q.shape
+def _check_grid(q) -> None:
+    B, Sq, H, _ = q.shape
+    if B > MAX_GRID_Y or Sq * H >= 2**31:
+        raise ValueError(f"flash_prefill kernel: at most {MAX_GRID_Y} batch "
+                         f"rows and 2^31 query rows, got B={B}, "
+                         f"Sq*H={Sq * H}")
+
+
+def _check_f32(q, ckv, d_v) -> None:
+    D = q.shape[3]
     if D % 4 or d_v > MAX_DV:
         raise ValueError(f"flash_prefill kernel needs D % 4 == 0 and d_v <= "
                          f"{MAX_DV}, got D={D}, d_v={d_v}")
@@ -65,43 +98,72 @@ def _check_cuda(q, ckv, d_v) -> None:
         raise ValueError(f"flash_prefill kernel: ckv needs unit column "
                          f"stride, row/batch strides divisible by 4 and "
                          f"16-byte alignment, got strides {ckv.stride()}")
-    if B > MAX_GRID_Y or Sq * H >= 2**31:
-        raise ValueError(f"flash_prefill kernel: at most {MAX_GRID_Y} batch "
-                         f"rows and 2^31 query rows, got B={B}, "
-                         f"Sq*H={Sq * H}")
+    _check_grid(q)
+
+
+def check_bf16(q, ckv, d_v) -> None:
+    """Raise ValueError for a shape or stride the bf16 kernel does not take
+    (its tensor maps need 16-byte strides and bases; its shared tiles hold
+    D <= 576 columns; its output columns go in pairs of warpgroup halves)."""
+    B, Sq, H, D = q.shape
+    if D % 8 or D > BF16_MAX_D:
+        raise ValueError(f"flash_prefill bf16 kernel needs D % 8 == 0 and "
+                         f"D <= {BF16_MAX_D}, got D={D}")
+    if d_v % 16 or d_v > MAX_DV:
+        raise ValueError(f"flash_prefill bf16 kernel needs d_v % 16 == 0 and "
+                         f"d_v <= {MAX_DV}, got d_v={d_v}")
+    if not q.is_contiguous():
+        raise ValueError("flash_prefill bf16 kernel: q must be contiguous")
+    if (ckv.stride(2) != 1 or ckv.stride(1) % 8
+            or (B > 1 and ckv.stride(0) % 8)
+            or ckv.data_ptr() % 16 or q.data_ptr() % 16):
+        raise ValueError(f"flash_prefill bf16 kernel: ckv needs unit column "
+                         f"stride, row/batch strides divisible by 8 (16 "
+                         f"bytes) and 16-byte alignment, got strides "
+                         f"{ckv.stride()}")
+    _check_grid(q)
 
 
 def flash_prefill(q: torch.Tensor, ckv: torch.Tensor, *, d_v: int = 512,
                   scale: float = 1.0) -> torch.Tensor:
     """Causal absorbed-MLA attention: q (B, Sq, H, D) over ckv (B, Sk, D),
     Sq <= Sk, query i seeing cache rows [0, Sk - Sq + i]; values the first
-    d_v columns of ckv. Returns (B, Sq, H, d_v) f32. CPU tensors take the
-    plain version."""
+    d_v columns of ckv. q and ckv are both f32 or both bf16. Returns
+    (B, Sq, H, d_v) f32. CPU tensors take the plain version."""
     _check(q, ckv, d_v)
     if q.device.type == "cpu":
         return flash_prefill_ref(q, ckv, d_v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
-    _check_cuda(q, ckv, d_v)
+    bf16 = q.dtype == torch.bfloat16
+    (check_bf16 if bf16 else _check_f32)(q, ckv, d_v)
     B, Sq, H, D = q.shape
     Sk = ckv.shape[1]
     R = Sq * H
-    split_len, n_split = split_plan(B, R, Sk, build.sm_count(q.device))
+    split_len, n_split = split_plan(B, R, Sk, build.sm_count(q.device),
+                                    **(BF16_PLAN if bf16 else {}))
     with torch.cuda.device(q.device):
         o = torch.empty((B, Sq, H, d_v), dtype=torch.float32,
                         device=q.device)
         m = torch.empty((B, R), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
         parts = partial_buffers(n_split, B, R, d_v, q.device)
-        status = _launcher()(
-            q.data_ptr(), q.stride(0), ckv.data_ptr(), ckv.stride(0),
-            ckv.stride(1), B, R, Sk, D, d_v, float(scale), H, Sk - Sq,
-            split_len, n_split, o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in parts),
-            build.stream_of(q))
-        build.check(status, "flash_prefill")
+        tail = (B, R, Sk, D, d_v, float(scale), H, Sk - Sq, split_len,
+                n_split, o.data_ptr(), m.data_ptr(), l.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in parts),
+                build.stream_of(q))
+        if bf16:
+            status = _launcher_bf16()(q.data_ptr(), ckv.data_ptr(),
+                                      ckv.stride(0), ckv.stride(1), *tail)
+        else:
+            status = _launcher_f32()(q.data_ptr(), q.stride(0),
+                                     ckv.data_ptr(), ckv.stride(0),
+                                     ckv.stride(1), *tail)
+        build.check(status, f"flash_prefill ({DTYPES[q.dtype]})")
         flash_prefill.launches += 1
+        flash_prefill.launches_by_dtype[DTYPES[q.dtype]] += 1
     return o
 
 
 flash_prefill.launches = 0
+flash_prefill.launches_by_dtype = {name: 0 for name in DTYPES.values()}

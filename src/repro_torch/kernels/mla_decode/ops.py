@@ -40,15 +40,19 @@ def _launcher():
     return fn
 
 
-def split_plan(B: int, R: int, S: int, n_sm: int) -> Tuple[int, int]:
+def split_plan(B: int, R: int, S: int, n_sm: int, *, rows: int = ROWS,
+               tile: int = TILE,
+               blocks_per_sm: int = BLOCKS_PER_SM) -> Tuple[int, int]:
     """(split_len, n_split): spans of S per block so that about
-    BLOCKS_PER_SM blocks per SM are in flight, each span at least
-    MIN_SPLIT_TILES tiles long. split_len is a multiple of TILE."""
-    tiles = max(1, math.ceil(S / TILE))
-    blocks = max(1, math.ceil(R / ROWS) * B)
-    want = max(1, (BLOCKS_PER_SM * n_sm) // blocks)
+    blocks_per_sm blocks per SM are in flight, each span at least
+    MIN_SPLIT_TILES tiles long, for a kernel whose blocks own `rows` query
+    rows and walk S in `tile`-row tiles (by default attend.cuh's).
+    split_len is a multiple of `tile`."""
+    tiles = max(1, math.ceil(S / tile))
+    blocks = max(1, math.ceil(R / rows) * B)
+    want = max(1, (blocks_per_sm * n_sm) // blocks)
     n = max(1, min(want, tiles // MIN_SPLIT_TILES, MAX_SPLITS))
-    split_len = math.ceil(tiles / n) * TILE
+    split_len = math.ceil(tiles / n) * tile
     return split_len, max(1, math.ceil(S / split_len))
 
 

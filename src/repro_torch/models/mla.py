@@ -260,13 +260,14 @@ def mla_attention(p: MLA, cfg: MLAConfig, x, positions, *,
 
     prefill_fn is the attention inner op, (q (B, S, H, d_qk), ckv (B, S,
     d_qk), *, d_v, scale) -> (B, S, H, d_v) f32: the flash_prefill wrapper
-    by default, or its plain version. Both take f32 operands, so a bf16
-    model casts its queries and entries to f32 for this one call. The
-    reference's `mask` argument has no caller and is left out."""
+    by default, or its plain version. Both take the queries and entries in
+    the model's own dtype, uncast: a bf16 model's go to the bf16
+    tensor-core kernel on the card, an f32 model's to the f32 one, and the
+    plain version computes in f32 from either. The reference's `mask`
+    argument has no caller and is left out."""
     q_nope, q_rope = project_q(p, cfg, x, positions)
     q_abs = absorb_query(p, cfg, q_nope, q_rope)            # (B, S, H, d_qk)
     entries = latent_cache_entries(p, cfg, x, positions)    # (B, S, d_qk)
-    o_lat = prefill_fn(q_abs.to(torch.float32).contiguous(),
-                       entries.to(torch.float32).contiguous(),
+    o_lat = prefill_fn(q_abs.contiguous(), entries.contiguous(),
                        d_v=cfg.kv_lora_rank, scale=cfg.scale)
     return unabsorb_output(p, cfg, o_lat.to(x.dtype)), entries

@@ -5,6 +5,11 @@ tests/test_kernels.py:TestFlashPrefill (Sq < Sk included), plus a ragged
 Sk that no block of the Pallas kernel divides, and the absorbed prefill
 form of mla_attention against the reference's decompressed one.
 
+The wrapper's dtype contract: q and ckv both f32 or both bf16 (the card
+picks the f32 or the bf16 kernel by it), anything else a TypeError on every
+device; CPU tensors of either dtype take the plain version and return f32.
+mla_attention hands the inner op the model's own dtype, uncast.
+
 Tolerances: f32 atol 3e-6 / rtol 1e-5 for the kernel (tests/test_kernels.py
 :207-208); the absorbed against the decompressed attention at atol 2e-5 /
 rtol 1e-4 (tests/test_mla.py:41-42: the two forms sum in other orders); in
@@ -24,6 +29,7 @@ from repro.models.module import KeyGen, split
 from repro_torch.convert import mla_params_from_numpy
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
 from repro_torch.kernels.flash_prefill import ops as fp_ops
+from repro_torch.kernels.mla_decode.ops import split_plan
 from repro_torch.models import mla as TM
 
 SCALE = 1.0 / np.sqrt(192.0)
@@ -152,3 +158,96 @@ def test_mla_attention_takes_the_plain_op_explicitly(carried):
     b, eb = TM.mla_attention(mod, CFG, x, pos, prefill_fn=flash_prefill_ref)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
     torch.testing.assert_close(ea, eb, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_attention_hands_prefill_fn_the_model_dtype(carried, dtype):
+    """No cast before the inner op: a bf16 model's queries and entries reach
+    it in bf16 (on the card: the bf16 kernel), an f32 model's in f32."""
+    _, np_params = carried
+    tdt = getattr(torch, dtype)
+    mod = mla_params_from_numpy(np_params, CFG, dtype=tdt, device="cpu")
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.standard_normal((2, 12, CFG.d_model)),
+                     dtype=torch.float32).to(tdt)
+    pos = torch.arange(12, dtype=torch.int32)[None].expand(2, 12)
+    seen = []
+
+    def spy(q, ckv, *, d_v, scale):
+        seen.append((q.dtype, ckv.dtype, q.is_contiguous(),
+                     ckv.is_contiguous()))
+        return flash_prefill_ref(q, ckv, d_v, scale)
+
+    out, entries = TM.mla_attention(mod, CFG, x, pos, prefill_fn=spy)
+    assert seen == [(tdt, tdt, True, True)]
+    assert out.dtype == tdt and entries.dtype == tdt
+
+
+@pytest.mark.parametrize("Sq,Sk,H", [(24, 24, 4), (7, 19, 3)])
+def test_wrapper_takes_bf16_to_the_plain_version_on_cpu(Sq, Sk, H):
+    """bf16 CPU operands: the plain version, f32 out, equal bit for bit to
+    the plain version of their f32 casts; no kernel launch counted."""
+    q, ckv = _qc(Sq + 31 * Sk, 2, Sq, Sk, H)
+    qb = torch.tensor(q).to(torch.bfloat16)
+    cb = torch.tensor(ckv).to(torch.bfloat16)
+    before = (fp_ops.flash_prefill.launches,
+              dict(fp_ops.flash_prefill.launches_by_dtype))
+    got = flash_prefill(qb, cb, d_v=48, scale=SCALE)
+    assert (fp_ops.flash_prefill.launches,
+            fp_ops.flash_prefill.launches_by_dtype) == before
+    assert got.dtype == torch.float32 and got.shape == (2, Sq, H, 48)
+    want = flash_prefill_ref(qb.float(), cb.float(), 48, SCALE)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("q_dtype,c_dtype", [
+    ("float32", "bfloat16"), ("bfloat16", "float32"),
+    ("float16", "float16"), ("float64", "float64")])
+def test_mixed_or_other_dtypes_raise_type_error(device, q_dtype, c_dtype):
+    q = torch.zeros((1, 4, 2, 16), dtype=getattr(torch, q_dtype),
+                    device=device)
+    ckv = torch.zeros((1, 8, 16), dtype=getattr(torch, c_dtype),
+                      device=device)
+    with pytest.raises(TypeError, match="both f32 or both bf16"):
+        flash_prefill(q, ckv, d_v=8)
+
+
+@pytest.mark.parametrize("shape,d_v,strided,match", [
+    ((1, 8, 16, 580), 512, False, "D % 8 == 0"),
+    ((1, 8, 16, 640), 512, False, "D <= 576"),
+    ((1, 8, 16, 576), 504, False, "d_v % 16 == 0"),
+    ((1, 8, 16, 576), 512, True, "row/batch strides divisible by 8"),
+])
+def test_bf16_kernel_checks_refuse_what_it_cannot_take(shape, d_v, strided,
+                                                       match):
+    """The bf16 kernel's shape and stride checks (run before any launch)
+    raise a clear error; the launch itself is on the card only."""
+    B, Sq, H, D = shape
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    width = D + 4 if strided else D          # a row pitch of D + 4 elements
+    ckv = torch.zeros((B, Sq, width), dtype=torch.bfloat16)[..., :D]
+    with pytest.raises(ValueError, match=match):
+        fp_ops.check_bf16(q, ckv, d_v)
+
+
+def test_bf16_kernel_checks_take_the_model_layout():
+    q = torch.zeros((2, 40, 16, 576), dtype=torch.bfloat16)
+    ckv = torch.zeros((2, 40, 576), dtype=torch.bfloat16)
+    fp_ops.check_bf16(q, ckv, 512)
+
+
+@pytest.mark.parametrize("B,R,Sk", [(1, 4096, 2048), (1, 32768, 2048),
+                                    (1, 640, 300), (2, 308, 101),
+                                    (1, 64, 64), (3, 48, 5000)])
+def test_bf16_split_plan_covers_the_cache_in_whole_tiles(B, R, Sk):
+    """The bf16 kernel's plan (one block of 64 rows per SM, 64-row tiles):
+    spans are whole tiles that cover Sk, split only while the blocks do not
+    fill the SMs, each at least two tiles."""
+    plan = fp_ops.BF16_PLAN
+    split_len, n_split = split_plan(B, R, Sk, 132, **plan)
+    assert split_len % plan["tile"] == 0
+    assert (n_split - 1) * split_len < Sk <= n_split * split_len
+    blocks = -(-R // plan["rows"]) * B
+    assert n_split == 1 or blocks * n_split <= 132
+    assert n_split == 1 or split_len >= 2 * plan["tile"]

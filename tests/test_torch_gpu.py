@@ -10,7 +10,11 @@ absolute and relative (another summation order over the attended rows and
 D); softmax_merge and delta_rotate 1e-6 (they round as the plain versions
 do); ssd_chunk 1e-4 absolute and relative (tests/test_ssd_kernel.py:26-29:
 the gated products and the state sums in another order, with outputs of
-order 10-100)."""
+order 10-100). flash_prefill with bf16 operands (its tensor-core kernel)
+2e-2 absolute and relative against the plain version on the same bf16
+inputs: the kernel rounds P to bf16 before the PV product, <= 2^-9
+relative per weight, where the plain version keeps P in f32; that stays
+under the reference's own bf16 5e-2 (tests/test_kernels.py:50)."""
 
 import math
 
@@ -203,19 +207,28 @@ PREFILL_CASES = {"full": (1, 2048, 2048, 16), "tail": (1, 256, 2048, 16),
                  "h4": (2, 77, 101, 4)}
 
 
+# (atol, rtol) of flash_prefill's kernel by operand dtype (module docstring)
+PREFILL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+
+
+@pytest.mark.parametrize("dtype", sorted(PREFILL_TOL))
 @pytest.mark.parametrize("case", sorted(PREFILL_CASES))
-def test_flash_prefill_kernel_matches_plain(dev, case):
+def test_flash_prefill_kernel_matches_plain(dev, case, dtype):
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_ref)
     B, Sq, Sk, H = PREFILL_CASES[case]
     g = torch.Generator(device=dev).manual_seed(Sq + Sk)
-    q = torch.randn((B, Sq, H, 576), device=dev, generator=g)
-    ckv = torch.randn((B, Sk, 576), device=dev, generator=g)
-    before = flash_prefill.launches
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Sq, H, 576), device=dev, generator=g).to(dt)
+    ckv = torch.randn((B, Sk, 576), device=dev, generator=g).to(dt)
+    before = (flash_prefill.launches, dict(flash_prefill.launches_by_dtype))
     got = flash_prefill(q, ckv, d_v=512, scale=1 / math.sqrt(192))
-    assert flash_prefill.launches == before + 1
-    _close(got, flash_prefill_ref(q, ckv, 512, 1 / math.sqrt(192)), 1e-5,
-           1e-5)
+    assert flash_prefill.launches == before[0] + 1
+    assert flash_prefill.launches_by_dtype == {
+        k: n + (k == dtype) for k, n in before[1].items()}
+    assert got.dtype == torch.float32
+    _close(got, flash_prefill_ref(q, ckv, 512, 1 / math.sqrt(192)),
+           *PREFILL_TOL[dtype])
 
 
 # (b, nc, Q, H, P, N, hb): mamba2-370m's geometry, a head block that does
