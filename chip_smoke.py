@@ -14,8 +14,12 @@ package. Phases, each fatal on failure:
    shapes, with the tolerance printed beside the error reached; each timed
    with CUDA events next to its plain version (and SDPA for mla_decode,
    flash_prefill (causal, in the operands' dtype) and, with the selection
-   as a boolean mask, for sparse_select); flash_prefill once with f32
-   operands (csrc/flash_prefill.cu) and once with bf16 operands
+   as a boolean mask, for sparse_select); mla_decode at one request, ROUTE
+   groups of 256, 4096 and 16 384 rows and model (a)'s decode (B = 2), each
+   logging the loop and the spans its plan took, with both 16-row loops
+   timed where the plan takes one, and a sweep of the 16-row rule over
+   batch, rows and cache length; flash_prefill once
+   with f32 operands (csrc/flash_prefill.cu) and once with bf16 operands
    (csrc/flash_prefill_bf16.cu);
 4. serve  — repro_torch.launch.serve at DeepSeek-V2-Lite width over the
    CLI's default world, every step verified against the plain oracle;
@@ -199,12 +203,14 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_F32_S):
 # ---------------------------------------------------------------------------
 
 def check_mla_decode(torch, dev, cfg):
+    from repro_torch.kernels import build
     from repro_torch.kernels.mla_decode import mla_decode, mla_decode_ref
+    from repro_torch.kernels.mla_decode import ops as mla_ops
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     atol, rtol = TOL["mla_decode"]
     D, d_v, scale = cfg.d_qk, cfg.kv_lora_rank, cfg.scale
+    H = cfg.n_heads
     g = torch.Generator(device=dev).manual_seed(1)
-    ckv = torch.randn((1, CHUNK, D), device=dev, generator=g)
     worst, cases = 0.0, []
 
     def compare(tag, got, want):
@@ -221,15 +227,40 @@ def check_mla_decode(torch, dev, cfg):
             fail(f"mla_decode {tag} disagrees with its plain version")
         worst = max(worst, e["o"])
 
-    for m_q in (1, 16, 256):
-        R = cfg.n_heads * m_q
-        q = torch.randn((1, R, D), device=dev, generator=g)
+    def time_16_row_loops(q, ckv, want, tag, iters):
+        """Both sides of decode_plan's 16-row rule: each 16-row loop under
+        the split it would take, checked and timed."""
+        B, R, _ = q.shape
+        S = ckv.shape[1]
+        out = {}
+        for name in ("tiled16", "attend16"):
+            p = mla_ops.loop_plan(name, B, R, S, build.sm_count(dev))
+            run = lambda: mla_ops._launch(q, ckv, None, d_v, scale, p)
+            compare(f"{tag} through {name} x {p.n_split} spans", run(), want)
+            out[name] = time_ms(torch, run, iters)[0]
+        return out
+
+    # (tag, B, R, S): one request (m_q = 1), ROUTE groups of 16, 256 and
+    # 1024-row requests (the last the mixed_congested golden's four
+    # m_q = 1024 requests on one 2048-token chunk), model (a)'s decode
+    # (B = 2 sequences of 16 heads over the 2056-slot cache)
+    shapes = [("m_q=1", 1, H, CHUNK), ("m_q=16", 1, H * 16, CHUNK),
+              ("m_q=256", 1, H * 256, CHUNK),
+              ("4 x m_q=1024 (golden)", 1, H * 1024, CHUNK),
+              ("model (a) decode", 2, H, 2056)]
+    for tag, B, R, S in shapes:
+        q = torch.randn((B, R, D), device=dev, generator=g)
+        ckv = torch.randn((B, S, D), device=dev, generator=g)
+        plan = mla_ops.decode_plan(B, R, S, build.sm_count(dev))
         got = mla_decode(q, ckv, d_v=d_v, scale=scale)
         want = mla_decode_ref(q, ckv, None, d_v, scale)
-        compare(f"m_q={m_q} ({R} rows x {CHUNK})", got, want)
-        iters = 100 if m_q < 256 else 20
+        compare(f"{tag} q({B},{R},{D}) ckv({B},{S},{D}), loop "
+                f"{plan.loop} x {plan.n_split} spans", got, want)
+        iters = 100 if R < 256 else (20 if R < 16384 else 10)
         ms, host_ms = time_ms(
             torch, lambda: mla_decode(q, ckv, d_v=d_v, scale=scale), iters)
+        loops_ms = (time_16_row_loops(q, ckv, want, tag, iters)
+                    if plan.loop != "group" else {})
         plain_ms, _ = time_ms(torch, lambda: mla_decode_ref(q, ckv, None, d_v,
                                                             scale),
                               PLAIN_ITERS)
@@ -240,34 +271,61 @@ def check_mla_decode(torch, dev, cfg):
         except RuntimeError as exc:       # a yardstick only, never a check
             log(f"[kernels] sdpa yardstick unavailable: {exc}")
             lib_ms = None
-        nbytes = 4 * (R * D + CHUNK * D + R * (d_v + 2))
-        flops = 2.0 * R * CHUNK * (D + d_v)
+        nbytes = 4 * (B * R * D + B * S * D + B * R * (d_v + 2))
+        flops = 2.0 * B * R * S * (D + d_v)
         b_ms, b_by = bound(nbytes, flops)
-        cases.append({"shape": f"q(1,{R},{D}) ckv(1,{CHUNK},{D})",
-                      "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms,
-                      "bound_ms": b_ms, "bound_by": b_by})
         split = device_split_us(
             torch, lambda: mla_decode(q, ckv, d_v=d_v, scale=scale))
-        cases[-1]["device_us_by_kernel"] = split
-        log(f"[kernels] mla_decode m_q={m_q}: {ms:.4f} ms device, "
+        cases.append({"shape": f"q({B},{R},{D}) ckv({B},{S},{D})",
+                      "loop": plan.loop, "n_split": plan.n_split,
+                      "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "device_us_by_kernel": split, "loops_ms": loops_ms})
+        log(f"[kernels] mla_decode {tag}: loop {plan.loop} x "
+            f"{plan.n_split} spans, {ms:.4f} ms device, "
             f"{host_ms:.4f} ms as issued (plain "
             f"{plain_ms:.4f}, sdpa {lib_ms}, bound {b_ms:.5f} by {b_by}); "
-            "profiler µs/call " + ", ".join(f"{k} {v:.1f}"
-                                            for k, v in split.items()))
+            + "".join(f"{k} {v:.4f} ms; " for k, v in loops_ms.items())
+            + "profiler µs/call " + ", ".join(f"{k} {v:.1f}"
+                                              for k, v in split.items()))
 
-    # ragged lengths with an empty row: the empty row is the identity
-    B = 3
-    q = torch.randn((B, cfg.n_heads, D), device=dev, generator=g)
-    ck = torch.randn((B, CHUNK, D), device=dev, generator=g)
-    lengths = torch.tensor([CHUNK, 1000, 0], dtype=torch.int32, device=dev)
-    got = mla_decode(q, ck, lengths, d_v=d_v, scale=scale)
-    compare("ragged [2048, 1000, 0]", got,
-            mla_decode_ref(q, ck, lengths, d_v, scale))
-    torch.cuda.synchronize()
-    if not (bool((got.o[2] == 0).all()) and bool((got.l[2] == 0).all())
-            and bool(torch.isneginf(got.m[2]).all())):
-        fail("mla_decode: the length-0 row is not the identity")
+    # decode_plan's 16-row rule over batch, rows and cache length: the
+    # loop it picks beside both loops' times
+    for B, R, S in ((3, H, CHUNK), (4, H, CHUNK), (16, H, CHUNK),
+                    (1, 48, CHUNK), (2, H, 520), (1, H, 8192)):
+        q = torch.randn((B, R, D), device=dev, generator=g)
+        ckv = torch.randn((B, S, D), device=dev, generator=g)
+        plan = mla_ops.decode_plan(B, R, S, build.sm_count(dev))
+        loops_ms = time_16_row_loops(
+            q, ckv, mla_decode_ref(q, ckv, None, d_v, scale),
+            f"rule q({B},{R},{D}) ckv({B},{S},{D})", 100)
+        faster = min(loops_ms, key=loops_ms.get)
+        log(f"[kernels] mla_decode 16-row rule q({B},{R},{D}) "
+            f"ckv({B},{S},{D}): plan {plan.loop}, "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in loops_ms.items())
+            + f"; {'the faster' if plan.loop == faster else 'NOT the faster'}")
+        cases.append({"shape": f"q({B},{R},{D}) ckv({B},{S},{D})",
+                      "rule_sweep": True, "loop": plan.loop,
+                      "n_split": plan.n_split, "ms": loops_ms[plan.loop],
+                      "loops_ms": loops_ms})
+
+    # ragged lengths with an empty row, in each loop (tiled16, group,
+    # attend16): the empty row is the identity
+    for R, lens in ((H, [CHUNK, 1000, 0]), (64, [CHUNK, 1000, 0]),
+                    (H, [CHUNK, 1000, 517, 0])):
+        B = len(lens)
+        q = torch.randn((B, R, D), device=dev, generator=g)
+        ck = torch.randn((B, CHUNK, D), device=dev, generator=g)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        plan = mla_ops.decode_plan(B, R, CHUNK, build.sm_count(dev))
+        got = mla_decode(q, ck, lengths, d_v=d_v, scale=scale)
+        compare(f"ragged {lens} R={R}, loop {plan.loop}", got,
+                mla_decode_ref(q, ck, lengths, d_v, scale))
+        torch.cuda.synchronize()
+        if not (bool((got.o[-1] == 0).all()) and bool((got.l[-1] == 0).all())
+                and bool(torch.isneginf(got.m[-1]).all())):
+            fail(f"mla_decode: the length-0 row (R={R}) is not the identity")
     return worst, cases
 
 

@@ -1,99 +1,182 @@
 // mla_decode: absorbed-MLA flash decode on Hopper, f32 on CUDA cores.
 //
-// Replaces: src/repro/kernels/mla_decode/kernel.py, mla_decode_pallas (body
-// _kernel): q (B, R, D) attends ckv (B, S, D) under a per-batch valid
+// Replaces: src/repro/kernels/mla_decode/kernel.py:69, mla_decode_pallas
+// (body _kernel): q (B, R, D) attends ckv (B, S, D) under a per-batch valid
 // length; the values are the first d_v columns of the same cache rows.
 // Returns the partial (o (B, R, d_v), m (B, R), l (B, R)).
 //
-// Bound on this card. For R query rows over S cache rows the work is
-// R S (D + d_v) multiply-adds against S D + R D floats read. A single
-// request (R = 16 heads) over a 2048-token chunk at D = 576 is byte-bound
-// (~4.8 MB, ~1.4 us at 3.35 TB/s); a ROUTE group of 256 requests
-// (R = 4096) is operation-bound (~18 GFLOP, ~270 us at 67 TFLOP/s f32).
+// Bound on this card, by regime. For R query rows over S cache rows the
+// work is R S (D + d_v) multiply-adds against S D + R D floats read.
+// * A single request (R = 16 heads) over a 2048-token chunk at D = 576 is
+//   byte-bound: ~4.8 MB, ~1.4 us at 3.35 TB/s, against 71 MFLOP (~1.1 us at
+//   67 TFLOP/s f32).
+// * A ROUTE group folds every query row of the group into R: 4096 rows
+//   (256 requests) are operation-bound, ~18 GFLOP, ~270 us; the 16 384 rows
+//   of four 1024-row requests on one chunk ~1.09 ms.
 //
-// Design.
-// * The Pallas grid swept S in order and carried the online-softmax state
-//   in VMEM scratch. Here a block owns ROWS query rows and loops over its
-//   span of S in BS-row tiles, carrying (m, l, acc) in registers: the tile
-//   loop of attend.cuh (shared with sparse_select.cu), which describes the
-//   shared-memory tiles and the score and PV layouts.
-// * Blocks run in parallel and in no order. A few row tiles (a single
-//   decode request) cannot fill 132 SMs, so S is split into n_split spans
-//   across blocks; each span writes its own partial and a second kernel
-//   merges the spans exactly with the softmax merge of merge.cuh.
-// * A row with no valid cache entries returns the merge identity
-//   (o = 0, m = -inf, l = 0), as partial_from_logits does: the reference
-//   point of exp is pinned to 0 while the running max is -inf. (The Pallas
-//   kernel computes exp(-inf - -inf) there and returns NaN.)
-// * f32 throughout, on CUDA cores: TF32 tensor cores cannot hold the f32
-//   tolerance. wgmma/TMA with a bf16 cache are later work.
+// Design. The Pallas grid swept S in order and carried the online-softmax
+// state in VMEM scratch. Here a block owns a tile of query rows and loops
+// over its span of S in cache tiles, carrying (m, l, acc) in registers. It
+// stays f32: the serving path holds it to 1e-5 of the oracle, which neither
+// bf16 nor TF32 tensor-core products can meet.
+// * Three loops, picked per call by the wrapper's decode_plan:
+//   - "group" (R >= 64), the register-tiled loop of decode_tiled.cuh: 64
+//     query rows resident in shared memory, 32-row cache tiles, 256
+//     threads; 4 warps compute the scores in 4 x 4 micro-tiles, all 8 do
+//     the softmax and PV with 8 x 16 accumulators a thread. Q 148 480 B +
+//     a tile 74 240 B + P 8 704 B = 231 424 B: one block an SM. D > 576
+//     does not fit (the wrapper raises).
+//   - "tiled16" (R < 64), the same loop at 16 rows, 16-row cache tiles
+//     (128 spans for one request over 2048 positions), 256 threads, one
+//     block an SM;
+//   - "attend16" (R < 64), attend.cuh's 16-row loop (shared with
+//     sparse_select and the f32 flash_prefill), 32-row tiles, two blocks
+//     an SM. Below 64 rows the plan takes the 16-row loop whose busiest SM
+//     walks fewer cache rows, attend16 on a tie: tiled16 for a single
+//     request, whose spans of one 16-row tile each fill the card;
+//     attend16 once every SM walks two tiles or more (model decode at
+//     B = 2), where its two blocks an SM hide each other's latency.
+// * Each score stays one FMA chain in column order, the order of the
+//   cuBLAS product in the plain version, which holds the kernel to 1e-5:
+//   scores summed in another order move each row's maximum, and l with
+//   it, against the plain version (f64 tensor-core scores, exact products
+//   summed in f64, were tried and missed 1e-5 on l at 16 384 rows). That
+//   leaves the scores bound by shared memory (decode_tiled.cuh).
+// * Filling the card. When the row tiles leave room for more co-resident
+//   blocks, S is split into n balanced spans of whole tiles (span z holds
+//   tiles [z T / n, (z + 1) T / n) of the T tiles of S): at most as many
+//   blocks as fit on the card at once, so the launch is cooperative. Each
+//   block writes its span's partial, the grid synchronises, and block
+//   (x, b, z) merges its row tile's rows over the n spans for 1/n of the
+//   columns (decode_tiled.cuh combine_spans), in slot order: one launch, no
+//   block reading more than ~1/n of the partials, and the same bits on
+//   every call.
+// * A row with no valid cache entries returns the merge identity (o = 0,
+//   m = -inf, l = 0), as partial_from_logits does: the reference point of
+//   exp is pinned to 0 while the running max is -inf. (The Pallas kernel
+//   computes exp(-inf - -inf) there and returns NaN.)
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "attend.cuh"
-#include "merge.cuh"
+#include "decode_tiled.cuh"
 
 namespace {
 
-using attend::BS;
-using attend::MAX_DV;
-using attend::ROWS;
-using attend::THREADS;
+struct Args {
+  const float* q;
+  long q_b, q_r;
+  const float* ckv;
+  long c_b, c_r;
+  const int* lengths;
+  int B, R, S, D, DP, d_v;
+  float scale;
+  int n_split;
+  float *o, *m, *l, *o_part, *m_part, *l_part;
+};
 
-__global__ void __launch_bounds__(THREADS, 2)
-mla_decode_kernel(const float* __restrict__ q, long q_b, long q_r,
-                  const float* __restrict__ ckv, long c_b, long c_r,
-                  const int* __restrict__ lengths, int B, int R, int S, int D,
-                  int DP, int d_v, float scale, int split_len,
-                  float* __restrict__ o, float* __restrict__ m_out,
-                  float* __restrict__ l_out) {
-  const int b = blockIdx.y;
-  const int z = blockIdx.z;               // which span of S
-  int len = lengths ? lengths[b] : S;
-  len = len < 0 ? 0 : (len > S ? S : len);
-  const int s_begin = z * split_len;
-  const int s_end = min(len, s_begin + split_len);
-  attend::attend_span(q + b * q_b, q_r, ckv + b * c_b, c_r, R,
-                      blockIdx.x * ROWS, D, DP, d_v, scale, s_begin, s_end,
-                      attend::DenseRows{}, o, m_out, l_out,
-                      ((long)z * B + b) * R);
+// Span z of batch row b for `tile`-row cache tiles: [s_begin, s_end).
+__device__ __forceinline__ void span_of(const Args& a, int tile, int b,
+                                        int z, int& s_begin, int& s_end) {
+  int len = a.lengths ? a.lengths[b] : a.S;
+  len = len < 0 ? 0 : (len > a.S ? a.S : len);
+  const long tiles = (a.S + tile - 1) / tile;
+  s_begin = (int)((long)z * tiles / a.n_split) * tile;
+  s_end = min(len, (int)((long)(z + 1) * tiles / a.n_split) * tile);
+}
+
+// After every span's partial is written: merge them (split launches only).
+template <int THREADS, int ROWS>
+__device__ __forceinline__ void combine(const Args& a, int b, int z,
+                                        int r0) {
+  cooperative_groups::this_grid().sync();
+  tiled::combine_spans<THREADS>(
+      a.o_part, a.m_part, a.l_part, a.n_split, (long)a.B * a.R,
+      (long)b * a.R + r0, min(ROWS, a.R - r0), a.d_v, z, a.o, a.m, a.l);
+}
+
+template <class Sh, bool kSplit>
+__global__ void __launch_bounds__(Sh::THREADS, Sh::MIN_BLOCKS)
+tiled_kernel(Args a) {
+  const int b = blockIdx.y, z = blockIdx.z, r0 = blockIdx.x * Sh::ROWS;
+  int s_begin, s_end;
+  span_of(a, Sh::BS, b, z, s_begin, s_end);
+  tiled::attend_tiles<Sh>(
+      a.q + b * a.q_b, a.q_r, a.ckv + b * a.c_b, a.c_r, a.R, r0, a.D, a.DP,
+      a.d_v, a.scale, s_begin, s_end, kSplit ? a.o_part : a.o,
+      kSplit ? a.m_part : a.m, kSplit ? a.l_part : a.l,
+      ((long)z * a.B + b) * a.R);
+  if constexpr (kSplit) combine<Sh::THREADS, Sh::ROWS>(a, b, z, r0);
+}
+
+template <bool kSplit>
+__global__ void __launch_bounds__(attend::THREADS, 2) attend_kernel(Args a) {
+  const int b = blockIdx.y, z = blockIdx.z, r0 = blockIdx.x * attend::ROWS;
+  int s_begin, s_end;
+  span_of(a, attend::BS, b, z, s_begin, s_end);
+  attend::attend_span(a.q + b * a.q_b, a.q_r, a.ckv + b * a.c_b, a.c_r,
+                      a.R, r0, a.D, a.DP, a.d_v, a.scale, s_begin, s_end,
+                      attend::DenseRows{}, kSplit ? a.o_part : a.o,
+                      kSplit ? a.m_part : a.m, kSplit ? a.l_part : a.l,
+                      ((long)z * a.B + b) * a.R);
+  if constexpr (kSplit) combine<attend::THREADS, attend::ROWS>(a, b, z, r0);
+}
+
+template <class Kernel>
+int launch(Kernel kernel, int rows, int threads, int loop_smem, Args a,
+           cudaStream_t st) {
+  const bool split = a.n_split > 1;
+  const int merge_smem =
+      split ? tiled::combine_smem_bytes(rows, a.n_split, threads) : 0;
+  const int smem = loop_smem > merge_smem ? loop_smem : merge_smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.R + rows - 1) / rows, a.B, a.n_split);
+  if (split) {                            // every block co-resident
+    void* args[] = {&a};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, grid,
+                                      dim3(threads), args, smem, st);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kernel<<<grid, threads, smem, st>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int mla_decode_smem_bytes(int D) {
-  return attend::smem_bytes(D, false);
-}
-
-// With n_split == 1 the kernel writes o/m/l directly and the *_part
-// buffers are unused; otherwise it writes n_split partials of
-// (B, R) rows each into them, and the merge kernel combines those.
+// loop: 0 "group", 1 "tiled16", 2 "attend16". With n_split == 1 the
+// kernel writes o/m/l directly and the *_part buffers are unused;
+// otherwise it writes n_split span partials of (B, R) rows each into them
+// and merges them in the same (cooperative) launch.
 extern "C" int mla_decode_f32(const float* q, long q_b, long q_r,
                               const float* ckv, long c_b, long c_r,
                               const int* lengths, int B, int R, int S, int D,
-                              int d_v, float scale, int split_len,
-                              int n_split, float* o, float* m, float* l,
-                              float* o_part, float* m_part, float* l_part,
-                              void* stream) {
-  if (d_v > MAX_DV || D % 4 != 0 || split_len % BS != 0 ||
-      n_split > MERGE_MAX_SLOTS)
+                              int d_v, float scale, int loop, int n_split,
+                              float* o, float* m, float* l, float* o_part,
+                              float* m_part, float* l_part, void* stream) {
+  if (d_v > tiled::MAX_DV || d_v % 4 != 0 || D % 4 != 0 || n_split < 1 ||
+      loop < 0 || loop > 2)
     return -1;
+  if (B == 0 || R == 0) return 0;
+  const Args a{q, q_b, q_r, ckv, c_b, c_r, lengths, B, R, S, D,
+               attend::pitch_of(D), d_v, scale, n_split,
+               o, m, l, o_part, m_part, l_part};
   cudaStream_t st = (cudaStream_t)stream;
-  const int smem = mla_decode_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      mla_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0 || R == 0) return (int)cudaGetLastError();
-  dim3 grid((R + ROWS - 1) / ROWS, B, n_split);
-  const bool direct = n_split == 1;
-  mla_decode_kernel<<<grid, THREADS, smem, st>>>(
-      q, q_b, q_r, ckv, c_b, c_r, lengths, B, R, S, D, attend::pitch_of(D),
-      d_v, scale, split_len, direct ? o : o_part, direct ? m : m_part,
-      direct ? l : l_part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || direct) return (int)err;
-  const long n_rows = (long)B * R;
-  merge_rows_kernel<<<(unsigned)n_rows, MERGE_THREADS, 0, st>>>(
-      o_part, m_part, l_part, n_split, n_rows, d_v, o, m, l);
-  return (int)cudaGetLastError();
+  const bool split = n_split > 1;
+  if (loop == 0) {
+    using Sh = tiled::Group;
+    return launch(split ? tiled_kernel<Sh, true> : tiled_kernel<Sh, false>,
+                  Sh::ROWS, Sh::THREADS, tiled::smem_bytes<Sh>(D), a, st);
+  }
+  if (loop == 1) {
+    using Sh = tiled::Single;
+    return launch(split ? tiled_kernel<Sh, true> : tiled_kernel<Sh, false>,
+                  Sh::ROWS, Sh::THREADS, tiled::smem_bytes<Sh>(D), a, st);
+  }
+  return launch(split ? attend_kernel<true> : attend_kernel<false>,
+                attend::ROWS, attend::THREADS, attend::smem_bytes(D, false),
+                a, st);
 }

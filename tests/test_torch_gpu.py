@@ -41,18 +41,30 @@ def _close(got, want, atol, rtol=0.0):
                          <= atol + rtol * want.abs())).all())
 
 
-@pytest.mark.parametrize("R,S,lengths", [(16, 2048, None), (256, 2048, None),
-                                         (4096, 2048, None),
-                                         (16, 2048, (2048, 1000, 0)),
-                                         (40, 300, None)])
-def test_mla_decode_kernel_matches_plain(dev, R, S, lengths):
-    from repro_torch.kernels.mla_decode import mla_decode, mla_decode_ref
+def _decode_inputs(dev, B, R, S, lengths):
     g = torch.Generator(device=dev).manual_seed(R + S)
-    B = 1 if lengths is None else len(lengths)
     q = torch.randn((B, R, 576), device=dev, generator=g)
     ckv = torch.randn((B, S, 576), device=dev, generator=g)
     lens = None if lengths is None else torch.tensor(
         lengths, dtype=torch.int32, device=dev)
+    return q, ckv, lens
+
+
+# (B, R, S, lengths): a single request, ROUTE groups of 256, 4096 and
+# 16 384 rows (the golden's four 1024-row requests), the group loop's edges
+# at 63 / 64 / 65 rows, model decode (B = 2 x 16 rows over 2056 slots),
+# ragged lengths with an empty row in each loop (tiled16, group, attend16),
+# the group loop split over a short cache at B = 2
+@pytest.mark.parametrize("B,R,S,lengths", [
+    (1, 16, 2048, None), (1, 256, 2048, None), (1, 4096, 2048, None),
+    (3, 16, 2048, (2048, 1000, 0)), (1, 40, 300, None),
+    (1, 63, 2048, None), (1, 64, 2048, None), (1, 65, 2048, None),
+    (1, 16384, 2048, None), (2, 16, 2056, None),
+    (3, 64, 2048, (2048, 1000, 0)), (4, 16, 2048, (2048, 1000, 517, 0)),
+    (2, 96, 300, (300, 0))])
+def test_mla_decode_kernel_matches_plain(dev, B, R, S, lengths):
+    from repro_torch.kernels.mla_decode import mla_decode, mla_decode_ref
+    q, ckv, lens = _decode_inputs(dev, B, R, S, lengths)
     before = mla_decode.launches
     got = mla_decode(q, ckv, lens, d_v=512, scale=1 / math.sqrt(192))
     assert mla_decode.launches == before + 1
@@ -60,8 +72,22 @@ def test_mla_decode_kernel_matches_plain(dev, R, S, lengths):
     for a, b in zip(got, want):
         _close(a, b, 1e-5, 1e-5)
     if lengths is not None:
+        assert bool((got.o[-1] == 0).all())
         assert bool((got.l[-1] == 0).all())
         assert bool(torch.isneginf(got.m[-1]).all())
+
+
+@pytest.mark.parametrize("B,R,S", [(1, 16, 2048), (2, 16, 2056),
+                                   (1, 256, 2048), (1, 4096, 2048)])
+def test_mla_decode_two_calls_are_bit_identical(dev, B, R, S):
+    """The spans merge in slot order, never in order of arrival."""
+    from repro_torch.kernels.mla_decode import mla_decode
+    q, ckv, _ = _decode_inputs(dev, B, R, S, None)
+    first = mla_decode(q, ckv, d_v=512, scale=1 / math.sqrt(192))
+    second = mla_decode(q, ckv, d_v=512, scale=1 / math.sqrt(192))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("M", [1, 2, 4, 8])
