@@ -19,8 +19,12 @@ package. Phases, each fatal on failure:
    logging the loop and the spans its plan took, with both 16-row loops
    timed where the plan takes one, and a sweep of the 16-row rule over
    batch, rows and cache length; flash_prefill once
-   with f32 operands (csrc/flash_prefill.cu) and once with bf16 operands
-   (csrc/flash_prefill_bf16.cu);
+   with f32 operands (csrc/flash_prefill.cu, split-TF32 products on the
+   tensor cores) and once with bf16 operands (csrc/flash_prefill_bf16.cu),
+   SDPA's own error against the plain version printed beside its time;
+   ssd_chunk (split TF32) at one sequence (hb 4 and 5) and at model (c)'s
+   two; the two split-TF32 kernels' bounds under both the f32 CUDA-core
+   peak and three TF32 products, their shared memory and blocks an SM;
 4. serve  — repro_torch.launch.serve at DeepSeek-V2-Lite width over the
    CLI's default world, every step verified against the plain oracle;
 4b. selection serve — the same world with the live indexer (--selection,
@@ -68,10 +72,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM data-sheet peaks (at the 700 W limit): HBM3 bytes/s, f32
-# operations/s outside the tensor cores, dense bf16 tensor-core operations/s.
+# operations/s outside the tensor cores, dense bf16 and TF32 tensor-core
+# operations/s. A split-TF32 kernel (csrc/tf32x3.cuh) spends three TF32
+# products on each f32 product: its bound is also given at PEAK_TF32_S / 3.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12
+PEAK_TF32_S = 495e12
 
 # Tolerances, card kernel against its plain version, f32:
 # mla_decode sums over S = 2048 rows and D = 576 columns in another order
@@ -79,10 +86,12 @@ PEAK_BF16_S = 989e12
 # held at 1e-5 absolute and relative; softmax_merge and delta_rotate round
 # every product and sum as the plain version does, and are held at 1e-6.
 # sparse_select and flash_prefill sum over the attended rows in another
-# order in the same way as mla_decode and are held to the same. ssd_chunk
-# sums its gated products and state terms in another order than the
-# cuBLAS-based plain version, at outputs of order 10-100: 1e-4 absolute and
-# relative, the reference kernel test's own (tests/test_ssd_kernel.py).
+# order in the same way as mla_decode and are held to the same (the f32
+# flash_prefill's split-TF32 products err by ~3 * 2^-22 relative each,
+# tests/test_torch_tf32x3.py). ssd_chunk sums its gated products and state
+# terms (split TF32) in another order than the cuBLAS-based plain version,
+# at outputs of order 10-100: 1e-4 absolute and relative, the reference
+# kernel test's own (tests/test_ssd_kernel.py).
 # flash_prefill_bf16 (bf16 operands, f32 accumulation) rounds P to bf16
 # before the PV product, <= 2^-9 relative per weight, where the plain
 # version keeps it in f32: 2e-2 absolute and relative, under the reference
@@ -532,6 +541,14 @@ def check_flash_prefill(torch, dev, cfg, dtype):
     D, d_v, scale, H = cfg.d_qk, cfg.kv_lora_rank, cfg.scale, cfg.n_heads
     g = torch.Generator(device=dev).manual_seed(6)
     worst, cases = 0.0, []
+    res = {}
+    if not bf16:
+        from repro_torch.kernels.flash_prefill.ops import f32_resources
+        smem, per_sm = f32_resources(D, d_v)
+        res = {"smem_bytes": smem, "blocks_per_sm": per_sm}
+        log(f"[kernels] {name} f32 kernel at D={D}, d_v={d_v}: {smem} B of "
+            f"dynamic shared memory a block, {per_sm} block(s) an SM "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     # one V2-Lite sequence, its last 256 queries over the whole cache
     # (tail-aligned), a ragged length no tile divides
     for Sq, Sk in ((CHUNK, CHUNK), (256, CHUNK), (2000, 2000)):
@@ -557,7 +574,7 @@ def check_flash_prefill(torch, dev, cfg, dtype):
             50 if bf16 else 10)
         plain_ms, _ = time_ms(
             torch, lambda: flash_prefill_ref(q, ckv, d_v, scale), 10)
-        lib_ms = None
+        lib_ms = lib_err = None
         if Sq == Sk:     # SDPA's is_causal aligns to the top left
             q4 = q.transpose(1, 2)
             k4 = ckv[:, None].expand(1, H, Sk, D)
@@ -565,6 +582,10 @@ def check_flash_prefill(torch, dev, cfg, dtype):
             try:
                 lib_ms, _ = time_ms(torch, lambda: sdpa(
                     q4, k4, v4, is_causal=True, scale=scale), 10)
+                # a data point beside its time, never a check
+                lib_err = max_err(torch, sdpa(q4, k4, v4, is_causal=True,
+                                              scale=scale)
+                                  .transpose(1, 2).float(), want)
             except RuntimeError as exc:   # a yardstick only, never a check
                 log(f"[kernels] sdpa yardstick unavailable: {exc}")
         seen = sum(Sk - Sq + i + 1 for i in range(Sq))   # causal pairs
@@ -574,7 +595,13 @@ def check_flash_prefill(torch, dev, cfg, dtype):
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S if bf16 else PEAK_F32_S)
         cases.append({"shape": tag, "ms": ms, "host_ms": host_ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": b_ms, "bound_by": b_by})
+                      "library_max_abs_err": lib_err, "max_abs_err": e,
+                      "bound_ms": b_ms, "bound_by": b_by, **res})
+        b3 = ""
+        if not bf16:
+            b3_ms, b3_by = bound(nbytes, flops, PEAK_TF32_S / 3)
+            cases[-1]["bound_3xtf32_ms"] = b3_ms
+            b3 = f", 3xTF32 bound {b3_ms:.5f} by {b3_by}"
         split = ""
         if bf16:
             us = device_split_us(
@@ -584,7 +611,8 @@ def check_flash_prefill(torch, dev, cfg, dtype):
                 f"{k} {v:.1f}" for k, v in us.items())
         log(f"[kernels] {name} {tag}: {ms:.4f} ms device, "
             f"{host_ms:.4f} ms as issued (plain {plain_ms:.4f}, sdpa causal "
-            f"{lib_ms}, bound {b_ms:.5f} by {b_by}){split}")
+            f"{lib_ms} at max|err| {lib_err} vs plain, bound {b_ms:.5f} by "
+            f"{b_by}{b3}){split}")
     return worst, cases
 
 
@@ -595,20 +623,26 @@ def check_ssd_chunk(torch, dev, mcfg):
     Q, H, P, N = mcfg.chunk, mcfg.n_heads, mcfg.head_dim, mcfg.d_state
     g = torch.Generator(device=dev).manual_seed(7)
     worst, cases = 0.0, []
+    from repro_torch.kernels.ssd_chunk.ops import resources
+    smem, per_sm = resources(Q, P, N)
+    log(f"[kernels] ssd_chunk at Q={Q}, P={P}, N={N}: {smem} B of dynamic "
+        f"shared memory a block, {per_sm} block(s) an SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     # one 2048-token sequence of mamba2-370m; a head block that does not
-    # divide H
-    for nc, hb in ((CHUNK // Q, 4), (CHUNK // Q, 5)):
+    # divide H; model (c)'s prefill (two sequences, the wrapper's hb)
+    for b, nc, hb in ((1, CHUNK // Q, 4), (1, CHUNK // Q, 5),
+                      (MODEL_BATCH, MODEL_PROMPT // Q, 4)):
         # drawn as the reference's kernel test draws them
         rnd = lambda *shape: torch.randn(shape, device=dev, generator=g)
-        ins = (rnd(1, nc, Q, H, P),
-               torch.nn.functional.softplus(rnd(1, nc, Q, H)),
-               -torch.exp(0.5 * rnd(H)), rnd(1, nc, Q, N), rnd(1, nc, Q, N))
+        ins = (rnd(b, nc, Q, H, P),
+               torch.nn.functional.softplus(rnd(b, nc, Q, H)),
+               -torch.exp(0.5 * rnd(H)), rnd(b, nc, Q, N), rnd(b, nc, Q, N))
         got = ssd_intra_chunk(*ins, hb=hb)
         want = ssd_intra_chunk_ref(*ins)
         torch.cuda.synchronize()
         errs = [max_err(torch, a, w) for a, w in zip(got, want)]
         ok = all(within(torch, a, w, atol, rtol) for a, w in zip(got, want))
-        tag = f"x(1,{nc},{Q},{H},{P}) B/C(1,{nc},{Q},{N}) hb={hb}"
+        tag = f"x({b},{nc},{Q},{H},{P}) B/C({b},{nc},{Q},{N}) hb={hb}"
         log(f"[kernels] ssd_chunk {tag}: max|err| y {errs[0]:.3e} states "
             f"{errs[1]:.3e} cum {errs[2]:.3e} (atol {atol:g}, rtol {rtol:g})"
             f" {'ok' if ok else 'OVER TOLERANCE'}")
@@ -620,16 +654,20 @@ def check_ssd_chunk(torch, dev, mcfg):
         plain_ms, _ = time_ms(torch, lambda: ssd_intra_chunk_ref(*ins),
                               PLAIN_ITERS)
         seen = Q * (Q + 1) // 2
-        flops = 2.0 * nc * (H * (seen * P + Q * P * N) + Q * Q * N)
-        nbytes = 4 * nc * (2 * Q * H * P + 2 * Q * H + 2 * Q * N
-                           + H * P * N) + 4 * H
+        flops = 2.0 * b * nc * (H * (seen * P + Q * P * N) + Q * Q * N)
+        nbytes = 4 * b * nc * (2 * Q * H * P + 2 * Q * H + 2 * Q * N
+                               + H * P * N) + 4 * H
         b_ms, b_by = bound(nbytes, flops)
+        b3_ms, b3_by = bound(nbytes, flops, PEAK_TF32_S / 3)
         cases.append({"shape": tag, "ms": ms, "host_ms": host_ms,
                       "plain_ms": plain_ms, "library_ms": None,
-                      "bound_ms": b_ms, "bound_by": b_by})
+                      "max_abs_err": dict(zip(("y", "states", "cum"), errs)),
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "bound_3xtf32_ms": b3_ms, "smem_bytes": smem,
+                      "blocks_per_sm": per_sm})
         log(f"[kernels] ssd_chunk {tag}: {ms:.4f} ms device, {host_ms:.4f} "
             f"ms as issued (plain {plain_ms:.4f}, bound {b_ms:.5f} by "
-            f"{b_by})")
+            f"{b_by}, 3xTF32 bound {b3_ms:.5f} by {b3_by})")
     return worst, cases
 
 
@@ -1285,6 +1323,8 @@ def main() -> int:
             "shape": c["shape"], "ms": c["ms"], "host_ms": c["host_ms"],
             "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            **({"bound_3xtf32_ms": c["bound_3xtf32_ms"]}
+               if "bound_3xtf32_ms" in c else {}),
             "library_ms": c["library_ms"], "cases": cases})
     log(f"[summary] serve {serve_s:.2f} s, selection serve {sel_s:.2f} s, "
         f"goldens max|err| {golden_err:.3e}, selection goldens "

@@ -8,9 +8,9 @@ GFLOP). The wrapper dispatches on the operands' dtype, and on nothing else:
   * bf16 on the card: flash_prefill_bf16.cu, TMA tiles and wgmma on the
     tensor cores (64 query rows a block, f32 accumulation), the model's
     path in bf16;
-  * f32 on the card: flash_prefill.cu, the (position, head) pairs as the
-    query rows of mla_decode's f32 tile loop (csrc/attend.cuh) on CUDA
-    cores, the f32 verification path;
+  * f32 on the card: flash_prefill.cu, split-TF32 products on the tensor
+    cores (csrc/tf32x3.cuh; 64 query rows a block, the Q tile resident,
+    32-row cache tiles by cp.async), the f32 verification path;
   * either on the CPU: the plain version;
   * mixed or other dtypes: TypeError, on every device.
 
@@ -35,6 +35,10 @@ DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 # nine 64-column boxes of shared memory a tile, one block per SM
 BF16_PLAN = {"rows": 64, "tile": 64, "blocks_per_sm": 1}
 BF16_MAX_D = 576
+# csrc/flash_prefill.cu: 64 query rows a block, 32 cache rows a tile; the
+# resident Q tile and one cache tile fill the SM's shared memory (D <= 576)
+F32_PLAN = {"rows": 64, "tile": 32, "blocks_per_sm": 1}
+F32_MAX_D = 576
 
 
 def _launcher_f32():
@@ -45,6 +49,21 @@ def _launcher_f32():
                        I, P, P, P, P, P, P, P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def f32_resources(D: int, d_v: int):
+    """(dynamic shared memory bytes of a block, blocks one SM holds) of the
+    f32 kernel at (D, d_v), the latter as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports it (needs the
+    card)."""
+    lib = build.library("flash_prefill")
+    out = []
+    for fn in (lib.flash_prefill_f32_smem_bytes,
+               lib.flash_prefill_f32_occupancy):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        out.append(fn(D, d_v))
+    return tuple(out)
 
 
 def _launcher_bf16():
@@ -88,9 +107,10 @@ def _check_grid(q) -> None:
 
 def _check_f32(q, ckv, d_v) -> None:
     D = q.shape[3]
-    if D % 4 or d_v > MAX_DV:
-        raise ValueError(f"flash_prefill kernel needs D % 4 == 0 and d_v <= "
-                         f"{MAX_DV}, got D={D}, d_v={d_v}")
+    if D % 4 or D > F32_MAX_D or d_v > MAX_DV:
+        raise ValueError(f"flash_prefill kernel needs D % 4 == 0, D <= "
+                         f"{F32_MAX_D} and d_v <= {MAX_DV}, got D={D}, "
+                         f"d_v={d_v}")
     if not q.is_contiguous():
         raise ValueError("flash_prefill kernel: q must be contiguous")
     if (ckv.stride(2) != 1 or ckv.stride(1) % 4 or ckv.stride(0) % 4
@@ -141,7 +161,7 @@ def flash_prefill(q: torch.Tensor, ckv: torch.Tensor, *, d_v: int = 512,
     Sk = ckv.shape[1]
     R = Sq * H
     split_len, n_split = split_plan(B, R, Sk, build.sm_count(q.device),
-                                    **(BF16_PLAN if bf16 else {}))
+                                    **(BF16_PLAN if bf16 else F32_PLAN))
     with torch.cuda.device(q.device):
         o = torch.empty((B, Sq, H, d_v), dtype=torch.float32,
                         device=q.device)

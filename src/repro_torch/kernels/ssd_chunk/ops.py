@@ -1,11 +1,13 @@
 """Wrapper of the fused SSD intra-chunk kernel (csrc/ssd_chunk.cu).
 
 Replaces src/repro/kernels/ssd_chunk/kernel.py:ssd_intra_chunk_pallas. On
-this card one 2048-token sequence of mamba2-370m is operation-bound
-(~1.7 GFLOP against ~53 MB); the kernel keeps CB, the decay gate and dt x in
-shared memory, so no (Q, Q, H) tensor reaches device memory (see the source
-for the design). Any head-block size works, including one that does not
-divide H.
+this card one 2048-token sequence of mamba2-370m is ~1.7 GFLOP against
+~53 MB; the kernel runs its three chunk products (C B^T, the gated y, the
+chunk state) on the tensor cores as split-TF32 products (csrc/tf32x3.cuh)
+and keeps CB, the decay gate and dt x on chip, so no (Q, Q, H) tensor
+reaches device memory (see the source for the design). Any head-block size
+works, including one that does not divide H; the kernel takes Q <= 128,
+P <= 64 and N <= 128 (mamba2-370m: 128, 64, 128).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
 
 MAX_SMEM = 232448         # dynamic shared memory a block may opt into
+LIMITS = {"Q": 128, "P": 64, "N": 128}   # csrc/ssd_chunk.cu MAX_Q/P/N
 MAX_GRID_Y = 65535        # head blocks per launch (grid.y)
 
 
@@ -31,6 +34,17 @@ def _lib():
         lib.ssd_chunk_smem_bytes.argtypes = [I, I, I]
         lib.ssd_chunk_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def resources(Q: int, P: int, N: int):
+    """(dynamic shared memory bytes of a block, blocks one SM holds) of the
+    kernel at (Q, P, N), the latter as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports it (needs the
+    card)."""
+    fn = _lib().ssd_chunk_occupancy
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return _lib().ssd_chunk_smem_bytes(Q, P, N), fn(Q, P, N)
 
 
 def _check(x, dt, A, B, C, hb) -> None:
@@ -64,11 +78,15 @@ def _check_cuda(x, dt, A, B, C, hb) -> None:
         raise ValueError("ssd_intra_chunk kernel: inputs must be contiguous")
     b, nc, Q, H, P = x.shape
     N = B.shape[-1]
+    if Q > LIMITS["Q"] or P > LIMITS["P"] or N > LIMITS["N"]:
+        raise ValueError(f"ssd_intra_chunk kernel takes Q <= {LIMITS['Q']}, "
+                         f"P <= {LIMITS['P']} and N <= {LIMITS['N']}, got "
+                         f"Q={Q}, P={P}, N={N}")
     smem = _lib().ssd_chunk_smem_bytes(Q, P, N)
     if not 0 < smem <= MAX_SMEM:
         raise ValueError(f"ssd_intra_chunk kernel: Q={Q}, P={P}, N={N} need "
-                         f"{smem} bytes of shared memory (-1: too many), "
-                         f"more than a block's {MAX_SMEM}")
+                         f"{smem} bytes of shared memory, more than a "
+                         f"block's {MAX_SMEM}")
     if -(-H // hb) > MAX_GRID_Y or b * nc >= 2**31:
         raise ValueError(f"ssd_intra_chunk kernel: grid too large (b*nc="
                          f"{b * nc}, head blocks {-(-H // hb)})")

@@ -251,3 +251,35 @@ def test_bf16_split_plan_covers_the_cache_in_whole_tiles(B, R, Sk):
     blocks = -(-R // plan["rows"]) * B
     assert n_split == 1 or blocks * n_split <= 132
     assert n_split == 1 or split_len >= 2 * plan["tile"]
+
+
+@pytest.mark.parametrize("B,R,Sk", [(1, 32768, 2048), (1, 4096, 2048),
+                                    (2, 32000, 2000), (1, 640, 300),
+                                    (2, 308, 101), (1, 64, 64)])
+def test_f32_split_plan_covers_the_cache_in_whole_tiles(B, R, Sk):
+    """The f32 kernel's plan (one block of 64 rows per SM, 16-row tiles):
+    spans are whole tiles that cover Sk, split only while the blocks do not
+    fill the SMs, each at least two tiles."""
+    plan = fp_ops.F32_PLAN
+    split_len, n_split = split_plan(B, R, Sk, 132, **plan)
+    assert split_len % plan["tile"] == 0
+    assert (n_split - 1) * split_len < Sk <= n_split * split_len
+    blocks = -(-R // plan["rows"]) * B
+    assert n_split == 1 or blocks * n_split <= 132
+    assert n_split == 1 or split_len >= 2 * plan["tile"]
+
+
+@pytest.mark.parametrize("D,d_v,ok", [(576, 512, True), (40, 32, True),
+                                      (580, 512, False), (578, 512, False),
+                                      (576, 516, False)])
+def test_f32_kernel_check_takes_what_the_kernel_takes(D, d_v, ok):
+    """The f32 kernel's shared tiles hold D <= 576 columns in whole float4
+    copies and at most 512 output columns: the wrapper refuses the rest
+    before any launch."""
+    q = torch.zeros((1, 3, 2, D))
+    ckv = torch.zeros((1, 5, D))
+    if ok:
+        fp_ops._check_f32(q, ckv, d_v)
+    else:
+        with pytest.raises(ValueError, match="flash_prefill kernel"):
+            fp_ops._check_f32(q, ckv, d_v)

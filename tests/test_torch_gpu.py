@@ -227,10 +227,15 @@ def test_exec_backend_runs_the_selection_regime(dev):
 
 # (B, Sq, Sk, H): a V2-Lite sequence, a tail-aligned chunk of it, a ragged
 # length, a short prefill (its cache span split across blocks) and heads
-# that do not fill a 16-row block
+# that do not fill a 16-row block; the f32 kernel's tile edges: 65 and 127
+# positions (one row past a 64-row block of four positions; a last block
+# of three, its cache span ending one row short of a 32-row tile), and
+# H = 3, where a position's rows straddle two warps' 16-row score tiles and
+# the diagonal cache tile is masked differently in each
 PREFILL_CASES = {"full": (1, 2048, 2048, 16), "tail": (1, 256, 2048, 16),
                  "ragged": (2, 2000, 2000, 16), "short": (1, 40, 300, 16),
-                 "h4": (2, 77, 101, 4)}
+                 "h4": (2, 77, 101, 4), "edge65": (1, 65, 65, 16),
+                 "edge127": (1, 127, 127, 16), "h3": (1, 50, 70, 3)}
 
 
 # (atol, rtol) of flash_prefill's kernel by operand dtype (module docstring)
@@ -258,10 +263,16 @@ def test_flash_prefill_kernel_matches_plain(dev, case, dtype):
 
 
 # (b, nc, Q, H, P, N, hb): mamba2-370m's geometry, a head block that does
-# not divide H, and the reference kernel test's small shapes
+# not divide H, and the reference kernel test's small shapes; one head a
+# block (the second warp group idle), an odd head block, all 32 heads in
+# one block, one chunk per sequence
 SSD_CASES = {"mamba2": (1, 16, 128, 32, 64, 128, 4),
              "hb5": (2, 3, 128, 32, 64, 128, 5),
-             "small": (2, 2, 32, 8, 16, 32, 8), "odd": (1, 2, 24, 6, 12, 20, 4)}
+             "small": (2, 2, 32, 8, 16, 32, 8), "odd": (1, 2, 24, 6, 12, 20, 4),
+             "hb1": (1, 2, 128, 32, 64, 128, 1),
+             "hb3": (1, 2, 128, 32, 64, 128, 3),
+             "hb32": (1, 2, 128, 32, 64, 128, 32),
+             "nc1": (2, 1, 128, 32, 64, 128, 4)}
 
 
 @pytest.mark.parametrize("case", sorted(SSD_CASES))
@@ -281,6 +292,38 @@ def test_ssd_chunk_kernel_matches_plain(dev, case):
     assert ssd_intra_chunk.launches == before + 1
     for a, w in zip(got, ssd_intra_chunk_ref(x, dt, A, B, C)):
         _close(a, w, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("case", ["full", "short", "h3"])
+def test_flash_prefill_two_calls_are_bit_identical(dev, case):
+    """The f32 kernel (and the span merge of a short prefill) sums in a
+    fixed order: two calls on the same inputs give the same bits."""
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    B, Sq, Sk, H = PREFILL_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk)
+    q = torch.randn((B, Sq, H, 576), device=dev, generator=g)
+    ckv = torch.randn((B, Sk, 576), device=dev, generator=g)
+    a = flash_prefill(q, ckv, d_v=512, scale=1 / math.sqrt(192))
+    b = flash_prefill(q, ckv, d_v=512, scale=1 / math.sqrt(192))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["mamba2", "hb5", "odd"])
+def test_ssd_chunk_two_calls_are_bit_identical(dev, case):
+    from repro_torch.kernels.ssd_chunk import ssd_intra_chunk
+    b, nc, Q, H, P, N, hb = SSD_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(Q + H)
+    x = torch.randn((b, nc, Q, H, P), device=dev, generator=g)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, nc, Q, H), device=dev, generator=g))
+    A = -torch.exp(0.5 * torch.randn((H,), device=dev, generator=g))
+    B = torch.randn((b, nc, Q, N), device=dev, generator=g)
+    C = torch.randn((b, nc, Q, N), device=dev, generator=g)
+    first = ssd_intra_chunk(x, dt, A, B, C, hb=hb)
+    second = ssd_intra_chunk(x, dt, A, B, C, hb=hb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite", "mamba2-370m"])

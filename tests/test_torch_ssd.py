@@ -171,3 +171,14 @@ def test_decode_continues_the_forward(mixer):
                                    **SCAN_TOL)
     np.testing.assert_allclose(state[0].numpy(), full_h.numpy(), **SCAN_TOL)
     np.testing.assert_allclose(state[1].numpy(), full_c.numpy(), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("Q,P,N", [(256, 64, 128), (128, 80, 128),
+                                   (128, 64, 160)])
+def test_kernel_check_refuses_shapes_past_its_tiles(Q, P, N):
+    """The card's kernel holds a chunk of Q <= 128 steps, P <= 64 columns
+    and N <= 128 state columns in its tiles: the wrapper refuses larger
+    ones before it builds or launches anything."""
+    ins = tuple(map(torch.tensor, _inputs(1, 1, Q, 2, P, N)))
+    with pytest.raises(ValueError, match="takes Q <= 128"):
+        ssd_ops._check_cuda(*ins, hb=1)
