@@ -18,7 +18,15 @@ package. Phases, each fatal on failure:
    groups of 256, 4096 and 16 384 rows and model (a)'s decode (B = 2), each
    logging the loop and the spans its plan took, with both 16-row loops
    timed where the plan takes one, and a sweep of the 16-row rule over
-   batch, rows and cache length; flash_prefill once
+   batch, rows and cache length; sparse_select (one launch a call) at
+   m_q = 1, 4 and 16 over 8 blocks, over all 32, ragged, token-level and
+   at model (b)'s shape, each logging its plan, with mla_decode over the
+   gathered rows as one dense chunk checked and timed beside it, and its
+   three loops' shared memory and blocks an SM; softmax_merge stacked at
+   M = 2, 4, 8 and, at a serve request's partials, through the in-place
+   entry, the backend's _merge as issued and the stacked path (three
+   stacks + the stacked entry), each bit for bit the plain version;
+   flash_prefill once
    with f32 operands (csrc/flash_prefill.cu, split-TF32 products on the
    tensor cores) and once with bf16 operands (csrc/flash_prefill_bf16.cu),
    SDPA's own error against the plain version printed beside its time;
@@ -64,6 +72,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -339,8 +348,11 @@ def check_mla_decode(torch, dev, cfg):
 
 
 def check_softmax_merge(torch, dev, cfg):
+    from repro_torch.core.merge import Partial
     from repro_torch.kernels.softmax_merge import (softmax_merge,
+                                                   softmax_merge_parts,
                                                    softmax_merge_ref)
+    from repro_torch.serving.backends.torch_exec import TorchExecBackend
     atol, _ = TOL["softmax_merge"]
     H, d_v, m_q = cfg.n_heads, cfg.kv_lora_rank, 16
     g = torch.Generator(device=dev).manual_seed(2)
@@ -381,7 +393,88 @@ def check_softmax_merge(torch, dev, cfg):
         log(f"[kernels] softmax_merge M={M}: {ms:.4f} ms device, "
             f"{host_ms:.4f} ms as issued (plain "
             f"{plain_ms:.4f}, bound {b_ms:.5f} by {b_by})")
+
+    # the device time of a launch that does no work (a one-element zero_,
+    # back to back): the floor under a merge of a few KB
+    tiny = torch.zeros(1, device=dev)
+    floor_ms, _ = time_ms(torch, tiny.zero_, 300)
+    cases[0]["launch_floor_ms"] = floor_ms
+    log(f"[kernels] launch floor: a one-element zero_ {floor_ms:.4f} ms "
+        f"device, back to back")
+
+    # a serve request's merge: M partials of (m_q, H, d_v), each its own
+    # tensor as the exec backend holds them; the in-place entry, _merge as
+    # the backend issues it, and the stacked path (three torch.stack + the
+    # stacked entry) on the same partials, each bit for bit the plain
+    # version
+    for m_q in (1, 16):
+        for M in (2, 4):
+            o, m, l = _merge_inputs(torch, dev, g, M, m_q, H, d_v)
+            parts = [Partial(o[i].clone(), m[i].clone(), l[i].clone())
+                     for i in range(M)]
+            want = softmax_merge_ref(o, m, l)
+
+            def stacked():
+                return softmax_merge(torch.stack([p.o for p in parts]),
+                                     torch.stack([p.m for p in parts]),
+                                     torch.stack([p.l for p in parts]))
+
+            runs = {"parts": lambda: softmax_merge_parts(parts),
+                    "_merge": lambda: TorchExecBackend._merge(parts),
+                    "stacked": stacked}
+            before = softmax_merge.launches
+            runs["_merge"]()
+            if softmax_merge.launches != before + 1:
+                fail("softmax_merge: _merge is not one launch a request")
+            for name, fn in runs.items():
+                got = fn()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    fail(f"softmax_merge {name} M={M} ({m_q},{H},{d_v}) is "
+                         f"not the plain version bit for bit")
+            # five rounds, the three in turns (the host's issue time
+            # varies with its neighbours): the median of each
+            rounds = {name: [] for name in runs}
+            for _ in range(5):
+                for name, fn in runs.items():
+                    rounds[name].append(time_ms(torch, fn, 300))
+            times = {name: tuple(statistics.median(t[k] for t in r)
+                                 for k in (0, 1))
+                     for name, r in rounds.items()}
+            N = m_q * H
+            b_ms, b_by = bound(4 * (M * N * (d_v + 2) + N * (d_v + 2)),
+                              float(M * N * (3 * d_v + 6)))
+            ms, host_ms = times["parts"]
+            plain_ms, _ = time_ms(torch, lambda: softmax_merge_ref(o, m, l),
+                                  PLAIN_ITERS)
+            cases.append({
+                "shape": f"{M} parts of ({m_q},{H},{d_v}), serve request",
+                "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                "merge_as_issued_ms": times["_merge"][1],
+                "stacked_ms": times["stacked"][0],
+                "stacked_as_issued_ms": times["stacked"][1]})
+            log(f"[kernels] softmax_merge serve request M={M} "
+                f"({m_q},{H},{d_v}): bit for bit the plain version through "
+                f"each entry; device / as issued ms, medians of 5 rounds: "
+                + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}"
+                            for k, v in times.items())
+                + f" (plain {plain_ms:.4f}, bound {b_ms:.5f} by {b_by})")
     return worst, cases
+
+
+def _merge_inputs(torch, dev, g, M, m_q, H, d_v):
+    """M partials of (m_q, H, d_v) with identity slots: slot 0 empty for
+    half the rows, every slot empty for one row."""
+    o = torch.randn((M, m_q, H, d_v), device=dev, generator=g)
+    m = 3.0 * torch.randn((M, m_q, H), device=dev, generator=g)
+    l = 1.0 + 100.0 * torch.rand((M, m_q, H), device=dev, generator=g)
+    m[0, :, : H // 2] = -math.inf
+    l[0, :, : H // 2] = 0.0
+    o[0, :, : H // 2] = 0.0
+    m[:, 0, 0] = -math.inf
+    l[:, 0, 0] = 0.0
+    return o, m, l
 
 
 def check_delta_rotate(torch, dev, cfg):
@@ -428,12 +521,15 @@ def check_delta_rotate(torch, dev, cfg):
 
 def _sparse_cases():
     """(tag, R, S, block ids per batch row, kb or None, block_tokens): one
-    request (16 rows) and a 16-request group (256 rows) over 8 and over all
-    32 blocks of a chunk; a ragged batch with its tail block selected and an
-    empty row; token-level selection of 37 scattered rows."""
+    request (16 rows), m_q = 4 (64 rows) and a 16-request group (256 rows)
+    over 8 and over all 32 blocks of a chunk; a ragged batch with its tail
+    block selected and an empty row; token-level selection of 37 scattered
+    rows; model (b)'s selection decode (B = 2 sequences of 16 heads, 512
+    token ids of a 522-slot cache)."""
     return [
         ("R=16 kb=8", 16, CHUNK, [[1, 4, 5, 9, 17, 20, 28, 31]], None, 64),
         ("R=16 kb=32", 16, CHUNK, [list(range(32))], None, 64),
+        ("R=64 kb=8", 64, CHUNK, [[2, 6, 7, 10, 16, 22, 27, 29]], None, 64),
         ("R=256 kb=8", 256, CHUNK, [[0, 2, 3, 11, 12, 19, 25, 30]], None,
          64),
         ("R=256 kb=32", 256, CHUNK, [list(range(32))], None, 64),
@@ -442,19 +538,41 @@ def _sparse_cases():
           [0] * 8], [8, 3, 0], 64),
         ("bt=1 37 rows", 16, CHUNK, [[(i * 331) % CHUNK for i in range(37)]],
          None, 1),
+        ("model (b) bt=1 512 of 522", 16, 522,
+         [sorted((i * 97 + b) % 522 for i in range(512)) for b in range(2)],
+         None, 1),
     ]
 
 
 def check_sparse_select(torch, dev, cfg):
+    """Each case against the plain version, its plan (loop, spans) logged;
+    where every selected position holds a row, also against mla_decode
+    over the gathered rows as one dense chunk (the same loop and spans over
+    the same rows in the same order), timed beside it as the gather's
+    yardstick."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.mla_decode import ops as mla_ops
     from repro_torch.kernels.sparse_select import (sparse_select,
                                                    sparse_select_ref)
+    from repro_torch.kernels.sparse_select import ops as sel_ops
     from repro_torch.kernels.sparse_select.ref import covered_rows
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     atol, rtol = TOL["sparse_select"]
     D, d_v, scale = cfg.d_qk, cfg.kv_lora_rank, cfg.scale
     g = torch.Generator(device=dev).manual_seed(4)
     worst, cases = 0.0, []
+    res = {}
+    for loop, lp in mla_ops.LOOPS.items():
+        smem, per_sm = sel_ops.resources(loop, D)
+        res[loop] = {"smem_bytes": smem, "blocks_per_sm": per_sm}
+        log(f"[kernels] sparse_select loop {loop} at D={D}: {smem} B of "
+            f"dynamic shared memory a block, {per_sm} block(s) an SM "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor; the plan "
+            f"assumes {lp.blocks_per_sm})")
+        if per_sm < lp.blocks_per_sm:
+            fail(f"sparse_select loop {loop}: {per_sm} blocks an SM, the "
+                 f"plan's cooperative launches need {lp.blocks_per_sm}")
 
     def compare(tag, got, want, what="its plain version"):
         nonlocal worst
@@ -485,8 +603,14 @@ def check_sparse_select(torch, dev, cfg):
         def plain():
             return sparse_select_ref(q, ckv, idx, kbt, None, d_v, bt, scale)
 
+        plan = sel_ops.select_plan(B, R, idx.shape[1], bt,
+                                   build.sm_count(dev))
+        before = sparse_select.launches
         got = kernel()
-        compare(tag, got, plain())
+        if sparse_select.launches != before + 1:
+            fail(f"sparse_select {tag}: not one launch a call")
+        compare(f"{tag} (loop {plan.loop} x {plan.n_split} spans)", got,
+                plain())
         if kb is not None:
             torch.cuda.synchronize()
             if not (bool((got.o[2] == 0).all()) and bool((got.l[2] == 0).all())
@@ -496,6 +620,16 @@ def check_sparse_select(torch, dev, cfg):
             compare(tag, got, mla_decode(q, ckv, d_v=d_v, scale=scale),
                     "mla_decode over the whole chunk")
         rows, valid = covered_rows(idx, kbt, None, bt, S)
+        dense_ms = bits = None
+        if bool(valid.all()):
+            # the gathered rows as one dense (B, T, D) chunk
+            dense = torch.gather(ckv, 1, rows[..., None].expand(-1, -1, D))
+            want = mla_decode(q, dense, d_v=d_v, scale=scale)
+            compare(tag, got, want, "mla_decode over the gathered rows")
+            bits = all(torch.equal(a, b) for a, b in zip(got, want))
+            dense_ms, _ = time_ms(
+                torch, lambda: mla_decode(q, dense, d_v=d_v, scale=scale),
+                100 if R < 256 else 20)
         mask = torch.zeros((B, S), dtype=torch.bool, device=dev)
         batch = torch.arange(B, device=dev)[:, None].expand_as(rows)
         mask[batch[valid], rows[valid]] = True
@@ -517,12 +651,18 @@ def check_sparse_select(torch, dev, cfg):
         b_ms, b_by = bound(nbytes, flops)
         cases.append({"shape": f"q({B},{R},{D}) ckv({B},{S},{D}) "
                                f"{tag}, {t_sel} selected rows",
+                      "loop": plan.loop, "n_split": plan.n_split,
                       "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms,
-                      "bound_ms": b_ms, "bound_by": b_by})
-        log(f"[kernels] sparse_select {tag}: {ms:.4f} ms device, "
-            f"{host_ms:.4f} ms as issued (plain {plain_ms:.4f}, sdpa with "
-            f"mask {lib_ms}, bound {b_ms:.5f} by {b_by})")
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "mla_decode_gathered_ms": dense_ms,
+                      "bits_equal_mla_decode_gathered": bits,
+                      **({"resources": res} if not cases else {})})
+        log(f"[kernels] sparse_select {tag}: loop {plan.loop} x "
+            f"{plan.n_split} spans, {ms:.4f} ms device, {host_ms:.4f} ms as "
+            f"issued (plain {plain_ms:.4f}, sdpa with mask {lib_ms}, bound "
+            f"{b_ms:.5f} by {b_by}; mla_decode over the gathered rows "
+            f"{dense_ms}, bits equal: {bits})")
     return worst, cases
 
 

@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.core.constants import NSA_BLOCK_TOKENS
 from repro_torch.core.merge import Partial
-from repro_torch.kernels.softmax_merge import softmax_merge
+from repro_torch.kernels.softmax_merge import (MAX_PARTS, softmax_merge,
+                                               softmax_merge_parts)
 from repro_torch.models.mla import (MLAConfig, absorbed_partial,
                                     selected_partial)
 
@@ -42,7 +43,7 @@ def route_simulated(cfg: MLAConfig, q_abs: torch.Tensor,
     entries: blocks[i] (ascending block ids of block_tokens rows — what the
     serving path passes, straight to sparse_select) or masks[i] (an
     (S_i,)-style token mask). Several shards merge in one softmax_merge
-    call."""
+    launch (in place up to MAX_PARTS shards, stacked past it)."""
     parts = [_shard_partial(cfg, q_abs, shard,
                             None if masks is None else masks[i],
                             None if blocks is None else blocks[i],
@@ -50,6 +51,8 @@ def route_simulated(cfg: MLAConfig, q_abs: torch.Tensor,
              for i, shard in enumerate(shards)]
     if len(parts) == 1:
         return parts[0]
+    if len(parts) <= MAX_PARTS:           # read in place, no stack copies
+        return softmax_merge_parts(parts)
     return softmax_merge(torch.stack([p.o for p in parts]),
                          torch.stack([p.m for p in parts]),
                          torch.stack([p.l for p in parts]))

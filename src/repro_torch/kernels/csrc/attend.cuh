@@ -1,6 +1,7 @@
-// The attention tile loop shared by mla_decode.cu (a contiguous span of the
-// cache), sparse_select.cu (the cache rows that selected blocks cover) and
-// flash_prefill.cu (a contiguous span under a causal limit per query row).
+// The 16-row attention tile loop ("attend16") of mla_decode.cu (a
+// contiguous span of the cache) and sparse_select.cu (the cache rows that
+// selected blocks cover), through decode_launch.cuh; the Limit functor
+// (a causal limit per query row) served the f32 flash_prefill.
 //
 // One block owns ROWS query rows and walks its span of positions in BS-row
 // tiles, carrying the online-softmax state (m, l, acc) in registers. A

@@ -2,10 +2,16 @@
 // its split spans.
 //
 // attend_tiles: one block owns Sh::ROWS query rows, keeps their (ROWS, D)
-// tile resident in shared memory for its whole span of the cache, and
+// tile resident in shared memory for its whole span of positions, and
 // streams the span in (BS, D) tiles copied with cp.async (16-byte copies
-// that write the padded pitch; rows past the span are zero-filled). Per
-// tile, three phases:
+// that write the padded pitch). A `Rows` functor (attend.cuh) maps a span
+// position to the cache row it reads: DenseRows (mla_decode) reads row s
+// at position s; BlockRows (sparse_select) looks the row up in a block
+// table. A gathered tile's rows are looked up once, one lane a row, into
+// a table in shared memory while the previous tile's copies are in flight,
+// so each tile row is still one contiguous 16-byte-copied run of D floats.
+// A position that holds no row (past the span, or a table entry of -1) is
+// zero-filled and scores -inf. Per tile, three phases:
 // * Scores, by the first SW warps. A thread owns an RI x CJ micro-tile:
 //   rows srow + 8 i, columns scol + 4 j. Each score is one FMA chain over
 //   c = 0, 1, 2, ... from 0, multiplied by `scale` after the chain: the
@@ -78,10 +84,12 @@ using Group = Shape<64, 32, 8, 4, 4, 1>;
 // fills it.
 using Single = Shape<16, 16, 8, 2, 1, 1>;
 
+// Dynamic shared memory of attend_tiles; a gathered span adds the row
+// tables of two tiles (this one and the next).
 template <class Sh>
-inline int smem_bytes(int D) {
+inline int smem_bytes(int D, bool table = false) {
   return (int)(((Sh::ROWS + Sh::BS) * attend::pitch_of(D) + Sh::BS * Sh::PP)
-               * sizeof(float));
+               * sizeof(float) + (table ? 2 * Sh::BS * sizeof(int) : 0));
 }
 
 // Shared memory of combine_spans for `rows` rows over n spans.
@@ -106,13 +114,14 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // The scores of one tile, S = (Q K^T) * scale, into ps transposed, -inf
-// at positions at or past s_end. Score warp w owns rows (w / WC) WROWS +
+// at positions at or past s_end (kTable: at positions whose entry in the
+// tile's row table tab is -1). Score warp w owns rows (w / WC) WROWS +
 // lane % 8 + 8 i and columns (w % WC) WCOLS + lane / 8 + 4 j.
-template <class Sh>
+template <class Sh, bool kTable>
 __device__ __forceinline__ void scores(const float* qs, const float* ks,
                                        float* ps, int D, int DP, float scale,
-                                       int s0, int s_end, int warp,
-                                       int lane) {
+                                       int s0, int s_end, const int* tab,
+                                       int warp, int lane) {
   constexpr int RI = Sh::RI, CJ = Sh::CJ, PP = Sh::PP;
   const int srow = (warp / Sh::WC) * Sh::WROWS + lane % 8;
   const int scol = (warp % Sh::WC) * Sh::WCOLS + lane / 8;
@@ -146,21 +155,24 @@ __device__ __forceinline__ void scores(const float* qs, const float* ks,
 #pragma unroll
   for (int j = 0; j < CJ; ++j) {
     const int col = scol + 4 * j;
-    const bool ok = s0 + col < s_end;
+    bool ok;
+    if constexpr (kTable) ok = tab[col] >= 0;
+    else ok = s0 + col < s_end;
 #pragma unroll
     for (int i = 0; i < RI; ++i)
       ps[col * PP + srow + 8 * i] = ok ? sc[i][j] * scale : -CUDART_INF_F;
   }
 }
 
-// Attend query rows [r0, r0 + ROWS) of qb (row stride q_r) over cache rows
-// [s_begin, s_end) of cb (row stride c_r). Writes o (R-row slab at
-// out_base, d_v columns, d_v % 4 == 0), m and l.
-template <class Sh>
+// Attend query rows [r0, r0 + ROWS) of qb (row stride q_r) over span
+// positions [s_begin, s_end), cache rows from cb (row stride c_r) through
+// `rows`. Writes o (R-row slab at out_base, d_v columns, d_v % 4 == 0), m
+// and l.
+template <class Sh, class Rows>
 __device__ __forceinline__ void attend_tiles(
     const float* __restrict__ qb, long q_r, const float* __restrict__ cb,
     long c_r, int R, int r0, int D, int DP, int d_v, float scale,
-    int s_begin, int s_end, float* __restrict__ o,
+    int s_begin, int s_end, Rows rows, float* __restrict__ o,
     float* __restrict__ m_out, float* __restrict__ l_out, long out_base) {
   constexpr int ROWS = Sh::ROWS, BS = Sh::BS, THREADS = Sh::THREADS;
   constexpr int RPW = Sh::RPW, PP = Sh::PP;
@@ -168,6 +180,8 @@ __device__ __forceinline__ void attend_tiles(
   float* qs = smem;                       // (ROWS, DP), resident
   float* ks = qs + ROWS * DP;             // (BS, DP), one cache tile
   float* ps = ks + BS * DP;               // (BS, PP): scores, then P
+  // kTable: (2, BS) cache rows of this tile and the next, -1 for none
+  int* tab = reinterpret_cast<int*>(ps + BS * PP);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int D4 = D / 4;
@@ -187,19 +201,39 @@ __device__ __forceinline__ void attend_tiles(
 #pragma unroll
     for (int k = 0; k < 16; ++k) acc[i][k] = 0.f;
 
+  if constexpr (Rows::kTable) {          // the first tile's rows
+    if (tid < BS && s_begin < s_end)
+      tab[tid] = s_begin + tid < s_end ? rows(s_begin + tid) : -1;
+  }
+  int cur = 0;                            // kTable: this tile's half of tab
+
   for (int s0 = s_begin; s0 < s_end; s0 += BS) {
     __syncthreads();                      // the previous tile is consumed
+    const int* rows_s = tab + cur * BS;
     for (int i = tid; i < BS * D4; i += THREADS) {
       const int s = i / D4, c = (i % D4) * 4;
-      const bool ok = s0 + s < s_end;
-      cp16(ks + s * DP + c, ok ? cb + (long)(s0 + s) * c_r + c : cb, ok);
+      if constexpr (Rows::kTable) {
+        const int r = rows_s[s];
+        cp16(ks + s * DP + c, r >= 0 ? cb + (long)r * c_r + c : cb, r >= 0);
+      } else {
+        const bool ok = s0 + s < s_end;
+        cp16(ks + s * DP + c, ok ? cb + (long)(s0 + s) * c_r + c : cb, ok);
+      }
     }
     cp_commit();
+    if constexpr (Rows::kTable) {
+      // the next tile's rows, looked up while this tile's copies fly; the
+      // other half of tab was last read before this iteration's barrier
+      const int t = s0 + BS + tid;
+      if (tid < BS && s0 + BS < s_end)
+        tab[(cur ^ 1) * BS + tid] = t < s_end ? rows(t) : -1;
+    }
     cp_wait();
     __syncthreads();
 
     if (warp < Sh::SW)
-      scores<Sh>(qs, ks, ps, D, DP, scale, s0, s_end, warp, lane);
+      scores<Sh, Rows::kTable>(qs, ks, ps, D, DP, scale, s0, s_end, rows_s,
+                               warp, lane);
     __syncthreads();
 
     // online softmax of this warp's RPW rows: LPR lanes a row, each taking
@@ -278,6 +312,7 @@ __device__ __forceinline__ void attend_tiles(
           acc[i][4 * k + 3] = fmaf(p[i], v[k].w, acc[i][4 * k + 3]);
         }
     }
+    cur ^= 1;
   }
 
   float m_r[RPW], l_r[RPW];

@@ -1,5 +1,7 @@
-// The exact M-way online-softmax merge of one row, shared by softmax_merge.cu
-// (the per-request merge) and mla_decode.cu (the combine of its S splits).
+// The exact M-way online-softmax merge: its rounded adds and slot order,
+// shared by softmax_merge.cu (the per-request merge) and decode_tiled.cuh
+// (the in-launch combine of split spans), and merge_rows_kernel, the split
+// combine of the two flash_prefill kernels.
 //
 //   m* = max_i m_i ;  w_i = l_i exp(m_i - m*) ;  o* = sum_i (w_i / sum w) o_i
 //

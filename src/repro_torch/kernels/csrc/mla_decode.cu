@@ -29,8 +29,7 @@
 //   - "tiled16" (R < 64), the same loop at 16 rows, 16-row cache tiles
 //     (128 spans for one request over 2048 positions), 256 threads, one
 //     block an SM;
-//   - "attend16" (R < 64), attend.cuh's 16-row loop (shared with
-//     sparse_select and the f32 flash_prefill), 32-row tiles, two blocks
+//   - "attend16" (R < 64), attend.cuh's 16-row loop, 32-row tiles, two blocks
 //     an SM. Below 64 rows the plan takes the 16-row loop whose busiest SM
 //     walks fewer cache rows, attend16 on a tie: tiled16 for a single
 //     request, whose spans of one 16-row tile each fill the card;
@@ -51,101 +50,18 @@
 //   columns (decode_tiled.cuh combine_spans), in slot order: one launch, no
 //   block reading more than ~1/n of the partials, and the same bits on
 //   every call.
+// * The three loops, the spans, the combine and the launch live in
+//   decode_launch.cuh, which sparse_select.cu instantiates over a block
+//   table of selected rows; here they read the dense rows (DenseRows).
 // * A row with no valid cache entries returns the merge identity (o = 0,
 //   m = -inf, l = 0), as partial_from_logits does: the reference point of
 //   exp is pinned to 0 while the running max is -inf. (The Pallas kernel
 //   computes exp(-inf - -inf) there and returns NaN.)
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "attend.cuh"
-#include "decode_tiled.cuh"
-
-namespace {
-
-struct Args {
-  const float* q;
-  long q_b, q_r;
-  const float* ckv;
-  long c_b, c_r;
-  const int* lengths;
-  int B, R, S, D, DP, d_v;
-  float scale;
-  int n_split;
-  float *o, *m, *l, *o_part, *m_part, *l_part;
-};
-
-// Span z of batch row b for `tile`-row cache tiles: [s_begin, s_end).
-__device__ __forceinline__ void span_of(const Args& a, int tile, int b,
-                                        int z, int& s_begin, int& s_end) {
-  int len = a.lengths ? a.lengths[b] : a.S;
-  len = len < 0 ? 0 : (len > a.S ? a.S : len);
-  const long tiles = (a.S + tile - 1) / tile;
-  s_begin = (int)((long)z * tiles / a.n_split) * tile;
-  s_end = min(len, (int)((long)(z + 1) * tiles / a.n_split) * tile);
-}
-
-// After every span's partial is written: merge them (split launches only).
-template <int THREADS, int ROWS>
-__device__ __forceinline__ void combine(const Args& a, int b, int z,
-                                        int r0) {
-  cooperative_groups::this_grid().sync();
-  tiled::combine_spans<THREADS>(
-      a.o_part, a.m_part, a.l_part, a.n_split, (long)a.B * a.R,
-      (long)b * a.R + r0, min(ROWS, a.R - r0), a.d_v, z, a.o, a.m, a.l);
-}
-
-template <class Sh, bool kSplit>
-__global__ void __launch_bounds__(Sh::THREADS, Sh::MIN_BLOCKS)
-tiled_kernel(Args a) {
-  const int b = blockIdx.y, z = blockIdx.z, r0 = blockIdx.x * Sh::ROWS;
-  int s_begin, s_end;
-  span_of(a, Sh::BS, b, z, s_begin, s_end);
-  tiled::attend_tiles<Sh>(
-      a.q + b * a.q_b, a.q_r, a.ckv + b * a.c_b, a.c_r, a.R, r0, a.D, a.DP,
-      a.d_v, a.scale, s_begin, s_end, kSplit ? a.o_part : a.o,
-      kSplit ? a.m_part : a.m, kSplit ? a.l_part : a.l,
-      ((long)z * a.B + b) * a.R);
-  if constexpr (kSplit) combine<Sh::THREADS, Sh::ROWS>(a, b, z, r0);
-}
-
-template <bool kSplit>
-__global__ void __launch_bounds__(attend::THREADS, 2) attend_kernel(Args a) {
-  const int b = blockIdx.y, z = blockIdx.z, r0 = blockIdx.x * attend::ROWS;
-  int s_begin, s_end;
-  span_of(a, attend::BS, b, z, s_begin, s_end);
-  attend::attend_span(a.q + b * a.q_b, a.q_r, a.ckv + b * a.c_b, a.c_r,
-                      a.R, r0, a.D, a.DP, a.d_v, a.scale, s_begin, s_end,
-                      attend::DenseRows{}, kSplit ? a.o_part : a.o,
-                      kSplit ? a.m_part : a.m, kSplit ? a.l_part : a.l,
-                      ((long)z * a.B + b) * a.R);
-  if constexpr (kSplit) combine<attend::THREADS, attend::ROWS>(a, b, z, r0);
-}
-
-template <class Kernel>
-int launch(Kernel kernel, int rows, int threads, int loop_smem, Args a,
-           cudaStream_t st) {
-  const bool split = a.n_split > 1;
-  const int merge_smem =
-      split ? tiled::combine_smem_bytes(rows, a.n_split, threads) : 0;
-  const int smem = loop_smem > merge_smem ? loop_smem : merge_smem;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.R + rows - 1) / rows, a.B, a.n_split);
-  if (split) {                            // every block co-resident
-    void* args[] = {&a};
-    err = cudaLaunchCooperativeKernel((const void*)kernel, grid,
-                                      dim3(threads), args, smem, st);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    kernel<<<grid, threads, smem, st>>>(a);
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "decode_launch.cuh"
 
 // loop: 0 "group", 1 "tiled16", 2 "attend16". With n_split == 1 the
 // kernel writes o/m/l directly and the *_part buffers are unused;
@@ -161,22 +77,8 @@ extern "C" int mla_decode_f32(const float* q, long q_b, long q_r,
       loop < 0 || loop > 2)
     return -1;
   if (B == 0 || R == 0) return 0;
-  const Args a{q, q_b, q_r, ckv, c_b, c_r, lengths, B, R, S, D,
-               attend::pitch_of(D), d_v, scale, n_split,
-               o, m, l, o_part, m_part, l_part};
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool split = n_split > 1;
-  if (loop == 0) {
-    using Sh = tiled::Group;
-    return launch(split ? tiled_kernel<Sh, true> : tiled_kernel<Sh, false>,
-                  Sh::ROWS, Sh::THREADS, tiled::smem_bytes<Sh>(D), a, st);
-  }
-  if (loop == 1) {
-    using Sh = tiled::Single;
-    return launch(split ? tiled_kernel<Sh, true> : tiled_kernel<Sh, false>,
-                  Sh::ROWS, Sh::THREADS, tiled::smem_bytes<Sh>(D), a, st);
-  }
-  return launch(split ? attend_kernel<true> : attend_kernel<false>,
-                attend::ROWS, attend::THREADS, attend::smem_bytes(D, false),
-                a, st);
+  const decode::Args a{q, q_b, q_r, ckv, c_b, c_r, lengths, nullptr, 0,
+                       nullptr, 1, 0, B, R, S, S, D, attend::pitch_of(D),
+                       d_v, scale, n_split, o, m, l, o_part, m_part, l_part};
+  return decode::run<false>(loop, a, (cudaStream_t)stream);
 }

@@ -10,8 +10,9 @@ cooperative launch (see the source for the design). The serving backend
 folds a group's query rows into R and calls it with B = 1 against the one
 shared chunk, so the cache is never copied per request.
 
-split_plan and partial_buffers serve the kernels that keep attend.cuh's
-loop and merge.cuh's combine kernel (sparse_select, flash_prefill).
+sparse_select runs the same loops over a gathered row table and takes
+decode_plan too. split_plan serves the flash_prefill kernels, which keep
+merge.cuh's combine kernel; partial_buffers serves all three.
 """
 
 from __future__ import annotations
@@ -26,13 +27,10 @@ from repro_torch.core.merge import Partial
 from repro_torch.kernels import build
 from repro_torch.kernels.mla_decode.ref import mla_decode_ref
 
-ROWS = 16                 # query rows per block (csrc/attend.cuh ROWS)
-TILE = 32                 # cache rows per tile (csrc/attend.cuh BS)
 MAX_DV = 512
 MAX_D = 576               # the group loop's Q tile + cache tile fill 227 KB
 MIN_SPLIT_TILES = 2       # split_plan: a span of S is at least this many tiles
 MAX_SPLITS = 256          # csrc MERGE_MAX_SLOTS: spans the combine can merge
-BLOCKS_PER_SM = 2         # two ~111 KB blocks fit in an SM's shared memory
 
 
 class Loop(NamedTuple):
@@ -110,14 +108,12 @@ def _launcher():
     return fn
 
 
-def split_plan(B: int, R: int, S: int, n_sm: int, *, rows: int = ROWS,
-               tile: int = TILE,
-               blocks_per_sm: int = BLOCKS_PER_SM) -> Tuple[int, int]:
-    """attend.cuh's plan (sparse_select, the f32 and bf16 flash_prefill):
-    (split_len, n_split): spans of S per block so that about
-    blocks_per_sm blocks per SM are in flight, each span at least
-    MIN_SPLIT_TILES tiles long, for a kernel whose blocks own `rows` query
-    rows and walk S in `tile`-row tiles (by default attend.cuh's).
+def split_plan(B: int, R: int, S: int, n_sm: int, *, rows: int, tile: int,
+               blocks_per_sm: int) -> Tuple[int, int]:
+    """The f32 and bf16 flash_prefill kernels' plan: (split_len, n_split):
+    spans of S per block so that about blocks_per_sm blocks per SM are in
+    flight, each span at least MIN_SPLIT_TILES tiles long, for a kernel
+    whose blocks own `rows` query rows and walk S in `tile`-row tiles.
     split_len is a multiple of `tile`."""
     tiles = max(1, math.ceil(S / tile))
     blocks = max(1, math.ceil(R / rows) * B)

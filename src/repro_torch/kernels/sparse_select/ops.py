@@ -3,12 +3,14 @@
 
 Replaces src/repro/kernels/sparse_select/kernel.py:sparse_select_pallas. On
 this card one request (R = 16 rows) over 512 selected rows is byte-bound
-and a large ROUTE group operation-bound, as for mla_decode, whose tile loop
-(csrc/attend.cuh) it shares: one block per 16 query rows walks the selected
-rows in 32-row tiles, each tile row's address looked up in the block table,
-and the selected rows are split across blocks by mla_decode's split_plan
-when the row tiles alone cannot fill the SMs. The serving backend folds a
-request's query rows into R and passes the holder's chunk in place.
+and a large ROUTE group operation-bound, as for mla_decode, whose decode
+loops it runs over a gathered row table (csrc/decode_launch.cuh): each tile
+row's cache row is looked up in the block table. Its plan is mla_decode's
+decode_plan over T = KB * block_tokens positions (select_plan): the 64-row
+group loop from 64 query rows, a 16-row loop below, and spans that fill
+the card, merged in the same cooperative launch, so a call is one launch.
+The serving backend folds a request's query rows into R and passes the
+holder's chunk in place.
 """
 
 from __future__ import annotations
@@ -20,11 +22,21 @@ import torch
 
 from repro_torch.core.merge import Partial
 from repro_torch.kernels import build
-from repro_torch.kernels.mla_decode.ops import (MAX_DV, partial_buffers,
-                                                split_plan)
+from repro_torch.kernels.mla_decode.ops import (LOOPS, MAX_D, MAX_DV,
+                                                DecodePlan, decode_plan,
+                                                partial_buffers)
 from repro_torch.kernels.sparse_select.ref import sparse_select_ref
 
 MAX_GRID_Y = 65535        # batch rows per launch (grid.y)
+
+
+def select_plan(B: int, R: int, KB: int, block_tokens: int,
+                n_sm: int) -> DecodePlan:
+    """The loop and the split of the T = KB * block_tokens selected
+    positions for q (B, R, D): mla_decode's decode_plan over T. Spans are
+    cut over the widest row's positions; a span past a row's kb[b] *
+    block_tokens is the identity."""
+    return decode_plan(B, R, KB * block_tokens, n_sm)
 
 
 def _launcher():
@@ -32,9 +44,23 @@ def _launcher():
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
         fn.argtypes = [P, L, L, P, L, L, P, L, P, P, I, I, I, I, I,
-                       ctypes.c_float, I, I, I, I, P, P, P, P, P, P, P]
+                       ctypes.c_float, I, I, I, I, P, P, P, P, P, P,
+                       P]         # bt, kb_max, loop, n_split
         fn.restype = ctypes.c_int
     return fn
+
+
+def resources(loop: str, D: int):
+    """(dynamic shared memory bytes of a block, blocks one SM holds) of
+    loop `loop` at D, the latter as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports it (needs the
+    card)."""
+    fn = build.library("sparse_select").sparse_select_resources
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    smem = ctypes.c_int(0)
+    per_sm = fn(LOOPS[loop].code, D, ctypes.byref(smem))
+    return smem.value, per_sm
 
 
 def _check(q, ckv, block_idx, kb, lengths, d_v, block_tokens) -> None:
@@ -72,9 +98,11 @@ def _check_cuda(q, ckv, block_idx, kb, lengths, d_v, block_tokens) -> None:
         raise TypeError(f"sparse_select kernel takes f32, got {q.dtype} / "
                         f"{ckv.dtype}")
     D = q.shape[2]
-    if D % 4 or d_v > MAX_DV:
-        raise ValueError(f"sparse_select kernel needs D % 4 == 0 and d_v <= "
-                         f"{MAX_DV}, got D={D}, d_v={d_v}")
+    if D % 4 or D > MAX_D or d_v % 4 or d_v > MAX_DV:
+        raise ValueError(f"sparse_select kernel needs D % 4 == 0, D <= "
+                         f"{MAX_D} (the group loop's shared memory), "
+                         f"d_v % 4 == 0 and d_v <= {MAX_DV}, got D={D}, "
+                         f"d_v={d_v}")
     if not q.is_contiguous():
         raise ValueError("sparse_select kernel: q must be contiguous")
     if (ckv.stride(2) != 1 or ckv.stride(1) % 4 or ckv.stride(0) % 4
@@ -119,22 +147,22 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
     _check_cuda(q, ckv, block_idx, kb, lengths, d_v, block_tokens)
     B, R, D = q.shape
     S, KB = ckv.shape[1], block_idx.shape[1]
-    split_len, n_split = split_plan(B, R, KB * block_tokens,
-                                    build.sm_count(q.device))
+    plan = select_plan(B, R, KB, block_tokens, build.sm_count(q.device))
     with torch.cuda.device(q.device):
         o = torch.empty((B, R, d_v), dtype=torch.float32, device=q.device)
         m = torch.empty((B, R), dtype=torch.float32, device=q.device)
         l = torch.empty((B, R), dtype=torch.float32, device=q.device)
-        parts = partial_buffers(n_split, B, R, d_v, q.device)
+        parts = partial_buffers(plan.n_split, B, R, d_v, q.device)
         status = _launcher()(
             q.data_ptr(), q.stride(0), q.stride(1),
             ckv.data_ptr(), ckv.stride(0), ckv.stride(1),
             block_idx.data_ptr(), block_idx.stride(0),
             None if kb is None else kb.data_ptr(),
             None if lengths is None else lengths.data_ptr(),
-            B, R, S, D, d_v, float(scale), block_tokens, KB, split_len,
-            n_split, o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in parts),
+            B, R, S, D, d_v, float(scale), block_tokens, KB,
+            LOOPS[plan.loop].code, plan.n_split, o.data_ptr(), m.data_ptr(),
+            l.data_ptr(), *(None if t is None else t.data_ptr()
+                            for t in parts),
             build.stream_of(q))
         build.check(status, "sparse_select")
         sparse_select.launches += 1

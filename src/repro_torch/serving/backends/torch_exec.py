@@ -54,7 +54,8 @@ from repro_torch.core.chunk_store import ChunkStore
 from repro_torch.core.merge import Partial
 from repro_torch.core.routing import route_batched
 from repro_torch.core.splice import splice_delta_rotate
-from repro_torch.kernels.softmax_merge import softmax_merge
+from repro_torch.kernels.softmax_merge import (MAX_PARTS, softmax_merge,
+                                               softmax_merge_parts)
 from repro_torch.models.mla import (MLAConfig, absorbed_partial,
                                     absorbed_partial_ref, selected_partial)
 from repro_torch.serving import timeline as TL
@@ -311,7 +312,11 @@ class TorchExecBackend:
 
     @staticmethod
     def _merge(ps: List[Partial]) -> Partial:
-        """One request's partials, all (m_q, H, d_v): one softmax_merge."""
+        """One request's partials, all (m_q, H, d_v): one softmax_merge
+        launch, reading them in place. Past the in-place table's MAX_PARTS
+        slots they are stacked first (the stacked entry takes up to 256)."""
+        if len(ps) <= MAX_PARTS:
+            return softmax_merge_parts(ps)
         return softmax_merge(torch.stack([p.o for p in ps]),
                              torch.stack([p.m for p in ps]),
                              torch.stack([p.l for p in ps]))

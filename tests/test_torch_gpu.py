@@ -141,18 +141,31 @@ def test_exec_backend_runs_the_kernels(dev):
 
 
 # (R, S, block ids per row, kb per row or None, block_tokens): one request
-# and a 16-request group over 8 and all 32 blocks of a 2048-token chunk, a
-# ragged batch with an empty row and a selected tail block of a 2080-token
-# chunk, and token-level selection of 37 scattered rows
+# (m_q = 1, R = 16), m_q = 4 (R = 64) and a 16-request group (R = 256) over
+# 8 and all 32 blocks of a 2048-token chunk, a ragged batch with an empty
+# row and a selected tail block of a 2080-token chunk, token-level
+# selection of 37 scattered rows, model (b)'s selection decode (B = 2
+# sequences of 16 heads, 512 token ids of a 522-slot cache), and the
+# per-row masks of absorbed_partial (R = 1 a batch row, ragged kb ending in
+# an empty row): 40 rows (a split launch) and 300 rows (an unsplit one)
 SPARSE_CASES = {
     "r16_kb8": (16, 2048, [[1, 4, 5, 9, 17, 20, 28, 31]], None, 64),
     "r16_kb32": (16, 2048, [list(range(32))], None, 64),
+    "r64_kb8": (64, 2048, [[2, 6, 7, 10, 16, 22, 27, 29]], None, 64),
     "r256_kb8": (256, 2048, [[0, 2, 3, 11, 12, 19, 25, 30]], None, 64),
     "r256_kb32": (256, 2048, [list(range(32))], None, 64),
     "ragged_tail": (16, 2080, [[0, 3, 7, 9, 12, 20, 31, 32], [32, 5, 1] + [0] * 5,
                                [0] * 8], [8, 3, 0], 64),
     "token_level": (16, 2048, [[(i * 331) % 2048 for i in range(37)]], None,
                     1),
+    "model_b_bt1": (16, 522, [sorted((i * 97 + b) % 522 for i in range(512))
+                              for b in range(2)], None, 1),
+    "per_row_r1_b40": (1, 300, [[(i * 7 + b) % 300 for i in range(60)]
+                                for b in range(40)],
+                       [(b * 13) % 61 for b in range(39)] + [0], 1),
+    "per_row_r1_b300": (1, 300, [[(i * 11 + b) % 300 for i in range(60)]
+                                 for b in range(300)],
+                        [(b * 7) % 61 for b in range(299)] + [0], 1),
 }
 
 
@@ -186,6 +199,70 @@ def test_sparse_select_kernel_matches_plain(dev, case):
             _close(a, b, 1e-5, 1e-5)
 
 
+@pytest.mark.parametrize("case", ["r16_kb8", "r64_kb8", "r256_kb32",
+                                  "ragged_tail", "model_b_bt1",
+                                  "per_row_r1_b40"])
+def test_sparse_select_two_calls_are_bit_identical(dev, case):
+    """The spans merge in slot order inside the launch, never in order of
+    arrival."""
+    from repro_torch.kernels.sparse_select import sparse_select
+    R, S, ids, kb, bt = SPARSE_CASES[case]
+    B = len(ids)
+    g = torch.Generator(device=dev).manual_seed(R + S + bt)
+    q = torch.randn((B, R, 576), device=dev, generator=g)
+    ckv = torch.randn((B, S, 576), device=dev, generator=g)
+    idx = torch.tensor(ids, dtype=torch.int32, device=dev)
+    kbt = None if kb is None else torch.tensor(kb, dtype=torch.int32,
+                                               device=dev)
+    first, second = (sparse_select(q, ckv, idx, kbt, d_v=512,
+                                   scale=1 / math.sqrt(192), block_tokens=bt)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _merge_inputs(dev, M, m_q, d_v):
+    """M partials of (m_q, 16, d_v) with identity slots: slot 0 empty for
+    half the rows, every slot empty for one row."""
+    g = torch.Generator(device=dev).manual_seed(M * 100 + m_q + d_v)
+    o = torch.randn((M, m_q, 16, d_v), device=dev, generator=g)
+    m = 3 * torch.randn((M, m_q, 16), device=dev, generator=g)
+    l = 1 + 100 * torch.rand((M, m_q, 16), device=dev, generator=g)
+    m[0, :, :8], l[0, :, :8], o[0, :, :8] = -math.inf, 0.0, 0.0
+    m[:, 0, 0], l[:, 0, 0], o[:, 0, 0] = -math.inf, 0.0, 0.0
+    return o, m, l
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 16, 17, 40])
+@pytest.mark.parametrize("m_q,d_v", [(1, 512), (16, 512), (3, 30)])
+def test_softmax_merge_entries_are_bit_identical_to_plain(dev, M, m_q, d_v):
+    """Both entries of the merge kernel equal the plain version on the card
+    bit for bit, and each other: the stacked entry at every M (past 16 its
+    slot loop), the in-place entry up to its 16 slots, at a serve request's
+    rows and at a d_v that takes the kernel's scalar path."""
+    from repro_torch.kernels.softmax_merge import (softmax_merge,
+                                                   softmax_merge_parts,
+                                                   softmax_merge_ref)
+    from repro_torch.core.merge import Partial
+    o, m, l = _merge_inputs(dev, M, m_q, d_v)
+    want = softmax_merge_ref(o, m, l)
+    before = softmax_merge.launches
+    got = softmax_merge(o, m, l)
+    assert softmax_merge.launches == before + 1
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if M <= 16:
+        parts = [Partial(o[i].clone(), m[i].clone(), l[i].clone())
+                 for i in range(M)]
+        in_place = softmax_merge_parts(parts)
+        assert softmax_merge.launches == before + 2
+        torch.cuda.synchronize()
+        for a, b in zip(in_place, want):
+            assert torch.equal(a, b)
+
+
 def test_masked_partial_runs_sparse_select(dev):
     from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA
     from repro_torch.kernels.sparse_select import ops as sel_ops
@@ -209,6 +286,7 @@ def test_exec_backend_runs_the_selection_regime(dev):
                                                          max_oracle_err)
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.selection import IndexerService
+    from repro_torch.kernels.softmax_merge import softmax_merge
     before = sel_ops.sparse_select.launches
     eng = ServingEngine(4, pool_tokens=10**6, instances_per_pod=2,
                         backend=TorchExecBackend(V2_LITE_MLA),
@@ -219,7 +297,11 @@ def test_exec_backend_runs_the_selection_regime(dev):
             Request(1, home=3, chunk_ids=["b"], m_q=1, k_selected=128),
             Request(2, home=3, chunk_ids=["a"], m_q=8)]
     for _ in range(2):
+        merges = softmax_merge.launches
         eng.schedule_step(reqs)
+        # one merge launch per merged request, its partials read in place
+        assert softmax_merge.launches - merges == len(
+            eng.outputs_of(eng.step_idx)) == len(reqs)
         assert eng.plans[-1].selections
         assert max_oracle_err(eng, reqs, eng.step_idx) <= 1e-5
     assert sel_ops.sparse_select.launches > before

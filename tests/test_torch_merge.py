@@ -150,3 +150,42 @@ def test_softmax_merge_rejects_bad_shapes():
     with pytest.raises(ValueError):
         merge_ops.softmax_merge(o, torch.zeros((2, 3, 5)),
                                 torch.zeros((2, 3, 5)))
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 16])
+def test_softmax_merge_parts_equals_the_stacked_plain_version(M):
+    """softmax_merge_parts (the serving path's in-place entry) on CPU
+    tensors: the plain version on the stack, bit for bit, identity slots
+    included; the CPU call launches nothing."""
+    o, m, l = _stack_np(np.random.default_rng(60 + M), M)
+    parts = [tm.Partial(torch.tensor(o[i]), torch.tensor(m[i]),
+                        torch.tensor(l[i])) for i in range(M)]
+    before = merge_ops.softmax_merge.launches
+    got = merge_ops.softmax_merge_parts(parts)
+    assert merge_ops.softmax_merge.launches == before
+    want = merge_ops.softmax_merge_ref(torch.tensor(o), torch.tensor(m),
+                                       torch.tensor(l))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.isneginf(got.m[1, 0]) and got.l[1, 0] == 0
+
+
+def test_softmax_merge_parts_refuses_rather_than_copies():
+    """More than MAX_PARTS partials, or a part that is not contiguous,
+    raise: the in-place table never stacks behind the caller's back."""
+    o, m, l = _stack_np(np.random.default_rng(77), 17)
+    parts = [tm.Partial(torch.tensor(o[i]), torch.tensor(m[i]),
+                        torch.tensor(l[i])) for i in range(17)]
+    assert merge_ops.MAX_PARTS == 16
+    with pytest.raises(ValueError, match="1 to 16 partials"):
+        merge_ops.softmax_merge_parts(parts)
+    with pytest.raises(ValueError, match="1 to 16 partials"):
+        merge_ops.softmax_merge_parts([])
+    strided = parts[1]._replace(o=torch.tensor(o[1]).transpose(0, 1)
+                                .contiguous().transpose(0, 1))
+    assert not strided.o.is_contiguous()
+    with pytest.raises(ValueError, match="not contiguous"):
+        merge_ops.softmax_merge_parts([parts[0], strided])
+    with pytest.raises(ValueError, match="want o"):
+        merge_ops.softmax_merge_parts([parts[0], parts[1]._replace(
+            m=parts[1].m[:1])])

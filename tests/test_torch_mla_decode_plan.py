@@ -1,8 +1,7 @@
 """The plan of the mla_decode kernel (repro_torch.kernels.mla_decode.ops),
 on the CPU: which loop a call takes, how S is split into spans, and that
 the spans' plain partials merged in slot order are the whole attention.
-Also pins attend.cuh's split_plan, which sparse_select and flash_prefill
-keep.
+Also pins split_plan, which the flash_prefill kernels keep.
 
 Tolerance: the merged spans against mla_decode_ref, 1e-6 absolute and
 relative in f32 (the same logits, summed over the spans in another order).
@@ -183,13 +182,12 @@ def test_merged_span_partials_equal_the_whole(B, R, S, lengths):
                 assert bool((got.l[b] == 0).all())
 
 
-# attend.cuh's plan, for sparse_select (defaults) and both flash_prefill
-# kernels (the f32 one takes the defaults; bf16 BF16_PLAN): the results of
-# the tree this plan was introduced on
+# split_plan, for the f32 (F32_PLAN) and bf16 (BF16_PLAN) flash_prefill
+# kernels, its two callers: the results of the parent tree
 SPLIT_PLAN_PINS = [
     ((1, 16, 2048), (64, 32), (128, 16)),
-    ((1, 256, 2048), (128, 16), (128, 16)),
-    ((1, 4096, 2048), (2048, 1), (1024, 2)),
+    ((1, 256, 2048), (64, 32), (128, 16)),
+    ((1, 4096, 2048), (1024, 2), (1024, 2)),
     ((3, 16, 2048), (64, 32), (128, 16)),
     ((1, 16, 512), (64, 8), (128, 4)),
     ((1, 16, 2080), (96, 22), (192, 11)),
@@ -197,12 +195,12 @@ SPLIT_PLAN_PINS = [
     ((1, 32768, 2048), (2048, 1), (2048, 1)),
     ((1, 640, 300), (64, 5), (192, 2)),
     ((2, 308, 101), (64, 2), (128, 1)),
-    ((12, 16, 2048), (96, 22), (192, 11)),
+    ((12, 16, 2048), (192, 11), (192, 11)),
     ((1, 16, 1), (32, 1), (64, 1)),
 ]
 
 
-@pytest.mark.parametrize("shape,plain,bf16", SPLIT_PLAN_PINS)
-def test_split_plan_is_pinned_for_its_callers(shape, plain, bf16):
-    assert mla_ops.split_plan(*shape, N_SM) == plain
+@pytest.mark.parametrize("shape,f32,bf16", SPLIT_PLAN_PINS)
+def test_split_plan_is_pinned_for_its_callers(shape, f32, bf16):
+    assert mla_ops.split_plan(*shape, N_SM, **fp_ops.F32_PLAN) == f32
     assert mla_ops.split_plan(*shape, N_SM, **fp_ops.BF16_PLAN) == bf16
