@@ -26,6 +26,13 @@ package. Phases, each fatal on failure:
    M = 2, 4, 8 and, at a serve request's partials, through the in-place
    entry, the backend's _merge as issued and the stacked path (three
    stacks + the stacked entry), each bit for bit the plain version;
+   delta_rotate (the FETCH splice, one launch) in f32 and bf16 at deltas 0,
+   1, 17, 4095 through the band entry and the splice, on the 16-byte path
+   and one element off alignment, into a new tensor, a pool's rows and
+   over V2-Lite's 27 layers of a chunk, bit for bit the plain version with
+   the source unchanged and the profiler seeing one kernel a splice; timed
+   warm and cold (a ring of source/destination pairs larger than L2)
+   beside the two-launch splice it replaced and copy_ of the same bytes;
    flash_prefill once
    with f32 operands (csrc/flash_prefill.cu, split-TF32 products on the
    tensor cores) and once with bf16 operands (csrc/flash_prefill_bf16.cu),
@@ -477,46 +484,263 @@ def _merge_inputs(torch, dev, g, M, m_q, H, d_v):
     return o, m, l
 
 
+RING_PAIRS = 10      # source/destination pairs a cold timing walks (> L2)
+
+
 def check_delta_rotate(torch, dev, cfg):
-    from repro_torch.kernels.delta_rotate import (delta_cos_sin, delta_rotate,
-                                                  delta_rotate_ref)
-    atol, _ = TOL["delta_rotate"]
-    d_c, d_r = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    """The splice kernel through both entries, bit for bit the plain
+    version, then timed: the band entry, the splice warm and cold, the
+    two-launch splice it replaced, copy_ of the same bytes, and V2-Lite's
+    27 layers of a chunk in bf16."""
+    from repro_torch.core.splice import splice_delta_rotate
+    from repro_torch.kernels.delta_rotate import delta_rotate_ref
+    from repro_torch.kernels.delta_rotate import ops as rot_ops
+    from repro_torch.models.layers import rope_cos_sin
+    d_c, d_r, d_qk = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.d_qk
+    theta = cfg.rope_theta
+    counter = rot_ops.delta_rotate
     g = torch.Generator(device=dev).manual_seed(3)
-    ckv = torch.randn((CHUNK, cfg.d_qk), device=dev, generator=g)
-    band = ckv[:, d_c:]                     # strided view, row pitch 576
-    moved = torch.empty_like(ckv)
-    worst, cases = 0.0, []
-    for delta in (0, 1, 17, 4095):
-        cos, sin = delta_cos_sin(delta, d_r, cfg.rope_theta)
-        got = delta_rotate(band, cos, sin, out=moved[:, d_c:])
-        want = delta_rotate_ref(band, cos, sin)
+
+    def plain_splice(src, cos, sin):
+        want = torch.empty_like(src)
+        want[..., :d_c] = src[..., :d_c]
+        want[..., d_c:] = delta_rotate_ref(src[..., d_c:], cos, sin)
+        return want
+
+    def path_of(src, dst):
+        plan = rot_ops.launch_plan(src.reshape(-1, d_qk),
+                                   dst.reshape(-1, d_qk), d_c)
+        return plan, ("vec16" if plan.vec else "scalar")
+
+    def held(tag, fn, want, src, n_launch=1):
+        """fn() bit for bit want, src unchanged, n_launch launches."""
+        kept = src.clone()
+        before = counter.launches
+        got = fn()
         torch.cuda.synchronize()
-        e = max_err(torch, got, want)
-        ok = e <= atol and (delta != 0 or bool((got == band).all()))
-        log(f"[kernels] delta_rotate delta={delta} ({CHUNK},{d_r}) band of "
-            f"({CHUNK},{cfg.d_qk}): max|err| {e:.3e} (atol {atol:g}) "
-            f"{'ok' if ok else 'OVER TOLERANCE'}")
-        if not ok:
-            fail(f"delta_rotate delta={delta} disagrees with its plain "
-                 "version")
-        worst = max(worst, e)
-    cos, sin = delta_cos_sin(17, d_r, cfg.rope_theta)
-    out = moved[:, d_c:]
-    ms, host_ms = time_ms(torch, lambda: delta_rotate(band, cos, sin, out=out),
-                          500)
-    plain_ms, _ = time_ms(torch, lambda: delta_rotate_ref(band, cos, sin),
+        if counter.launches != before + n_launch:
+            fail(f"delta_rotate {tag}: {counter.launches - before} launches,"
+                 f" want {n_launch}")
+        if not torch.equal(got, want):
+            fail(f"delta_rotate {tag}: not the plain version bit for bit "
+                 f"(max|err| {max_err(torch, got.float(), want.float()):.3e})")
+        if not torch.equal(src, kept):
+            fail(f"delta_rotate {tag}: the source changed")
+        return got
+
+    # 1. bits: f32 and bf16, every delta, the band entry, the splice on
+    # the 16-byte path and (a source one element off alignment) the
+    # one-element path, into a new tensor and into rows of a pool
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for name, dt in types.items():
+        flat = torch.randn((CHUNK * d_qk + 1,), device=dev,
+                           generator=g).to(dt)
+        ckv = flat[:CHUNK * d_qk].view(CHUNK, d_qk)
+        off = flat[1:].view(CHUNK, d_qk)         # storage offset 1 element
+        pool = torch.randn((3 * CHUNK, d_qk), device=dev, generator=g).to(dt)
+        band_plan = rot_ops.launch_plan(ckv[:, d_c:], ckv[:, d_c:], 0)
+        paths = {"splice": path_of(ckv, ckv)[1],
+                 "splice, source off by one": path_of(off, ckv)[1],
+                 "band": "vec16" if band_plan.vec else "scalar"}
+        if paths != {"splice": "vec16", "splice, source off by one":
+                     "scalar", "band": "vec16"}:
+            fail(f"delta_rotate {name}: plans took {paths}")
+        for delta in (0, 1, 17, 4095):
+            cos, sin = rot_ops.delta_cos_sin(delta, d_r, theta)
+            band, moved = ckv[:, d_c:], torch.empty_like(ckv)
+            held(f"{name} band delta={delta}",
+                 lambda: rot_ops.delta_rotate(band, cos, sin,
+                                              out=moved[:, d_c:]),
+                 delta_rotate_ref(band, cos, sin), ckv)
+            want = plain_splice(ckv, cos, sin)
+            held(f"{name} splice delta={delta}",
+                 lambda: splice_delta_rotate(ckv, delta, cfg), want, ckv)
+            held(f"{name} splice off alignment delta={delta}",
+                 lambda: splice_delta_rotate(off, delta, cfg),
+                 plain_splice(off, cos, sin), off)
+            outside = torch.cat([pool[:CHUNK], pool[2 * CHUNK:]])
+            held(f"{name} splice into a pool delta={delta}",
+                 lambda: splice_delta_rotate(ckv, delta, cfg,
+                                             out=pool[CHUNK:2 * CHUNK]),
+                 want, ckv)
+            if not torch.equal(torch.cat([pool[:CHUNK], pool[2 * CHUNK:]]),
+                               outside):
+                fail(f"delta_rotate {name} delta={delta}: the pool's other "
+                     "rows changed")
+        log(f"[kernels] delta_rotate {name}: band ({CHUNK},{d_r}) of "
+            f"({CHUNK},{d_qk}) [{paths['band']}], splice ({CHUNK},{d_qk}) "
+            f"[{paths['splice']}], off alignment "
+            f"[{paths['splice, source off by one']}], into rows of a "
+            f"({3 * CHUNK},{d_qk}) pool, deltas 0, 1, 17, 4095: bit for bit "
+            f"the plain version (torch.equal), source unchanged, one launch "
+            f"a call")
+    layers = 27
+    stack = torch.randn((layers, CHUNK, d_qk), device=dev,
+                        generator=g).to(torch.bfloat16)
+    for delta in (0, 1, 17, 4095):
+        cos, sin = rot_ops.delta_cos_sin(delta, d_r, theta)
+        held(f"bf16 stack delta={delta}",
+             lambda: splice_delta_rotate(stack, delta, cfg),
+             plain_splice(stack, cos, sin), stack)
+    stack_path = path_of(stack, stack)
+    log(f"[kernels] delta_rotate bf16 stack ({layers},{CHUNK},{d_qk}) "
+        f"[{stack_path[1]}, {stack_path[0].blocks} blocks]: deltas 0, 1, "
+        f"17, 4095 bit for bit the plain version, one launch a call")
+
+    # 2. times, f32 (2048, 576): warm on the same buffers, cold walking a
+    # ring of RING_PAIRS pairs (> L2)
+    cos, sin = rot_ops.delta_cos_sin(17, d_r, theta)
+    ring = [(torch.randn((CHUNK, d_qk), device=dev, generator=g),
+             torch.empty((CHUNK, d_qk), device=dev))
+            for _ in range(RING_PAIRS)]
+    ring_mb = sum(2 * s.numel() * 4 for s, _ in ring) / 1e6
+
+    # one splice of the main path's chunk issues one device kernel and
+    # nothing else
+    kernels_seen = device_split_us(
+        torch, lambda: splice_delta_rotate(ring[0][0], 0, cfg), iters=5)
+    if len(kernels_seen) != 1 or "splice_kernel" not in next(
+            iter(kernels_seen)):
+        fail(f"splice_delta_rotate issued device kernels {kernels_seen}, "
+             "want the splice kernel alone")
+    log(f"[kernels] delta_rotate: one splice_delta_rotate call of "
+        f"({CHUNK},{d_qk}) f32 issues {kernels_seen} (torch.profiler, us a "
+        f"call): one kernel")
+
+    def new(src, dst):
+        return splice_delta_rotate(src, 17, cfg, out=dst)
+
+    def old(src, dst):
+        # the two-launch splice this kernel replaced: a strided copy_ of
+        # the latent columns, the host's cos/sin ops, the band launch
+        dst[:, :d_c].copy_(src[:, :d_c])
+        c, s = rope_cos_sin(torch.as_tensor(17.0), d_r, theta)
+        return rot_ops.delta_rotate(src[:, d_c:], c.contiguous(),
+                                    s.contiguous(), out=dst[:, d_c:])
+
+    def copy(src, dst):
+        return dst.copy_(src)
+
+    def warm(fn):
+        return lambda: fn(*ring[0])
+
+    def cold(fn):
+        at = [0]
+
+        def call():
+            k = at[0]
+            at[0] = (k + 1) % RING_PAIRS
+            return fn(*ring[k])
+        return call
+
+    t = {}
+    for rnd in range(2):                 # in turns: new, old, copy, ...
+        for name, fn in (("new", new), ("old", old), ("copy", copy)):
+            for kind, wrap in (("warm", warm), ("cold", cold)):
+                ms = time_ms(torch, wrap(fn), 300)
+                t.setdefault((name, kind), []).append(ms)
+    t = {k: tuple(min(v[i] for v in r) for i in (0, 1))
+         for k, r in t.items()}
+    plain_ms, _ = time_ms(torch, lambda: plain_splice(ring[0][0], cos, sin),
                           PLAIN_ITERS)
-    nbytes = 4 * (2 * CHUNK * d_r + d_r)
-    flops = float(CHUNK * d_r * 3)
-    b_ms, b_by = bound(nbytes, flops)
-    cases.append({"shape": f"band({CHUNK},{d_r}) of ({CHUNK},{cfg.d_qk})",
-                  "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
-    log(f"[kernels] delta_rotate: {ms:.4f} ms device, {host_ms:.4f} ms as "
-        f"issued (plain {plain_ms:.4f}, bound "
-        f"{b_ms:.5f} by {b_by})")
-    return worst, cases
+    # as issued, the whole function: the new splice_delta_rotate at delta
+    # 0 (memoised cos/sin, one allocation, one launch) against the old one
+    # (allocation, strided copy_, cos/sin ops, band launch)
+    src0 = ring[0][0]
+    _, issued_ms = time_ms(torch, lambda: splice_delta_rotate(src0, 0, cfg),
+                           300)
+    _, old_issued_ms = time_ms(
+        torch, lambda: old(src0, torch.empty_like(src0)), 300)
+    n = CHUNK * d_qk
+    b_ms, b_by = bound(2 * 4 * n + 4 * d_r, float(CHUNK * d_r * 3))
+
+    def share(ms):
+        return (f"{b_ms / ms:.0%} of bound" if ms >= b_ms
+                else "under the HBM bound: L2-resident")
+
+    plan = path_of(ring[0][0], ring[0][1])[0]
+    log(f"[kernels] delta_rotate splice ({CHUNK},{d_qk}) f32 [vec16, "
+        f"{plan.blocks} x {plan.threads} threads, {plan.per_row} items a "
+        f"row], device / as issued ms, best of 2 rounds in turns; bound "
+        f"{b_ms:.5f} by {b_by} (HBM); cold = a ring of {RING_PAIRS} pairs, "
+        f"{ring_mb:.1f} MB:")
+    for name, what in (("new", "splice kernel"),
+                       ("old", "old splice (copy_ + band launch)"),
+                       ("copy", "copy_ of the same bytes")):
+        (cm, ch), (wm, wh) = t[(name, "cold")], t[(name, "warm")]
+        log(f"[kernels]   {what}: cold {cm:.4f} / {ch:.4f} ({share(cm)}); "
+            f"warm {wm:.4f} / {wh:.4f} (reads L2: no share of the HBM "
+            f"bound{'; under it' if wm < b_ms else ''})")
+    (cm, ch), (wm, wh) = t[("new", "cold")], t[("new", "warm")]
+    log(f"[kernels]   new / old device, cold {cm / t[('old', 'cold')][0]:.3f}"
+        f", warm {wm / t[('old', 'warm')][0]:.3f}; new / copy_ cold "
+        f"{cm / t[('copy', 'cold')][0]:.3f}, warm "
+        f"{wm / t[('copy', 'warm')][0]:.3f}; splice_delta_rotate as issued "
+        f"{issued_ms:.4f} ms, the old one {old_issued_ms:.4f}; plain "
+        f"{plain_ms:.4f}")
+    cases = [{
+        "shape": f"splice ({CHUNK},{d_qk}) f32, cold", "ms": cm,
+        "host_ms": ch, "warm_ms": wm, "warm_host_ms": wh,
+        "plain_ms": plain_ms, "library_ms": None,
+        "copy_ms": t[("copy", "cold")][0],
+        "copy_warm_ms": t[("copy", "warm")][0],
+        "old_ms": t[("old", "cold")][0], "old_warm_ms": t[("old", "warm")][0],
+        "issued_ms": issued_ms, "old_issued_ms": old_issued_ms,
+        "bound_ms": b_ms, "bound_by": b_by}]
+
+    # the FETCH dispatch as the exec backend issues it for one request
+    # (m_q = 1): the delta-0 splice, then mla_decode over the moved copy
+    from repro_torch.models.mla import absorbed_partial
+    q = torch.randn((1, cfg.n_heads, d_qk), device=dev, generator=g)
+    moved = splice_delta_rotate(src0, 0, cfg)
+    dec_ms, _ = time_ms(torch, lambda: absorbed_partial(cfg, q, moved), 300)
+    spl_ms, _ = time_ms(torch, lambda: splice_delta_rotate(src0, 0, cfg),
+                        300)
+    pair_ms, pair_host = time_ms(torch, lambda: absorbed_partial(
+        cfg, q, splice_delta_rotate(src0, 0, cfg)), 300)
+    cases[0].update({"fetch_pair_ms": pair_ms, "fetch_decode_ms": dec_ms,
+                     "fetch_splice_ms": spl_ms})
+    log(f"[kernels] delta_rotate FETCH dispatch, m_q=1 over ({CHUNK},{d_qk})"
+        f" f32, warm: splice {spl_ms:.4f} + mla_decode {dec_ms:.4f} = "
+        f"{spl_ms + dec_ms:.4f} ms device apart; the pair {pair_ms:.4f} ms "
+        f"device, {pair_host:.4f} ms as issued")
+
+    # the band entry alone, warm: the shape the band kernel was timed at
+    # before the splice became one launch
+    band, out = ring[0][0][:, d_c:], ring[0][1][:, d_c:]
+    ms, host_ms = time_ms(torch, lambda: rot_ops.delta_rotate(
+        band, cos, sin, out=out), 500)
+    plain_b, _ = time_ms(torch, lambda: delta_rotate_ref(band, cos, sin),
+                         PLAIN_ITERS)
+    bb_ms, bb_by = bound(4 * (2 * CHUNK * d_r + d_r), float(CHUNK * d_r * 3))
+    cases.append({"shape": f"band({CHUNK},{d_r}) of ({CHUNK},{d_qk})",
+                  "ms": ms, "host_ms": host_ms, "plain_ms": plain_b,
+                  "library_ms": None, "bound_ms": bb_ms, "bound_by": bb_by})
+    log(f"[kernels] delta_rotate band ({CHUNK},{d_r}) of ({CHUNK},{d_qk}) "
+        f"f32: {ms:.4f} ms device, {host_ms:.4f} ms as issued (plain "
+        f"{plain_b:.4f}, bound {bb_ms:.5f} by {bb_by})")
+
+    # V2-Lite's 27 layers of a chunk in bf16 (63.7 MB each way: > L2)
+    out = torch.empty_like(stack)
+    ms, host_ms = time_ms(torch, lambda: splice_delta_rotate(
+        stack, 17, cfg, out=out), 100)
+    copy_ms, _ = time_ms(torch, lambda: out.copy_(stack), 100)
+    plain_s, _ = time_ms(torch, lambda: plain_splice(stack, cos, sin),
+                         PLAIN_ITERS)
+    n = stack.numel()
+    sb_ms, sb_by = bound(2 * 2 * n + 4 * d_r,
+                         float(layers * CHUNK * d_r * 3))
+    cases.append({"shape": f"splice ({layers},{CHUNK},{d_qk}) bf16",
+                  "ms": ms, "host_ms": host_ms, "plain_ms": plain_s,
+                  "library_ms": None, "copy_ms": copy_ms,
+                  "bound_ms": sb_ms, "bound_by": sb_by})
+    log(f"[kernels] delta_rotate splice ({layers},{CHUNK},{d_qk}) bf16 "
+        f"[{stack_path[1]}, {stack_path[0].blocks} blocks]: {ms:.4f} ms "
+        f"device ({sb_ms / ms:.0%} of bound), {host_ms:.4f} ms as issued; "
+        f"copy_ of the same bytes {copy_ms:.4f} (new / copy_ "
+        f"{ms / copy_ms:.3f}); plain {plain_s:.4f}; bound {sb_ms:.5f} by "
+        f"{sb_by}")
+    return 0.0, cases
 
 
 def _sparse_cases():
@@ -1422,6 +1646,10 @@ def main() -> int:
     # sparse_select over the selection serve + goldens, and the model's
     # kernels over the model phase
     log(f"[path] launches by phase: {by_phase}")
+    log(f"[path] delta_rotate on the goldens: "
+        f"{golden_launches['delta_rotate']} splices (fetch_heavy 3 + "
+        f"mixed_congested 1), one launch each and no other device kernel "
+        f"(phase 3)")
     missing = [k for k in ("mla_decode", "softmax_merge", "delta_rotate")
                if serve_launches[k] + golden_launches[k] <= 0]
     if sel_launches["sparse_select"] + golden_launches["sparse_select"] <= 0:
@@ -1445,8 +1673,9 @@ def main() -> int:
         "flash_prefill_bf16": "src/repro/kernels/flash_prefill/kernel.py:74",
         "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:66"}
     # the representative main-path shape of each kernel: a 16-request
-    # ROUTE group (m_q = 16) for mla_decode, M = 2 for softmax_merge, one
-    # request over 8 selected blocks for sparse_select, one 2048-token
+    # ROUTE group (m_q = 16) for mla_decode, M = 2 for softmax_merge, the
+    # FETCH splice of a 2048-token chunk in f32, cold, for delta_rotate,
+    # one request over 8 selected blocks for sparse_select, one 2048-token
     # sequence for flash_prefill (f32 and bf16 operands) and ssd_chunk
     pick = {"mla_decode": 1, "softmax_merge": 0, "delta_rotate": 0,
             "sparse_select": 0, "flash_prefill": 0, "flash_prefill_bf16": 0,
@@ -1465,6 +1694,7 @@ def main() -> int:
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             **({"bound_3xtf32_ms": c["bound_3xtf32_ms"]}
                if "bound_3xtf32_ms" in c else {}),
+            **({"copy_ms": c["copy_ms"]} if "copy_ms" in c else {}),
             "library_ms": c["library_ms"], "cases": cases})
     log(f"[summary] serve {serve_s:.2f} s, selection serve {sel_s:.2f} s, "
         f"goldens max|err| {golden_err:.3e}, selection goldens "

@@ -12,26 +12,38 @@ positions, so no rotation is admissible (§3.3).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels.delta_rotate import delta_rotate_band
+from repro_torch.kernels.delta_rotate import delta_cos_sin, splice_rotate
 from repro_torch.models.mla import MLAConfig
 
 
-def splice_delta_rotate(ckv_chunk: torch.Tensor, delta,
-                        cfg: MLAConfig) -> torch.Tensor:
+def splice_delta_rotate(ckv_chunk: torch.Tensor, delta, cfg: MLAConfig,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Re-home a fetched chunk: rotate the rope band by delta positions.
 
-    ckv_chunk (..., S, d_qk) -> a new array of the same shape (the moved
-    copy). The latent columns are copied as they are; the band goes through
-    the delta_rotate kernel wrapper, which reads it in place from the source
-    and writes it in place into the copy (the kernel on the card, the plain
-    version on the CPU). Delta 0 runs the rotation too (cos = 1, sin = 0),
-    as the reference computes it."""
-    d_c = cfg.kv_lora_rank
-    src = ckv_chunk.reshape(-1, ckv_chunk.shape[-1])
-    moved = torch.empty_like(src, memory_format=torch.contiguous_format)
-    moved[:, :d_c].copy_(src[:, :d_c])
-    delta_rotate_band(src[:, d_c:], delta, head_dim=cfg.qk_rope_head_dim,
-                      theta=cfg.rope_theta, out=moved[:, d_c:])
-    return moved.reshape(ckv_chunk.shape)
+    ckv_chunk (..., S, d_qk) -> the moved copy, of the same shape: the
+    latent columns as they are, the band rotated. The leading dims are
+    free, so a model's whole latent cache of one chunk, (n_layers, S,
+    d_qk), is one call. One splice_rotate call over all the rows (one
+    kernel launch on the card, the plain version on the CPU). out, when
+    given, receives the moved copy and is returned: any tensor of the
+    chunk's shape and dtype whose rows have one pitch, for example rows of
+    the requester's pool, so the splice writes there with no staging copy;
+    it may be ckv_chunk itself (in place, where the source copy is not
+    kept). Otherwise a new tensor is allocated. Delta 0 runs the rotation
+    too (cos = 1, sin = 0), as the reference computes it."""
+    d_qk = ckv_chunk.shape[-1]
+    src = ckv_chunk.reshape(-1, d_qk)
+    if out is None:
+        moved = torch.empty(src.shape, dtype=src.dtype, device=src.device)
+    else:
+        if out.shape != ckv_chunk.shape:
+            raise ValueError(f"splice_delta_rotate: out {tuple(out.shape)} "
+                             f"!= chunk {tuple(ckv_chunk.shape)}")
+        moved = out.view(-1, d_qk)        # raises if the rows' pitch varies
+    cos, sin = delta_cos_sin(delta, cfg.qk_rope_head_dim, cfg.rope_theta)
+    splice_rotate(src, cos, sin, cfg.kv_lora_rank, out=moved)
+    return moved.view(ckv_chunk.shape) if out is None else out

@@ -7,9 +7,10 @@ no CUDA card is present; on the card run them with
 
 Tolerances (f32): mla_decode, sparse_select and flash_prefill 1e-5
 absolute and relative (another summation order over the attended rows and
-D); softmax_merge and delta_rotate 1e-6 (they round as the plain versions
-do); ssd_chunk 1e-4 absolute and relative (tests/test_ssd_kernel.py:26-29:
-the gated products and the state sums in another order, with outputs of
+D); softmax_merge 1e-6 (it rounds as the plain version does);
+delta_rotate (the band entry and the splice, f32 and bf16) bit for bit;
+ssd_chunk 1e-4 absolute and relative (tests/test_ssd_kernel.py:26-29: the
+gated products and the state sums in another order, with outputs of
 order 10-100). flash_prefill with bf16 operands (its tensor-core kernel)
 2e-2 absolute and relative against the plain version on the same bf16
 inputs: the kernel rounds P to bf16 before the PV product, <= 2^-9
@@ -17,6 +18,7 @@ relative per weight, where the plain version keeps P in f32; that stays
 under the reference's own bf16 5e-2 (tests/test_kernels.py:50)."""
 
 import math
+import warnings
 
 import pytest
 import torch
@@ -107,14 +109,95 @@ def test_softmax_merge_kernel_matches_plain(dev, M):
 
 @pytest.mark.parametrize("delta", [0, 1, 17, 4095])
 def test_delta_rotate_kernel_matches_plain(dev, delta):
+    """The band-only entry on ckv[:, 512:] of 576-wide rows, f32 and bf16:
+    bit for bit the plain version, one launch a call."""
     from repro_torch.kernels.delta_rotate import (delta_cos_sin, delta_rotate,
                                                   delta_rotate_ref)
     g = torch.Generator(device=dev).manual_seed(delta)
-    ckv = torch.randn((2048, 576), device=dev, generator=g)
     cos, sin = delta_cos_sin(delta, 64)
-    moved = torch.empty_like(ckv)
-    got = delta_rotate(ckv[:, 512:], cos, sin, out=moved[:, 512:])
-    _close(got, delta_rotate_ref(ckv[:, 512:], cos, sin), 1e-6)
+    for dtype in (torch.float32, torch.bfloat16):
+        ckv = torch.randn((2048, 576), device=dev, generator=g).to(dtype)
+        moved = torch.empty_like(ckv)
+        before = delta_rotate.launches
+        got = delta_rotate(ckv[:, 512:], cos, sin, out=moved[:, 512:])
+        assert delta_rotate.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, delta_rotate_ref(ckv[:, 512:], cos, sin))
+
+
+def _splice_want(src, cos, sin, d_c=512):
+    """The plain splice on the card: the latent copied, the band through
+    the plain rotation."""
+    from repro_torch.kernels.delta_rotate import delta_rotate_ref
+    want = src.clone()
+    want[..., d_c:] = delta_rotate_ref(src[..., d_c:], cos, sin)
+    return want
+
+
+@pytest.mark.parametrize("path", ["vec16", "scalar"])
+@pytest.mark.parametrize("S", [0, 1, 37, 2048])
+@pytest.mark.parametrize("delta", [0, 1, 17, 4095])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_splice_kernel_matches_plain(dev, dtype, delta, S, path):
+    """splice_rotate over S rows of 576: the 16-byte path on an aligned
+    source, the one-element path on a source one element off alignment
+    (a storage offset of one); bit for bit the plain splice, the source
+    unchanged, one launch a call (none for S = 0)."""
+    from repro_torch.kernels.delta_rotate import ops as rot_ops
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    g = torch.Generator(device=dev).manual_seed(S + delta)
+    flat = torch.randn((S * 576 + 1,), device=dev, generator=g).to(dt)
+    off = 1 if path == "scalar" else 0
+    src = flat[off:off + S * 576].view(S, 576)
+    kept = src.clone()
+    cos, sin = rot_ops.delta_cos_sin(delta, 64)
+    plan = rot_ops.launch_plan(src, torch.empty_like(src), 512)
+    assert plan.vec == (path == "vec16") or S == 0    # no rows, no path
+    before = rot_ops.delta_rotate.launches
+    got = rot_ops.splice_rotate(src, cos, sin, 512)
+    assert rot_ops.delta_rotate.launches == before + (1 if S else 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _splice_want(src, cos, sin))
+    assert torch.equal(src, kept)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splice_kernel_stack_and_pool(dev, dtype):
+    """splice_delta_rotate over V2-Lite's 27 layers of a 2048-token chunk
+    in one launch, and into rows of a pool (its other rows untouched), bit
+    for bit the plain splice; no other device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA as cfg
+    from repro_torch.core.splice import splice_delta_rotate
+    from repro_torch.kernels.delta_rotate import ops as rot_ops
+    g = torch.Generator(device=dev).manual_seed(27)
+    stack = torch.randn((27, 2048, 576), device=dev, generator=g).to(dtype)
+    kept = stack.clone()
+    cos, sin = rot_ops.delta_cos_sin(17, 64)
+    splice_delta_rotate(stack[0], 17, cfg)               # warm the build
+    torch.cuda.synchronize()
+    before = rot_ops.delta_rotate.launches
+    with warnings.catch_warnings():
+        # torch's notice that a profiler cycle clears its events
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = splice_delta_rotate(stack, 17, cfg)
+            torch.cuda.synchronize()
+    assert rot_ops.delta_rotate.launches == before + 1
+    kernels = [e.key for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0]
+    assert len(kernels) == 1 and "splice_kernel" in kernels[0], kernels
+    assert torch.equal(got, _splice_want(stack, cos, sin))
+    assert torch.equal(stack, kept)
+    pool = torch.randn((3 * 2048, 576), device=dev, generator=g).to(dtype)
+    pool_kept = pool.clone()
+    dst = pool[2048:4096]
+    assert splice_delta_rotate(stack[3], 4095, cfg, out=dst) is dst
+    torch.cuda.synchronize()
+    assert torch.equal(dst, _splice_want(stack[3], *rot_ops.delta_cos_sin(
+        4095, 64)))
+    assert torch.equal(pool[:2048], pool_kept[:2048])
+    assert torch.equal(pool[4096:], pool_kept[4096:])
 
 
 def test_exec_backend_runs_the_kernels(dev):
@@ -138,6 +221,7 @@ def test_exec_backend_runs_the_kernels(dev):
     eng.schedule_step(reqs)
     assert max_oracle_err(eng, reqs, 1) <= 1e-5
     assert all(fn.launches > b for fn, b in zip(counters, before))
+    assert "fetch" in {r.primitive for r in eng.log}   # the splice ran
 
 
 # (R, S, block ids per row, kb per row or None, block_tokens): one request
