@@ -45,6 +45,16 @@ package. Phases, each fatal on failure:
 4b. selection serve — the same world with the live indexer (--selection,
    half the sessions selecting 512 tokens), every step verified against
    the selection oracle, selected pairs > 0;
+4c. mesh serve — the multi-instance backend (--backend shard_map: each
+   serving instance a partition of the card with its own stream), priced
+   on the H100 fabrics (h100_nvlink4 / h100_ibgda): the serve world fused,
+   --serial-exec and fused at --pipeline-depth 2, and the selection serve
+   fused and serial, every step within the oracle's tolerance with no
+   filled stage; the goldens and the selection scenario in both modes
+   (StepStats equal to the analytic run, fused against serial within
+   1e-6); each step's measured stage walls beside the analytic ones (serial:
+   host wall and CUDA-event time), the fused phase_wall_total, one fused
+   step's kernels by stream under the profiler;
 5. goldens — the routed_only / fetch_heavy / mixed_congested scenarios,
    the selection scenario and a FETCH forced under selection, at V2-Lite
    width: StepStats equal to the analytic backend's (replaying the live
@@ -64,8 +74,9 @@ package. Phases, each fatal on failure:
    its plain version: the latent attention and the entries elementwise,
    the layer output in norm, each within 2e-2;
 6. proof of the path — each kernel's launch counter, zeroed before each of
-   phases 4, 4b, 5 and the four parts of 5b and read after it, is > 0
-   over the phases that run it (flash_prefill's f32 and bf16 kernels
+   phases 4, 4b, 4c, 5 and the four parts of 5b and read after it, is > 0
+   over the phases that run it (4c alone runs all four exec kernels;
+   flash_prefill's f32 and bf16 kernels
    counted apart: (a) launches the bf16 one once per layer in each prefill
    and the f32 one never, (d) the bf16 one once);
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
@@ -1039,11 +1050,14 @@ def check_ssd_chunk(torch, dev, mcfg):
 # phase 5: the golden scenarios, built with the port's engine
 # ---------------------------------------------------------------------------
 
-def scenarios():
+def scenarios(ecfg=None):
+    """The three dense goldens; ecfg (an EngineConfig, default the
+    engine's) sets the fabrics that price them."""
     from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+    ecfg = ecfg or EngineConfig()
 
     def routed_only(backend):
-        eng = ServingEngine(8, pool_tokens=10**6, cfg=EngineConfig(),
+        eng = ServingEngine(8, pool_tokens=10**6, cfg=ecfg,
                             instances_per_pod=4, backend=backend)
         for i in range(6):
             eng.register_chunk(f"c{i}", holder=i % 4, length=2048)
@@ -1056,7 +1070,7 @@ def scenarios():
             [Request(4, home=2, chunk_ids=["c5"], m_q=256)]]
 
     def fetch_heavy(backend):
-        eng = ServingEngine(4, pool_tokens=10**6, cfg=EngineConfig(),
+        eng = ServingEngine(4, pool_tokens=10**6, cfg=ecfg,
                             backend=backend)
         for i in range(3):
             eng.register_chunk(f"doc{i}", holder=1 + (i % 3), length=2048)
@@ -1065,7 +1079,7 @@ def scenarios():
         return eng, [reqs, reqs, reqs]
 
     def mixed_congested(backend):
-        eng = ServingEngine(8, pool_tokens=10**6, cfg=EngineConfig(),
+        eng = ServingEngine(8, pool_tokens=10**6, cfg=ecfg,
                             instances_per_pod=8, backend=backend)
         for i in range(4):
             eng.register_chunk(f"hot{i}", holder=1, length=2048)
@@ -1086,13 +1100,13 @@ def scenarios():
             "mixed_congested": mixed_congested}
 
 
-def selection_scenario(backend=None, selector=None):
+def selection_scenario(backend=None, selector=None, ecfg=None):
     """The frozen selection-regime trace of the reference's test scenarios:
     two selecting requests over chunks of 192 and 160 tokens (2.5 blocks:
     a partial tail block), a dense rider, a chunk the budget leaves
     empty."""
     from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
-    eng = ServingEngine(4, pool_tokens=10**6, cfg=EngineConfig(),
+    eng = ServingEngine(4, pool_tokens=10**6, cfg=ecfg or EngineConfig(),
                         instances_per_pod=2, backend=backend,
                         selector=selector)
     eng.register_chunk("sel0", holder=1, length=192)
@@ -1216,6 +1230,286 @@ def run_goldens(torch, cfg, device="cuda"):
             fail(f"golden {name}: outputs off the oracle by {err:.3e}")
         worst = max(worst, err)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the multi-instance backend (a stream per serving instance)
+# ---------------------------------------------------------------------------
+
+# the analytic side prices this card's fabrics (core/constants.py): NVLink 4
+# inside a pod, IBGDA between pods. One card partitioned into instances is
+# not that fabric: a transfer is a copy inside HBM, and the measured /
+# analytic ratios are reported as measured, with no limit.
+MESH_FABRICS = ("h100_nvlink4", "h100_ibgda")
+# fused against serial: the same kernels on the same inputs with the same
+# plans, in another issue order (and the FETCH splice as one launch from the
+# holder's rows vs a copy then an in-place delta-0 splice, bit for bit)
+MESH_MODES_ATOL = 1e-6
+
+
+def mesh_ecfg():
+    from repro_torch.serving.engine import EngineConfig
+    return EngineConfig(intra_pod_fabric=MESH_FABRICS[0],
+                        cross_pod_fabric=MESH_FABRICS[1])
+
+
+def _us(x):
+    return "-" if x is None else f"{x * 1e6:.2f}"
+
+
+def stage_rows(logs):
+    """The backend's per-step stage logs aggregated by (path, stage): how
+    many, and the medians of the analytic duration, the measured one (the
+    serial host wall, or the fused group's apportioned device wall) and the
+    serial CUDA-event time."""
+    groups = {}
+    for entries in logs:
+        for e in entries:
+            groups.setdefault((e["kind"], e["stage"]), []).append(e)
+    rows = []
+    for (kind, stage), es in sorted(groups.items()):
+        row = {"kind": kind, "stage": stage, "n": len(es)}
+        for k in ("analytic_s", "measured_s", "device_s"):
+            vals = [e[k] for e in es if e.get(k) is not None]
+            row[k] = statistics.median(vals) if vals else None
+        rows.append(row)
+    return rows
+
+
+def log_stage_rows(tag, rows, fused):
+    what = "fused group share" if fused else "host"
+    for r in rows:
+        ratio = (f"x{r['measured_s'] / r['analytic_s']:.3g}"
+                 if r["analytic_s"] else "-")
+        event = "" if fused else f", event {_us(r['device_s'])} us"
+        log(f"[mesh] {tag} {r['kind']:>23} {r['stage']:<8} n {r['n']:3d}: "
+            f"analytic {_us(r['analytic_s'])} us, {what} "
+            f"{_us(r['measured_s'])} us{event} ({ratio})")
+
+
+def log_step_totals(tag, backend):
+    """Each step's stage walls summed over its dispatch groups, beside the
+    analytic sums: the serial host wall and CUDA-event time, or the fused
+    groups' apportioned device walls."""
+    for step, entries in sorted(backend.stage_log.items()):
+        tot = {}
+        for e in entries:
+            t = tot.setdefault(e["stage"], [0.0, 0.0, 0.0])
+            t[0] += e["analytic_s"]
+            t[1] += e["measured_s"]
+            t[2] += e.get("device_s") or 0.0
+        body = ", ".join(
+            f"{k} a {_us(a)} / {'fused' if backend.fused else 'host'} "
+            f"{_us(m)}" + ("" if backend.fused else f" / event {_us(d)}")
+            for k, (a, m, d) in tot.items())
+        log(f"[mesh] {tag} step {step} (us): {body}")
+
+
+def run_mesh_serve(torch, serve, extra, device="cuda"):
+    """The serve CLI through --backend shard_map at V2-Lite width: every
+    step within ORACLE_ATOL of its oracle and a measured report with no
+    filled stage."""
+    argv = (["--backend", "shard_map", "--device", device, "--exec-geometry",
+             "v2-lite", "--verify", "--intra-fabric", MESH_FABRICS[0],
+             "--cross-fabric", MESH_FABRICS[1]] + extra)
+    log(f"[mesh] repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        eng = serve.main(argv)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    sys.stdout.write(out)
+    errs = [float(x) for x in re.findall(r"max\|err\| (\S+)", out)]
+    if len(errs) != 5 or not all(e <= ORACLE_ATOL for e in errs):
+        fail(f"mesh serve {extra}: per-step max|err| {errs} (want 5 steps, "
+             f"each <= {ORACLE_ATOL:g})")
+    reps = eng.measured_reports
+    if len(reps) != 5 or any(r is None or r.stage_fills for r in reps):
+        fail(f"mesh serve {extra}: measured reports {reps!r} (want 5, no "
+             f"filled stage)")
+    return wall, eng
+
+
+def stream_trace(torch, fn):
+    """fn() once under torch.profiler: each device kernel as (name, stream,
+    start us, duration us), from the trace's kernel events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", "mesh_step_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    return [(e["name"], e.get("args", {}).get("stream"), e["ts"], e["dur"])
+            for e in events if e.get("cat") == "kernel"]
+
+
+def mesh_concurrency(kernels):
+    """(streams that ran a kernel, kernels by name family, share of the
+    busy time with two or more kernels running at once)."""
+    edges = sorted([(ts, 1) for _, _, ts, _ in kernels]
+                   + [(ts + dur, -1) for _, _, ts, dur in kernels])
+    busy = multi = 0.0
+    active, last = 0, None
+    for t, d in edges:
+        if last is not None and active >= 1:
+            busy += t - last
+            if active >= 2:
+                multi += t - last
+        active += d
+        last = t
+    fams = {}
+    for name, _, _, _ in kernels:
+        # mla_decode and sparse_select run the decode loops of
+        # csrc/decode_launch.cuh (tiled_kernel, attend_kernel)
+        fam = next((k for k in ("tiled_kernel", "attend_kernel",
+                                "merge_kernel", "splice_kernel")
+                    if k in name), "other")
+        fams[fam] = fams.get(fam, 0) + 1
+    return ({st for _, st, _, _ in kernels}, fams,
+            multi / busy if busy else 0.0)
+
+
+def profile_mesh_step(torch, serve):
+    """One fused step of the serve default world (after a warm step) under
+    the profiler: the streams its kernels ran on and how much of the busy
+    time had more than one kernel running."""
+    args = serve.build_parser().parse_args(
+        ["--backend", "shard_map", "--device", "cuda", "--exec-geometry",
+         "v2-lite", "--selection-frac", "0", "--intra-fabric",
+         MESH_FABRICS[0], "--cross-fabric", MESH_FABRICS[1]])
+    eng = serve.build_engine(args)
+    steps = serve.build_trace(args, eng)
+    eng.schedule_step(steps[0])
+    kernels = stream_trace(torch, lambda: eng.schedule_step(steps[1]))
+    streams, fams, overlap = mesh_concurrency(kernels)
+    log(f"[mesh] one fused serve step under the profiler: {len(kernels)} "
+        f"kernels {fams} on {len(streams)} streams; two or more kernels "
+        f"running in {overlap:.1%} of the busy time")
+    if len(streams) < 2:
+        fail("fused mesh step: every kernel ran on one stream")
+    return {"kernels": len(kernels), "streams": len(streams),
+            "overlap_share": overlap}
+
+
+def run_mesh_goldens(torch, cfg, device="cuda"):
+    """The three dense goldens and the selection scenario (priced on the
+    H100 fabrics) through ShardMapExecBackend, fused and serial: StepStats
+    equal to the analytic run, outputs within ORACLE_ATOL of the oracle,
+    fused against serial within MESH_MODES_ATOL, no filled stage on any
+    planned step."""
+    import functools
+    from repro_torch.serving.backends import AnalyticBackend
+    from repro_torch.serving.backends.shard_map import ShardMapExecBackend
+    from repro_torch.serving.backends.torch_exec import max_oracle_err
+    from repro_torch.serving.selection import ShardMapIndexerService
+    ecfg = mesh_ecfg()
+    worst = {"oracle": 0.0, "modes": 0.0}
+    logs = {"fused": [], "serial": []}
+    sel_build = functools.partial(selection_scenario, ecfg=ecfg)
+    cases = [(name, lambda be, b=build: b(be)[0], build(AnalyticBackend()))
+             for name, build in scenarios(ecfg).items()]
+    svcs = {}
+
+    def with_indexer(be):
+        svcs[be.fused] = ShardMapIndexerService(mla=cfg, device=device)
+        return sel_build(be, svcs[be.fused])[0]
+    cases.append(("selection_scenario", with_indexer, None))
+    for name, build, ana_steps in cases:
+        engines = {}
+        for mode in ("fused", "serial"):
+            be = ShardMapExecBackend(cfg, device=device,
+                                     fused=mode == "fused")
+            eng = engines[mode] = build(be)
+            steps = ana_steps[1] if ana_steps else sel_build()[1]
+            for reqs in steps:
+                eng.schedule_step(reqs)
+        if ana_steps is None:
+            ana, _ = _analytic_twin(sel_build, svcs[True])
+        else:
+            ana = ana_steps[0]
+        for reqs in steps:
+            ana.schedule_step(reqs)
+        for mode, eng in engines.items():
+            if [s.comparable() for s in ana.stats] \
+                    != [s.comparable() for s in eng.stats]:
+                fail(f"mesh golden {name} ({mode}): StepStats differ from "
+                     f"the analytic run")
+            reps = eng.measured_reports
+            if len(reps) != len(steps) or any(
+                    r is None or r.stage_fills for r in reps):
+                fail(f"mesh golden {name} ({mode}): a step without a "
+                     f"measured report or with filled stages")
+            for step, reqs in enumerate(steps, start=1):
+                worst["oracle"] = max(worst["oracle"],
+                                      max_oracle_err(eng, reqs, step))
+            log_step_totals(f"{name} {mode}", eng.backend)
+            logs[mode] += list(eng.backend.stage_log.values())
+        modes = 0.0
+        for step in range(1, len(steps) + 1):
+            fo = engines["fused"].outputs_of(step)
+            so = engines["serial"].outputs_of(step)
+            if sorted(fo) != sorted(so):
+                fail(f"mesh golden {name}: the modes output other requests")
+            for rid in fo:
+                for k in range(3):
+                    modes = max(modes, max_err(torch, fo[rid][k],
+                                               so[rid][k]))
+        worst["modes"] = max(worst["modes"], modes)
+        prims = sorted({r.primitive for r in engines["fused"].log})
+        log(f"[mesh] {name}: both modes StepStats == analytic over "
+            f"{len(steps)} steps, primitives {prims}, no filled stage; "
+            f"fused vs serial max|diff| {modes:.3e} (atol "
+            f"{MESH_MODES_ATOL:g})")
+        if not modes <= MESH_MODES_ATOL:
+            fail(f"mesh golden {name}: fused and serial differ by "
+                 f"{modes:.3e}")
+    if not worst["oracle"] <= ORACLE_ATOL:
+        fail(f"mesh goldens: outputs off the oracle by {worst['oracle']:.3e}")
+    log(f"[mesh] goldens max|err| vs oracle {worst['oracle']:.3e} (atol "
+        f"{ORACLE_ATOL:g})")
+    return worst, logs
+
+
+def run_mesh(torch, cfg, device="cuda"):
+    """Phase 4c: the serve world and the selection serve through the mesh
+    backend (fused, --serial-exec, fused at --pipeline-depth 2), the
+    goldens in both modes, and one fused step's streams."""
+    from repro_torch.launch import serve
+    dense, sel = ["--selection-frac", "0"], [
+        "--selection", "--selection-frac", "0.5", "--selection-k", "512"]
+    walls, stage = {}, {}
+    for label, extra in (("fused", dense), ("serial", dense + [
+            "--serial-exec"]), ("fused depth 2", dense + [
+                "--pipeline-depth", "2"]), ("selection fused", sel),
+            ("selection serial", sel + ["--serial-exec"])):
+        walls[label], eng = run_mesh_serve(torch, serve, extra, device)
+        stage[label] = stage_rows(eng.backend.stage_log.values())
+        log_step_totals(f"serve {label}", eng.backend)
+        log_stage_rows(f"serve {label}", stage[label], eng.backend.fused)
+        if eng.backend.fused:
+            log(f"[mesh] serve {label}: phase_wall_total "
+                + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                            eng.backend.phase_wall_total.items()))
+            stage[label + " phase_wall_total_s"] = dict(
+                eng.backend.phase_wall_total)
+        log(f"[mesh] serve {label}: {walls[label]:.2f} s wall, every step "
+            f"within {ORACLE_ATOL:g} of its oracle")
+    worst, logs = run_mesh_goldens(torch, cfg, device)
+    for mode in ("fused", "serial"):
+        stage[f"goldens {mode}"] = stage_rows(logs[mode])
+        log_stage_rows(f"goldens {mode}", stage[f"goldens {mode}"],
+                       mode == "fused")
+    conc = (profile_mesh_step(torch, serve) if device == "cuda"
+            else {"streams": 0})
+    return walls, worst, conc
 
 
 # ---------------------------------------------------------------------------
@@ -1595,6 +1889,10 @@ def main() -> int:
     log(f"[serve] selection: {sel_s:.2f} s wall; {n_selected} selected "
         f"pairs; every step within {ORACLE_ATOL:g} of the selection oracle; "
         f"launches {sel_launches}")
+    # 4c. the multi-instance backend
+    (mesh_walls, mesh_worst, mesh_conc), mesh_launches = counted(
+        lambda: run_mesh(torch, cfg))
+    log(f"[mesh] launches {mesh_launches}")
     (golden_err, sel_golden_err), golden_launches = counted(
         lambda: (run_goldens(torch, cfg), run_selection_goldens(torch, cfg)))
 
@@ -1636,6 +1934,7 @@ def main() -> int:
              f"{layer_launches['flash_prefill']} times, want 1 and 0")
     model_s = time.perf_counter() - t0
     by_phase = {"serve": serve_launches, "selection_serve": sel_launches,
+                "mesh": mesh_launches,
                 "goldens": golden_launches, "model_v2_lite": full_launches,
                 "model_verify": verify_launches,
                 "model_mamba2": mamba_launches,
@@ -1654,6 +1953,9 @@ def main() -> int:
                if serve_launches[k] + golden_launches[k] <= 0]
     if sel_launches["sparse_select"] + golden_launches["sparse_select"] <= 0:
         missing.append("sparse_select")
+    missing += [f"{k} (mesh)" for k in ("mla_decode", "softmax_merge",
+                                        "delta_rotate", "sparse_select")
+                if mesh_launches[k] <= 0]
     model_phases = (full_launches, verify_launches, mamba_launches,
                     layer_launches)
     missing += [f"{k} (model)" for k in ("flash_prefill",
@@ -1697,6 +1999,9 @@ def main() -> int:
             **({"copy_ms": c["copy_ms"]} if "copy_ms" in c else {}),
             "library_ms": c["library_ms"], "cases": cases})
     log(f"[summary] serve {serve_s:.2f} s, selection serve {sel_s:.2f} s, "
+        f"mesh serve {sum(mesh_walls.values()):.2f} s (oracle "
+        f"{mesh_worst['oracle']:.3e}, fused vs serial "
+        f"{mesh_worst['modes']:.3e}, {mesh_conc['streams']} streams), "
         f"goldens max|err| {golden_err:.3e}, selection goldens "
         f"{sel_golden_err:.3e}, (d) bf16 latent attention "
         f"{d_errs['latent attention']:.3e}, model phase {model_s:.1f} s, total "

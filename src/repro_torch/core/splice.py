@@ -1,4 +1,4 @@
-"""FETCH — move-the-cache: the delta-rotation splice (§2.2, §7).
+"""FETCH — move-the-cache: bulk pull + delta-rotation splice (§2.2, §7).
 
 The splice re-homes a contiguous chunk cached at canonical offset p0 to the
 requester's offset p0 + delta: a *purely positional* rotation of the
@@ -8,6 +8,12 @@ entry's own position, which is why the splice is flat in chunk size (§7).
 
 Under sparse *selection* the chosen entries are attended at their canonical
 positions, so no rotation is admissible (§3.3).
+
+fetch_chunk and fetch_scattered_gather are the FETCH primitive between
+instances of an InstanceMesh (core/instance_mesh.py): the holder's rows land
+in the requester's pool rows, written on the requester's stream after
+everything the holder issued. On one card the pull and the splice are one
+delta_rotate launch that reads the holder's rows and writes the requester's.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.instance_mesh import InstanceMesh
 from repro_torch.kernels.delta_rotate import delta_cos_sin, splice_rotate
 from repro_torch.models.mla import MLAConfig
 
@@ -47,3 +54,41 @@ def splice_delta_rotate(ckv_chunk: torch.Tensor, delta, cfg: MLAConfig,
     cos, sin = delta_cos_sin(delta, cfg.qk_rope_head_dim, cfg.rope_theta)
     splice_rotate(src, cos, sin, cfg.kv_lora_rank, out=moved)
     return moved.view(ckv_chunk.shape) if out is None else out
+
+
+def fetch_chunk(mesh: InstanceMesh, local_pool: torch.Tensor,
+                remote_ckv: torch.Tensor, delta, dst_offset: int,
+                cfg: MLAConfig, holder: int, requester: int) -> torch.Tensor:
+    """The full FETCH primitive: pull the holder's chunk remote_ckv (S,
+    d_qk) into rows [dst_offset, dst_offset + S) of the requester's pool
+    local_pool (P, d_qk), splicing it by delta on the way; returns the
+    pool. On one device that is one splice_delta_rotate launch from the
+    holder's rows into the pool's, on the requester's stream; from another
+    device the chunk is copied over first and spliced in place. delta None
+    elides the rotation (a true-prefix re-home, §6.3): a plain copy."""
+    rows = local_pool.narrow(-2, dst_offset, remote_ckv.shape[-2])
+    mesh.after(requester, holder)
+    with mesh.on(requester, remote_ckv, local_pool):
+        src = remote_ckv
+        if src.device != local_pool.device:
+            src = src.to(local_pool.device, non_blocking=True)
+        if delta is None:
+            rows.copy_(src, non_blocking=True)
+        else:
+            splice_delta_rotate(src, delta, cfg, out=rows)
+    return local_pool
+
+
+def fetch_scattered_gather(mesh: InstanceMesh, local_pool: torch.Tensor,
+                           remote_ckv: torch.Tensor, indices: torch.Tensor,
+                           dst_offset: int, cfg: MLAConfig, holder: int,
+                           requester: int) -> torch.Tensor:
+    """The selection-regime FETCH (§5.4): the holder gathers the k chosen
+    entries (index_select on its stream) and they are pulled into rows
+    [dst_offset, dst_offset + k) of the requester's pool. NO splice — the
+    entries stay at canonical positions."""
+    with mesh.on(holder, remote_ckv, indices):
+        gathered = remote_ckv.index_select(-2, indices)
+    rows = local_pool.narrow(-2, dst_offset, gathered.shape[-2])
+    mesh.pull(gathered, holder, requester, out=rows)
+    return local_pool

@@ -15,6 +15,14 @@ backend:
     PYTHONPATH=src python -m repro_torch.launch.serve --backend exec \
         --device cpu --verify --selection-frac 0
 
+    # the multi-instance backend: each serving instance a partition of the
+    # card with its own stream, transports between them, and a per-step
+    # measured-vs-analytic stage report (--serial-exec: one timed call per
+    # stage instead of the fused, overlapped path)
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend shard_map \
+        --exec-geometry v2-lite --verify --selection-frac 0 \
+        --intra-fabric h100_nvlink4 --cross-fabric h100_ibgda
+
     # the §5.4 selection regime: the indexer scores and selects per step,
     # the exec backend attends the selected blocks (sparse_select), and
     # selection requests verify against the selection_k oracle
@@ -31,9 +39,8 @@ backend:
         --backend exec
 
 Same flags and output as repro.launch.serve, plus --device and
---exec-geometry; --backend shard_map and --serial-exec come with the
-multi-instance backend. The live indexer (--selection) materializes chunks
-and queries as the exec backend does, on --device. Without a selector,
+--exec-geometry. The live indexer (--selection) materializes chunks and
+queries as the exec backend does, on --device. Without a selector,
 selection-regime sessions of the workload (--selection-frac > 0) are priced
 as selection and executed dense, with the engine's warn-once notice, as in
 the reference.
@@ -73,15 +80,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--pool-tokens", type=int, default=10_000_000)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--backend", choices=("analytic", "exec"),
+    ap.add_argument("--backend", choices=("analytic", "exec", "shard_map"),
                     default="analytic")
+    ap.add_argument("--serial-exec", action="store_true",
+                    help="shard_map backend: run dispatch groups through "
+                         "the serial per-stage chain instead of the "
+                         "fused/overlapped path (A/B debug knob)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="exec backend: where the arrays live (cuda runs "
+                    help="exec backends: where the arrays live (cuda runs "
                          "the hand-written kernels, cpu their plain "
                          "versions)")
     ap.add_argument("--exec-geometry", choices=("tiny", "v2-lite"),
                     default="tiny",
-                    help="exec backend: array geometry — tiny (d_qk=24) or "
+                    help="exec backends: array geometry — tiny (d_qk=24) or "
                          "DeepSeek-V2-Lite (H=16, d_qk=576, d_v=512)")
     ap.add_argument("--pipeline-depth", type=int, default=1,
                     help="steps in flight between submit and account: 1 = "
@@ -120,15 +131,19 @@ def build_parser() -> argparse.ArgumentParser:
     # flight recorder
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace-event / Perfetto JSON of the "
-                         "run: engine wall spans + planned timeline track "
+                         "run: engine wall spans + planned (and, under "
+                         "--backend shard_map, measured) timeline track "
                          "groups per step")
     ap.add_argument("--metrics-out", default="",
                     help="write the obs metrics registry snapshot "
                          "(counters/gauges/histograms) as JSON at exit")
     ap.add_argument("--drift-threshold", type=float, default=None,
                     help="enable the model-vs-measured drift monitor with "
-                         "this |EWMA| envelope; it needs a measuring "
-                         "backend, which this slice does not have")
+                         "this |EWMA| envelope (one card partitioned into "
+                         "instances is not the priced fabric: expect a very "
+                         "loose value). Exits non-zero when a (primitive, "
+                         "fabric, stage) cell trips. Requires a measuring "
+                         "backend (shard_map)")
     return ap
 
 
@@ -155,10 +170,15 @@ def exec_geometry(args):
 
 
 def build_backend(args):
-    if args.backend != "exec":
-        return None
-    from repro_torch.serving.backends.torch_exec import TorchExecBackend
-    return TorchExecBackend(exec_geometry(args), device=args.device)
+    if args.backend == "exec":
+        from repro_torch.serving.backends.torch_exec import TorchExecBackend
+        return TorchExecBackend(exec_geometry(args), device=args.device)
+    if args.backend == "shard_map":
+        from repro_torch.serving.backends.shard_map import \
+            ShardMapExecBackend
+        return ShardMapExecBackend(exec_geometry(args), device=args.device,
+                                   fused=not args.serial_exec)
+    return None
 
 
 def build_selector(args):
@@ -168,9 +188,12 @@ def build_selector(args):
     warns once and counts them)."""
     if args.selection:
         from repro_torch.serving.selection import (IndexerService,
-                                                   SelectionConfig)
-        return IndexerService(SelectionConfig(block_tokens=args.block_tokens),
-                              mla=exec_geometry(args), device=args.device)
+                                                   SelectionConfig,
+                                                   ShardMapIndexerService)
+        svc = (ShardMapIndexerService if args.backend == "shard_map"
+               else IndexerService)
+        return svc(SelectionConfig(block_tokens=args.block_tokens),
+                   mla=exec_geometry(args), device=args.device)
     if args.selection_trace:
         from repro_torch.serving.selection import ReplaySelector
         return ReplaySelector(args.selection_trace)
@@ -225,9 +248,9 @@ def main(argv=None) -> ServingEngine:
     """Run the CLI; returns the engine (its stats, plans and outputs) for
     callers that drive it in-process."""
     args = build_parser().parse_args(argv)
-    if args.verify and args.backend != "exec":
+    if args.verify and args.backend not in ("exec", "shard_map"):
         raise SystemExit("--verify checks exec outputs against the §3.3 "
-                         "oracle: it requires --backend exec")
+                         "oracle: it requires --backend exec or shard_map")
     if args.trace and args.save_trace:
         raise SystemExit("--save-trace records a GENERATED trace; it cannot "
                          "be combined with --trace (replay)")
@@ -270,6 +293,11 @@ def main(argv=None) -> ServingEngine:
                     max_oracle_err
                 line += f", max|err| {max_oracle_err(eng, reqs, s.step):.2e}"
             print(line)
+            report = eng.measured_reports[reported[0]]
+            if report is not None:
+                # the shard_map backend's measured-vs-analytic loop (§7)
+                print("\n".join("[serve]   " + ln
+                                for ln in report.summary().splitlines()))
             reported[0] += 1
 
     depth = max(1, args.pipeline_depth)
@@ -301,6 +329,9 @@ def main(argv=None) -> ServingEngine:
               f"indexer-stage share of makespan "
               f"{index_s / mk if mk else 0.0:.3f}")
 
+    overview = eng.measured_overview()
+    if overview is not None:
+        print(f"[serve] exec: {overview}")
     lat = transport_latencies(eng.stats)
     n_route = sum(1 for r in eng.log if r.primitive == "route")
     print(f"[serve] backend={eng.backend.name}; total dispatches "
@@ -332,7 +363,7 @@ def main(argv=None) -> ServingEngine:
                 print(f"[serve] {ln}")
             if obs.drift.n_reports == 0:
                 print("[serve] drift: no measured reports — the monitor "
-                      "needs a measuring backend")
+                      "needs --backend shard_map")
             tripped = obs.drift.tripped()
             if tripped:
                 raise SystemExit(

@@ -214,7 +214,11 @@ def selected_partial(cfg: MLAConfig, q_abs, ckv, blocks,
     merge identity."""
     lead = tuple(q_abs.shape[:-1])
     q = q_abs.reshape(1, -1, q_abs.shape[-1]).contiguous()
-    idx = torch.tensor([list(blocks)], dtype=torch.int32, device=ckv.device)
+    idx = torch.tensor([list(blocks)], dtype=torch.int32)
+    if ckv.device.type == "cuda":
+        # from pinned memory the copy is queued on the current stream; from
+        # pageable memory the host would first wait for that stream
+        idx = idx.pin_memory().to(ckv.device, non_blocking=True)
     part = sparse_select(q, ckv.unsqueeze(0), idx,
                          d_v=cfg.kv_lora_rank, scale=cfg.scale,
                          block_tokens=block_tokens)

@@ -14,7 +14,8 @@ from repro_torch.serving.selection.types import RequestSelection, token_mask
 
 
 def __getattr__(name: str):
-    if name in ("IndexerService", "SelectionConfig"):
+    if name in ("IndexerService", "SelectionConfig",
+                "ShardMapIndexerService"):
         from repro_torch.serving.selection import service
         return getattr(service, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

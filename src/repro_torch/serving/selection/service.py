@@ -34,6 +34,7 @@ touch, one per selected request per step.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple, TYPE_CHECKING
 
 import numpy as np
@@ -42,6 +43,7 @@ import torch
 from repro_torch.core import constants as C
 from repro_torch.core import selection as SEL
 from repro_torch.core.chunk_store import ChunkStore
+from repro_torch.core.instance_mesh import InstanceMesh
 from repro_torch.models.mla import MLAConfig
 from repro_torch.serving.backends.torch_exec import (TINY_MLA, QuerySource,
                                                      chunk_array, query_for)
@@ -247,3 +249,49 @@ class IndexerService:
                for rq in requests}
         self.log[step] = out
         return out
+
+
+class ShardMapIndexerService(IndexerService):
+    """The scoring round trip across an instance mesh: the requester's
+    narrow indexer query rides the mesh's all_gather to the holder's
+    partition, and the holder scores its resident keys and pools them. The
+    scores are the same numpy f32 arithmetic as IndexerService.
+    pooled_scores on the query the gather delivered (an exact f32 copy),
+    so the verdicts are bit-identical to the host service's and to the JAX
+    package's: scoring on the card, in another summation order, could flip
+    near-tie blocks. The candidate policy (block top-k, global merge) is
+    the inherited code — only WHERE the scores are computed moved.
+
+    The mesh has its own streams (one per instance, made on first use),
+    so a scoring round at plan time never queues behind a step the exec
+    backend still has in flight. Each call's wall accumulates in
+    measured_index_s keyed (step, req_id, chunk_id); the mesh exec backend
+    folds it into the dispatch's measured "index" stage."""
+
+    name = "indexer-shard_map"
+
+    def __init__(self, cfg: SelectionConfig = SelectionConfig(),
+                 mla: MLAConfig = TINY_MLA, dtype=torch.float32,
+                 device="cuda", query_source: Optional[QuerySource] = None):
+        super().__init__(cfg, mla, dtype, device, query_source)
+        self.measured_index_s: Dict[Tuple[int, int, str], float] = {}
+        self.mesh: Optional[InstanceMesh] = None
+
+    def pooled_scores(self, store: ChunkStore, rq: Request, iq: np.ndarray,
+                      chunk_id: str, step: int) -> np.ndarray:
+        keys = self.ensure_index_keys(store, chunk_id)
+        if self.mesh is None or self.mesh.n != store.n_instances:
+            self.mesh = InstanceMesh(store.n_instances, self.device)
+        mesh = self.mesh
+        t0 = time.perf_counter()
+        holder, home = store.lookup(chunk_id).holder, rq.home
+        shards = [None] * mesh.n
+        shards[home] = mesh.put(np.asarray(iq, np.float32), home)
+        gathered = mesh.all_gather(shards, to=[holder])[holder]
+        with mesh.on(holder):
+            iq_h = gathered[home].cpu().numpy()      # waits for the gather
+        pooled = pooled_max(iq_h @ keys.T)
+        tk = (step, rq.req_id, chunk_id)
+        self.measured_index_s[tk] = (self.measured_index_s.get(tk, 0.0)
+                                     + time.perf_counter() - t0)
+        return pooled

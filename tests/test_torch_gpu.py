@@ -519,3 +519,239 @@ def test_model_smoke_runs_the_kernels(dev, arch):
         outs[name] = (logits, step)
     for a, b in zip(outs["kernels"], outs["plain"]):
         _close(a, b, 1e-4, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The instance mesh on the card: one stream per serving instance
+# ---------------------------------------------------------------------------
+
+SPIN_CYCLES = 20_000_000      # ~10 ms of a GPU spin on the source's stream
+
+
+def _mesh(dev, n=8):
+    from repro_torch.core.instance_mesh import InstanceMesh
+    return InstanceMesh(n, dev)
+
+
+def test_concurrent_cooperative_launches_on_instance_streams(dev):
+    """mla_decode and sparse_select size their split spans to the blocks the
+    whole card holds and launch them cooperatively. Eight instances issue a
+    single request each at once, on their own streams: every launch runs
+    (none is refused as too large, none hangs) and equals the plain
+    version, and the same launch on one stream gives the same bits."""
+    from repro_torch.kernels.mla_decode import mla_decode, mla_decode_ref
+    from repro_torch.kernels.sparse_select import (sparse_select,
+                                                   sparse_select_ref)
+    mesh = _mesh(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    qs = [torch.randn((1, 16, 576), device=dev, generator=g)
+          for _ in range(mesh.n)]
+    ckvs = [torch.randn((1, 2048, 576), device=dev, generator=g)
+            for _ in range(mesh.n)]
+    idx = torch.tensor([[1, 4, 5, 9, 17, 20, 28, 31]], dtype=torch.int32,
+                       device=dev)
+    torch.cuda.synchronize()
+    mesh.begin()
+    got = []
+    for i in range(mesh.n):
+        with mesh.on(i):
+            got.append((mla_decode(qs[i], ckvs[i], d_v=512, scale=0.05),
+                        sparse_select(qs[i], ckvs[i], idx, d_v=512,
+                                      scale=0.05)))
+    mesh.synchronize()
+    for i, (dense, sel) in enumerate(got):
+        want = mla_decode_ref(qs[i], ckvs[i], None, 512, 0.05)
+        for a, b in zip(dense, want):
+            _close(a, b, 1e-5, 1e-5)
+        want = sparse_select_ref(qs[i], ckvs[i], idx, None, None, 512, 64,
+                                 0.05)
+        for a, b in zip(sel, want):
+            _close(a, b, 1e-5, 1e-5)
+        alone = mla_decode(qs[i], ckvs[i], d_v=512, scale=0.05)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(dense, alone))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["one_launch", "pull"])
+def test_splice_after_a_cross_stream_pull_reads_the_pulled_bytes(dev, fused):
+    """The splice launches with programmatic dependent launch, held only by
+    the previous kernel in its stream. Here the holder writes the chunk
+    behind a spin on its own stream; the requester's splice follows a
+    cross-stream event (one launch from the holder's rows) or a copy_ (the
+    pull, then the splice in place). Either way it reads the bytes written
+    before it: bit for bit the plain splice."""
+    from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA as cfg
+    from repro_torch.core.splice import fetch_chunk, splice_delta_rotate
+    from repro_torch.kernels.delta_rotate import delta_cos_sin
+    mesh = _mesh(dev, 4)
+    holder, requester = 1, 3
+    g = torch.Generator(device=dev).manual_seed(11)
+    data = torch.randn((2048, 576), device=dev, generator=g)
+    with mesh.on(holder):
+        chunk = torch.zeros_like(data)
+    with mesh.on(requester):
+        pool = torch.full((4096, 576), 7.0, device=dev)
+    torch.cuda.synchronize()
+    with mesh.on(holder, data):
+        torch.cuda._sleep(SPIN_CYCLES)
+        chunk.copy_(data)
+    if fused:
+        fetch_chunk(mesh, pool, chunk, 17, 1024, cfg, holder, requester)
+    else:
+        fetch_chunk(mesh, pool, chunk, None, 1024, cfg, holder, requester)
+        with mesh.on(requester):
+            rows = pool[1024:3072]
+            splice_delta_rotate(rows, 17, cfg, out=rows)
+    mesh.synchronize()
+    cos, sin = delta_cos_sin(17, 64)
+    assert torch.equal(pool[1024:3072], _splice_want(data, cos.to(dev),
+                                                     sin.to(dev)))
+    assert bool((pool[:1024] == 7.0).all() and (pool[3072:] == 7.0).all())
+
+
+def test_merge_after_a_cross_stream_return_reads_the_returned_partials(dev):
+    """softmax_merge launches with programmatic dependent launch too. The
+    holder's partials are written behind a spin on its stream and return
+    to the requester (pairwise_return) and to every home (fanout_exchange,
+    copies into identity-filled stacks); the merges that follow them on
+    the requesters' streams equal the plain merge bit for bit."""
+    from repro_torch.core.merge import Partial
+    from repro_torch.core.routing import (fanout_exchange, merge_on,
+                                          pairwise_return)
+    from repro_torch.kernels.softmax_merge import (softmax_merge_parts,
+                                                   softmax_merge_ref)
+    mesh = _mesh(dev, 4)
+    holder, requester = 2, 0
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rand_partial(lead):
+        return Partial(o=torch.randn(lead + (512,), device=dev, generator=g),
+                       m=3 * torch.randn(lead, device=dev, generator=g),
+                       l=1 + 100 * torch.rand(lead, device=dev, generator=g))
+    src = rand_partial((16, 16))
+    local = rand_partial((16, 16))
+    stacked = rand_partial((mesh.n, 16, 16))
+    with mesh.on(holder):
+        held = Partial(*(torch.zeros_like(t) for t in src))
+        held_fan = Partial(*(torch.zeros_like(t) for t in stacked))
+    torch.cuda.synchronize()
+    with mesh.on(holder, *src, *stacked):
+        torch.cuda._sleep(SPIN_CYCLES)
+        for a, b in zip(held + held_fan, src + stacked):
+            a.copy_(b)
+    parts = [None] * mesh.n
+    parts[holder] = held
+    back = pairwise_return(mesh, parts, holder, requester)[requester]
+    with mesh.on(requester, *local):
+        pair = softmax_merge_parts([local, back])
+    parts[holder] = held_fan
+    ex = fanout_exchange(mesh, parts, to=[0, 1, 3])
+    fan = {h: merge_on(mesh, h, ex[h]) for h in (0, 1, 3)}
+    mesh.synchronize()
+    want = softmax_merge_ref(*(torch.stack([a, b]) for a, b in zip(local,
+                                                                   src)))
+    assert all(torch.equal(a, b) for a, b in zip(pair, want))
+    for h, got in fan.items():
+        want = softmax_merge_ref(*(t[h:h + 1] for t in stacked))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _exec_counters():
+    from repro_torch.kernels.delta_rotate import ops as rot_ops
+    from repro_torch.kernels.mla_decode import ops as mla_ops
+    from repro_torch.kernels.softmax_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_select import ops as sel_ops
+    return (mla_ops.mla_decode, sel_ops.sparse_select,
+            merge_ops.softmax_merge, rot_ops.delta_rotate)
+
+
+def _mesh_engine(fused, depth=1):
+    from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA
+    from repro_torch.serving.backends.shard_map import ShardMapExecBackend
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+    eng = ServingEngine(4, pool_tokens=10**6,
+                        cfg=EngineConfig(pipeline_depth=depth),
+                        instances_per_pod=2,
+                        backend=ShardMapExecBackend(V2_LITE_MLA,
+                                                    fused=fused))
+    for i, cid in enumerate(("doc", "hot", "warm")):
+        eng.register_chunk(cid, holder=1 + i, length=2048)
+    fetchy = Request(0, home=0, chunk_ids=["doc"], m_q=1,
+                     expected_reuse_steps=100_000)
+    steps = [[fetchy, Request(1, home=3, chunk_ids=["doc", "hot"], m_q=4),
+              Request(2, home=0, chunk_ids=["hot", "warm"], m_q=16),
+              Request(3, home=1, chunk_ids=["hot"], m_q=2)],
+             [fetchy, Request(1, home=3, chunk_ids=["doc", "hot"], m_q=4),
+              Request(4, home=2, chunk_ids=["warm"], m_q=8)]] * 2
+    return eng, steps
+
+
+def test_fused_at_pipeline_depth_2_matches_serial(dev):
+    """The fused mode with two steps in flight (the caching allocator
+    reuses memory across the instances' streams) gives the serial mode's
+    outputs, within 1e-6, and meets the oracle."""
+    from repro_torch.serving.backends.torch_exec import max_oracle_err
+    runs = {}
+    for fused, depth in ((True, 2), (False, 1)):
+        eng, steps = _mesh_engine(fused, depth)
+        for reqs in steps:
+            eng.schedule_step(reqs)
+        eng.flush()
+        for step, reqs in enumerate(steps, start=1):
+            assert max_oracle_err(eng, reqs, step) <= 1e-5
+        runs[fused] = eng
+    assert {"route", "fetch"} <= {r.primitive for r in runs[True].log}
+    for step in range(1, len(steps) + 1):
+        fo, so = runs[True].outputs_of(step), runs[False].outputs_of(step)
+        assert sorted(fo) == sorted(so)
+        for rid in fo:
+            for a, b in zip(fo[rid], so[rid]):
+                _close(a, b, 1e-6)
+
+
+def test_fused_step_runs_the_kernels_on_several_streams(dev):
+    """One fused step under the profiler: mla_decode, sparse_select,
+    softmax_merge and delta_rotate all launch (their counters), the
+    profiler sees their device kernels (the decode loops mla_decode and
+    sparse_select share, merge_kernel, splice_kernel), and the kernels run
+    on more than one stream."""
+    import json
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA
+    from repro_torch.serving.backends.shard_map import ShardMapExecBackend
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.selection import ShardMapIndexerService
+    eng = ServingEngine(4, pool_tokens=10**6, instances_per_pod=2,
+                        backend=ShardMapExecBackend(V2_LITE_MLA),
+                        selector=ShardMapIndexerService(mla=V2_LITE_MLA))
+    for i, cid in enumerate(("doc", "hot", "warm")):
+        eng.register_chunk(cid, holder=1 + i, length=2048)
+    reqs = [Request(0, home=0, chunk_ids=["doc"], m_q=1,
+                    expected_reuse_steps=100_000),
+            Request(1, home=3, chunk_ids=["doc", "hot"], m_q=4),
+            Request(2, home=0, chunk_ids=["hot", "warm"], m_q=2,
+                    k_selected=512)]
+    eng.schedule_step([Request(9, home=0, chunk_ids=["warm"], m_q=1)])
+    torch.cuda.synchronize()
+    counters = _exec_counters()
+    before = [fn.launches for fn in counters]
+    with warnings.catch_warnings():
+        # the profiler's notice that it keeps one cycle's events
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.schedule_step(reqs)
+            torch.cuda.synchronize()
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            kernels = [e for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+    names = " ".join(e["name"] for e in kernels)
+    assert "tiled_kernel" in names or "attend_kernel" in names, names
+    assert "merge_kernel" in names and "splice_kernel" in names, names
+    assert len({e["args"].get("stream") for e in kernels}) > 1
