@@ -73,12 +73,30 @@ package. Phases, each fatal on failure:
    bf16 at 2 x 2048 tokens through the bf16 flash_prefill kernel against
    its plain version: the latent attention and the entries elementwise,
    the layer output in norm, each within 2e-2;
+5c. training — repro_torch.launch.train and the training substrate
+   (bf16 weights drawn on the card from seed 0, f32 AdamW moments): (a)
+   the launcher on the DeepSeek and Mamba2 smoke configs, 20 steps of
+   16 x 128 tokens, a checkpoint every 10: finite, falling losses and the
+   checkpoints [10, 20]; (b) V2-Lite at full width cut to 4 layers (1
+   dense + 3 MoE), 2 x 2048 tokens in 2 microbatches, 8 steps, a
+   checkpoint every 4, a failure induced before step 6: one restore, step
+   4 replayed bit for bit, later replays within 1e-3; (c) Mamba2-370m as
+   published, 4 x 2048 tokens, 8 steps, falling loss; each with its step
+   wall, tokens/s, one step's device busy share under the profiler and
+   max_memory_allocated beside the nvidia-smi line; (d) (b)'s trained
+   weights through prefill (the bf16 flash_prefill once per layer)
+   against the train form on the same routes, last-token logits within
+   2e-2 in norm; (e) the f32 train form against f64 on V2-Lite width, 2
+   layers, 2 x 512 tokens: loss within 1e-5, grad norm within 1e-4,
+   equal routes;
 6. proof of the path — each kernel's launch counter, zeroed before each of
-   phases 4, 4b, 4c, 5 and the four parts of 5b and read after it, is > 0
-   over the phases that run it (4c alone runs all four exec kernels;
-   flash_prefill's f32 and bf16 kernels
+   phases 4, 4b, 4c, 5, the four parts of 5b and the parts of 5c and read
+   after it, is > 0 over the phases that run it (4c alone runs all four
+   exec kernels; flash_prefill's f32 and bf16 kernels
    counted apart: (a) launches the bf16 one once per layer in each prefill
-   and the f32 one never, (d) the bf16 one once);
+   and the f32 one never, (d) the bf16 one once), and 0 for every kernel
+   in the train steps of 5c, whose (d) launches the bf16 flash_prefill
+   once per layer and nothing else;
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -93,6 +111,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1776,6 +1795,334 @@ def mla_layer_bf16(torch, dev, cfg):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ = 2048      # tokens per training sequence
+TRAIN_STEPS = 8       # steps of runs (b) and (c)
+TRAIN_LR = 1e-3       # the launcher's default learning rate
+# Replayed steps after the restore: the restored step replays bit for bit
+# (its weights, moments and batch are restored exactly and the forward is
+# deterministic); later ones may differ in the last bits where backward
+# accumulates with atomic adds, and are held at 1e-3 relative.
+REPLAY_RTOL = 1e-3
+# (d): the prefill's last-token logits (bf16 flash_prefill) against the
+# last position of the train form on the same trained bf16 weights,
+# relative in norm, as 5b (d) holds a bf16 layer.
+TRAIN_SERVE_RTOL = 2e-2
+# (e): the f32 train form against f64 on the same weights and tokens: the
+# loss (~11.5, a mean over 1024 tokens) to 1e-5 relative, the global grad
+# norm (a sum over ~0.9e9 squared entries) to 1e-4.
+F64_LOSS_RTOL, F64_GNORM_RTOL = 1e-5, 1e-4
+
+
+def train_cli(torch, arch):
+    """(a) repro_torch.launch.train --smoke on the card, 20 steps of 16 x
+    128 tokens, a checkpoint every 10: finite losses, the last logged below
+    the first, the checkpoints [10, 20].
+
+    A logged loss is one batch's mean. At the launcher's default batch of
+    4 x 128 tokens its batch-to-batch spread (~0.1) is as large as what 20
+    steps learn: on the CPU, 2 of 5 seeds of the DeepSeek smoke config
+    ended above their first loss (one on the card), where at 16 x 128 every
+    seed fell, by 0.06-0.28, for both smoke configs."""
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--arch", arch, "--smoke", "--steps", "20", "--batch", "16",
+                "--ckpt-every", "10", "--ckpt-dir", d, "--device", "cuda"]
+        log(f"[train] (a) repro_torch.launch.train {' '.join(argv)}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            entries = train.main(argv)
+        wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    sys.stdout.write(out)
+    losses = [e["loss"] for e in entries if "loss" in e]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"(a) {arch}: losses {losses}, want finite and falling")
+    if "checkpoints: [10, 20]" not in out:
+        fail(f"(a) {arch}: want checkpoints [10, 20]: {out.strip()}")
+    return wall
+
+
+def train_run(torch, dev, cfg, *, batch, n_micro, ckpt_every=None,
+              fault_at=None):
+    """cfg trained from bf16 weights drawn on the card from seed 0, f32
+    AdamW moments, for TRAIN_STEPS steps of batch x TRAIN_SEQ tokens of the
+    synthetic pipeline through train_loop: each step's wall on the host
+    clock ending in a synchronize, a checkpoint every ckpt_every steps (in
+    a temporary directory), a failure induced before step fault_at. Then
+    one more step under the profiler, for its device busy time."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.module import count_params, trainable
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         cosine_schedule)
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step import TrainConfig, make_train_step
+    params = trainable(M.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.bfloat16))
+    ocfg = AdamWConfig(lr=TRAIN_LR)
+    opt = adamw_init(params, ocfg)
+    step_fn = make_train_step(
+        cfg, ocfg, TrainConfig(n_micro=n_micro),
+        cosine_schedule(TRAIN_LR, warmup=TRAIN_STEPS // 10 + 1,
+                        total=TRAIN_STEPS))
+    walls = []
+
+    def timed(p, o, b):
+        t = time.perf_counter()
+        out = step_fn(p, o, b)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t)
+        return out
+
+    fired = []
+
+    def fault(step):
+        if step == fault_at and not fired:
+            fired.append(step)
+            raise RuntimeError(f"induced failure before step {step}")
+
+    pipe = SyntheticPipeline.for_model(cfg, TRAIN_SEQ, batch, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = CheckpointManager(d, keep=1)
+        t0 = time.perf_counter()
+        _, _, entries = train_loop(
+            timed, params, opt, pipe, ckpt,
+            LoopConfig(total_steps=TRAIN_STEPS,
+                       ckpt_every=ckpt_every or TRAIN_STEPS + 1,
+                       log_every=1),
+            fault_hook=fault if fault_at is not None else None)
+        loop_s = time.perf_counter() - t0
+        saved = ckpt.all_steps()
+    peak = torch.cuda.max_memory_allocated(dev)
+    extra = pipe.batch_at(TRAIN_STEPS)
+    t0 = time.perf_counter()
+    _, busy_ms, top = profiled(torch, lambda: step_fn(params, opt, extra))
+    prof_s = time.perf_counter() - t0
+    losses = [(e["step"], e["loss"]) for e in entries if "loss" in e]
+    if not all(math.isfinite(x) for _, x in losses):
+        fail(f"{cfg.name}: non-finite training losses {losses}")
+    wall = statistics.median(walls[1:])           # the first step warms up
+    tokens = batch * TRAIN_SEQ
+    return {"params": params, "n": count_params(params), "losses": losses,
+            "entries": entries, "walls": walls, "wall_s": wall,
+            "tokens_s": tokens / wall, "busy_ms": busy_ms,
+            "busy_share": busy_ms / 1e3 / wall, "prof_s": prof_s,
+            "top_ms": top, "peak_gib": peak / 2**30, "loop_s": loop_s,
+            "saved": saved, "tokens": tokens}
+
+
+def log_train_run(tag, cfg, r, smi_line, what):
+    log(f"[train] {tag} {cfg.name} ({cfg.n_layers} layers, {r['n']} "
+        f"parameters, bf16, f32 AdamW moments), {what}: losses "
+        + ", ".join(f"{s}:{x:.4f}" for s, x in r["losses"]))
+    log(f"[train] {tag} step wall median {r['wall_s'] * 1e3:.1f} ms of "
+        f"steps 1.. (" + ", ".join(f"{w * 1e3:.1f}" for w in r["walls"])
+        + f" ms), {r['tokens_s']:.0f} tokens/s ({r['tokens']} tokens a "
+        f"step); one step under the profiler: device busy "
+        f"{r['busy_ms']:.1f} ms = {100 * r['busy_share']:.1f}% of the "
+        f"median wall (its own wall {r['prof_s'] * 1e3:.1f} ms), top "
+        f"kernels ms {r['top_ms']}; max_memory_allocated "
+        f"{r['peak_gib']:.2f} GiB; loop {r['loop_s']:.1f} s, of which "
+        f"steps {sum(r['walls']):.1f} s; {smi_line}")
+
+
+def check_replay(cfg, r, fault_at, ckpt_every):
+    """(b): one restore, to the checkpoint before fault_at; the restored
+    step's loss bit for bit its first run's, later replays within
+    REPLAY_RTOL. Returns the replayed steps' relative differences."""
+    events = [e for e in r["entries"] if e.get("event") == "restored"]
+    back = (fault_at // ckpt_every) * ckpt_every
+    if len(events) != 1 or events[0]["step"] != back:
+        fail(f"(b) {cfg.name}: restore events {events}, want one to {back}")
+    steps = [s for s, _ in r["losses"]]
+    want = list(range(fault_at)) + list(range(back, TRAIN_STEPS))
+    if steps != want:
+        fail(f"(b) {cfg.name}: logged steps {steps}, want {want}")
+    first, again = {}, {}
+    for s, x in r["losses"]:
+        (again if s in first else first)[s] = x
+    if again[back] != first[back]:
+        fail(f"(b) {cfg.name}: restored step {back} loss {again[back]!r} "
+             f"differs from its first run {first[back]!r}")
+    rel = {s: abs(again[s] - first[s]) / abs(first[s]) for s in again}
+    if not all(v <= REPLAY_RTOL for v in rel.values()):
+        fail(f"(b) {cfg.name}: replayed losses off their first run by {rel}"
+             f" (rtol {REPLAY_RTOL:g})")
+    if r["saved"] != [TRAIN_STEPS]:
+        fail(f"(b) {cfg.name}: checkpoints left {r['saved']}, want "
+             f"[{TRAIN_STEPS}] (keep 1)")
+    log(f"[train] (b) one restore, to step {back}, after the failure before "
+        f"step {fault_at}; replayed losses against their first run, "
+        f"relative: {rel} (step {back} bit for bit; rtol {REPLAY_RTOL:g}); "
+        f"checkpoints left {r['saved']}")
+    return rel
+
+
+def trained_serve(torch, dev, cfg, params):
+    """(d) the trained bf16 weights served: prefill (the serving form, the
+    bf16 flash_prefill once per layer) of MODEL_BATCH x MODEL_PROMPT tokens
+    against the train form's forward on the same tokens, last position,
+    relative in norm.
+
+    The two forms round in bf16 at other places, and a token whose router
+    scores are near a tie takes another top-k in one form than in the
+    other; its hidden state then differs by an expert's output and reaches
+    the last token through attention (on an H100: 93, 322 and 658 of 4096
+    tokens over the three MoE layers, the last tokens' own routes equal,
+    2.38e-2 in norm). So the train form is held on the served routes
+    (train_forward(pinned_routes=...)), where the two differ by the forms'
+    bf16 roundings alone, as 5b (d) holds a bf16 layer; the train form on
+    its own routes is printed beside it, with the tokens whose routes
+    differ."""
+    from repro_torch.models import model as M
+    tokens = _prompt(torch, dev, cfg.vocab, MODEL_PROMPT)
+    rp, rt, rpin = [], [], []
+    with torch.no_grad():
+        served, _ = M.prefill(params, cfg, {"tokens": tokens}, routes=rp)
+        own, _ = M.train_forward(params, cfg, {"tokens": tokens}, routes=rt)
+        pinned, _ = M.train_forward(params, cfg, {"tokens": tokens},
+                                    routes=rpin, pinned_routes=rp)
+    if not all(torch.equal(a, b) for a, b in zip(rpin, rp)):
+        fail("(d) the pinned train form took other routes than the served")
+    got = served[:, 0].float()
+    _finite(torch, got, "(d) prefill logits")
+    rel = {}
+    for name, out in (("pinned", pinned), ("own", own)):
+        want = out[:, -1].float()
+        rel[name] = float((got - want).norm() / want.norm())
+    want = pinned[:, -1].float()
+    last = [MODEL_PROMPT * (b + 1) - 1 for b in range(MODEL_BATCH)]
+    flips, last_flips = [], []
+    for a, b in zip(rp, rt):
+        differ = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        flips.append(int(differ.sum()))
+        last_flips.append([bool(differ[i]) for i in last])
+    log(f"[train] (d) {cfg.name} trained weights: prefill {MODEL_BATCH} x "
+        f"{MODEL_PROMPT} tokens (bf16 flash_prefill) against the train "
+        f"form on the served routes, last-token logits ||err||/||train|| "
+        f"{rel['pinned']:.3e} (<= {TRAIN_SERVE_RTOL:g}), max|err| "
+        f"{float((got - want).abs().max()):.3e} at max|train| "
+        f"{float(want.abs().max()):.3e}; the train form on its own routes "
+        f"{rel['own']:.3e}, tokens whose top-k differs by MoE layer {flips} "
+        f"of {MODEL_BATCH * MODEL_PROMPT}, the last tokens' {last_flips}")
+    if not rel["pinned"] <= TRAIN_SERVE_RTOL:
+        fail(f"(d) {cfg.name}: served logits off the train form by "
+             f"{rel['pinned']:.3e} in norm (rtol {TRAIN_SERVE_RTOL:g})")
+    return rel
+
+
+def train_f64(torch, dev, cfg):
+    """(e) one step's loss and gradients through the train form in f32 and
+    in f64 on the same weights (drawn in f32 from seed 0; the f64 copy is
+    f64 end to end, norms, rope, router and softmax included) and the same
+    2 x 512 tokens: equal routes, the loss within F64_LOSS_RTOL, the global
+    grad norm within F64_GNORM_RTOL."""
+    import copy
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.module import trainable
+    batch = SyntheticPipeline.for_model(cfg, VERIFY_PROMPT, MODEL_BATCH,
+                                        device=dev).batch_at(0)
+    p32 = trainable(M.init_model(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0), device=dev,
+                                 dtype=torch.float32))
+    out = {}
+    for name in ("f32", "f64"):
+        params = p32 if name == "f32" else trainable(
+            copy.deepcopy(p32).double())
+        routes = []
+        t0 = time.perf_counter()
+        loss = M.loss_fn(params, cfg, batch, routes=routes)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        gnorm = math.sqrt(sum(float(torch.sum(torch.square(g.double())))
+                              for g in grads))
+        torch.cuda.synchronize(dev)
+        out[name] = {"loss": float(loss.detach()), "gnorm": gnorm,
+                     "routes": routes,
+                     "s": time.perf_counter() - t0}
+        del params, grads, loss
+    a, b = out["f32"], out["f64"]
+    if len(a["routes"]) != len(b["routes"]) or not all(
+            torch.equal(x, y) for x, y in zip(a["routes"], b["routes"])):
+        fail(f"(e) {cfg.name}: MoE routes differ between f32 and f64")
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    gnorm_rel = abs(a["gnorm"] - b["gnorm"]) / b["gnorm"]
+    log(f"[train] (e) {cfg.name} {cfg.n_layers} layers, {MODEL_BATCH} x "
+        f"{VERIFY_PROMPT} tokens, train form f32 against f64: loss "
+        f"{a['loss']:.9f} / {b['loss']:.9f} (rel {loss_rel:.3e} <= "
+        f"{F64_LOSS_RTOL:g}), grad norm {a['gnorm']:.9g} / {b['gnorm']:.9g}"
+        f" (rel {gnorm_rel:.3e} <= {F64_GNORM_RTOL:g}), "
+        f"{sum(int(r.numel()) for r in a['routes'])} routes equal; "
+        f"{a['s']:.2f} s / {b['s']:.2f} s")
+    if not loss_rel <= F64_LOSS_RTOL or not gnorm_rel <= F64_GNORM_RTOL:
+        fail(f"(e) {cfg.name}: f32 off f64 by loss {loss_rel:.3e}, grad "
+             f"norm {gnorm_rel:.3e}")
+    del p32
+    torch.cuda.empty_cache()
+    return loss_rel, gnorm_rel
+
+
+def run_training(torch, dev, v2_lite, mamba2, counted, smi_line):
+    """Phase 5c. Every counter is zeroed before each part and read after:
+    the train steps launch no kernel; (d) the bf16 flash_prefill once per
+    layer and nothing else. Returns (results, launches by part)."""
+    def none_launched(part, n):
+        if any(n.values()):
+            fail(f"(5c) {part} launched kernels: {n}")
+        return n
+
+    by_part, res = {}, {}
+    for arch in ("deepseek-v2-lite", "mamba2-370m"):
+        res[f"cli {arch}"], n = counted(lambda: train_cli(torch, arch))
+        by_part[f"train_cli_{arch}"] = none_launched(f"(a) {arch}", n)
+    cut = dataclasses.replace(v2_lite, n_layers=4)
+    fault_at, every = 6, 4
+    rb, n = counted(lambda: train_run(torch, dev, cut, batch=2, n_micro=2,
+                                      ckpt_every=every, fault_at=fault_at))
+    by_part["train_v2_lite"] = none_launched("(b)", n)
+    log_train_run("(b)", cut, rb, smi_line,
+                  f"depth cut from {v2_lite.n_layers} to {cut.n_layers} "
+                  f"layers (1 dense + 3 MoE), 2 x {TRAIN_SEQ} tokens, "
+                  f"n_micro 2, a checkpoint every {every} steps, a failure "
+                  f"induced before step {fault_at}")
+    res["replay_rel"] = check_replay(cut, rb, fault_at, every)
+    res["serve_rel"], n = counted(lambda: trained_serve(
+        torch, dev, cut, rb["params"]))
+    if n["flash_prefill_bf16"] != cut.n_layers or any(
+            v for k, v in n.items() if k != "flash_prefill_bf16"):
+        fail(f"(d) launched {n}, want flash_prefill_bf16 once per layer "
+             f"({cut.n_layers}) and nothing else")
+    by_part["train_serve"] = n
+    res["b"] = {k: v for k, v in rb.items() if k not in ("params",
+                                                         "entries")}
+    del rb
+    torch.cuda.empty_cache()
+    rc, n = counted(lambda: train_run(torch, dev, mamba2, batch=4,
+                                      n_micro=1))
+    by_part["train_mamba2"] = none_launched("(c)", n)
+    log_train_run("(c)", mamba2, rc, smi_line,
+                  f"as published, 4 x {TRAIN_SEQ} tokens")
+    if not rc["losses"][-1][1] < rc["losses"][0][1]:
+        fail(f"(c) {mamba2.name}: loss did not fall: {rc['losses']}")
+    res["c"] = {k: v for k, v in rc.items() if k not in ("params",
+                                                         "entries")}
+    del rc
+    torch.cuda.empty_cache()
+    two = dataclasses.replace(v2_lite, n_layers=2)
+    res["f64"], n = counted(lambda: train_f64(torch, dev, two))
+    by_part["train_f64"] = none_launched("(e)", n)
+    return res, by_part
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1933,12 +2280,18 @@ def main() -> int:
              f"{layer_launches['flash_prefill_bf16']} and f32 "
              f"{layer_launches['flash_prefill']} times, want 1 and 0")
     model_s = time.perf_counter() - t0
+
+    # 5c. the training path
+    t0 = time.perf_counter()
+    train_res, train_launches = run_training(torch, dev, v2_lite, mamba2,
+                                             counted, smi_line)
+    train_s = time.perf_counter() - t0
     by_phase = {"serve": serve_launches, "selection_serve": sel_launches,
                 "mesh": mesh_launches,
                 "goldens": golden_launches, "model_v2_lite": full_launches,
                 "model_verify": verify_launches,
                 "model_mamba2": mamba_launches,
-                "model_mla_bf16": layer_launches}
+                "model_mla_bf16": layer_launches, **train_launches}
     launches = {k: sum(p[k] for p in by_phase.values()) for k in checks}
 
     # 6. proof of the path: the dense kernels over serve + goldens,
@@ -2004,8 +2357,14 @@ def main() -> int:
         f"{mesh_worst['modes']:.3e}, {mesh_conc['streams']} streams), "
         f"goldens max|err| {golden_err:.3e}, selection goldens "
         f"{sel_golden_err:.3e}, (d) bf16 latent attention "
-        f"{d_errs['latent attention']:.3e}, model phase {model_s:.1f} s, total "
-        f"{time.perf_counter() - t_all:.1f} s")
+        f"{d_errs['latent attention']:.3e}, model phase {model_s:.1f} s, "
+        f"training phase {train_s:.1f} s ((b) {train_res['b']['wall_s']:.3f}"
+        f" s a step, (c) {train_res['c']['wall_s']:.3f} s; (d) served "
+        f"{train_res['serve_rel']['pinned']:.3e} on equal routes, "
+        f"{train_res['serve_rel']['own']:.3e} on the train form's; (e) f32 "
+        f"vs f64 loss "
+        f"{train_res['f64'][0]:.3e}, grad norm {train_res['f64'][1]:.3e}), "
+        f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

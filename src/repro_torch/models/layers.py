@@ -2,6 +2,10 @@
 tied embedding, RoPE. Each init_* returns a dict of tensors for
 module.Tree; the apply functions index it as the reference's value trees.
 
+Norms and RoPE compute in f32 from narrower inputs, as the reference does,
+and in f64 from f64 inputs (compute_dtype): an f64 model is then f64 end to
+end, which is how the card checks the f32 train form against it.
+
 RoPE uses the NeoX half-split pairing. rope(p + delta) = R(delta) . rope(p)
 per frequency pair — the composition property the FETCH delta-rotation
 splice (paper §2.2) relies on.
@@ -15,6 +19,12 @@ import torch
 from repro_torch.models.module import ones, param, zeros
 
 
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the computations the reference runs in f32: f32 for f32
+    and narrower floats, f64 for f64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -25,11 +35,11 @@ def init_rmsnorm(d: int, *, dtype, device):
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
-    x = x.to(torch.float32)
+    dt, ct = x.dtype, compute_dtype(x.dtype)
+    x = x.to(ct)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * scale.to(torch.float32)).to(dt)
+    return (x * scale.to(ct)).to(dt)
 
 
 def init_layernorm(d: int, *, dtype, device):
@@ -38,12 +48,12 @@ def init_layernorm(d: int, *, dtype, device):
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    dt = x.dtype
-    x = x.to(torch.float32)
+    dt, ct = x.dtype, compute_dtype(x.dtype)
+    x = x.to(ct)
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)
-    out = x * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    out = x * p["scale"].to(ct) + p["bias"].to(ct)
     return out.to(dt)
 
 
@@ -124,11 +134,12 @@ def rope_freqs(head_dim: int, theta: float = 10000.0) -> np.ndarray:
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int,
-                 theta: float = 10000.0):
-    """positions (...,) -> cos/sin (..., head_dim/2) in f32."""
-    freqs = torch.tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                 theta: float = 10000.0, dtype=torch.float32):
+    """positions (...,) -> cos/sin (..., head_dim/2) in dtype (f32 unless
+    an f64 model asks for f64)."""
+    freqs = torch.tensor(rope_freqs(head_dim, theta), dtype=dtype,
                          device=positions.device)
-    ang = positions.to(torch.float32)[..., None] * freqs
+    ang = positions.to(dtype)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -136,8 +147,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x (..., head_dim); cos/sin broadcastable (..., head_dim/2)."""
     d2 = x.shape[-1] // 2
-    xf1 = x[..., :d2].to(torch.float32)
-    xf2 = x[..., d2:].to(torch.float32)
+    ct = torch.promote_types(compute_dtype(x.dtype), cos.dtype)
+    xf1 = x[..., :d2].to(ct)
+    xf2 = x[..., d2:].to(ct)
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
 

@@ -22,6 +22,11 @@ flash_prefill kernel (causal attention of the absorbed queries over the
 latent entries it writes), where the reference decompresses c^KV into
 per-head keys and values. The two are equal up to rounding
 (tests/test_mla.py holds them at 2e-5 / 1e-4 in f32).
+
+mla_attention_train is the reference's own train form, decompressed and
+causal, in plain PyTorch ops that autograd differentiates: the training
+path runs it (no kernel of the repo has a backward pass), serving never
+does.
 """
 
 from __future__ import annotations
@@ -122,7 +127,8 @@ def project_q(p: MLA, cfg: MLAConfig, x, positions):
         q = torch.einsum("bsm,mhd->bshd", x, p.q_proj)
     q_nope = q[..., :cfg.qk_nope_head_dim]
     q_rope = q[..., cfg.qk_nope_head_dim:]
-    cos, sin = L.rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    cos, sin = L.rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta,
+                              dtype=L.compute_dtype(x.dtype))
     q_rope = L.apply_rope(q_rope, cos[:, :, None, :], sin[:, :, None, :])
     return q_nope, q_rope
 
@@ -132,7 +138,8 @@ def latent_cache_entries(p: MLA, cfg: MLAConfig, x, positions):
     kv = x @ p.kv_down
     c_kv = L.rmsnorm(p.kv_norm, kv[..., :cfg.kv_lora_rank])
     k_rope = kv[..., cfg.kv_lora_rank:]
-    cos, sin = L.rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    cos, sin = L.rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta,
+                              dtype=L.compute_dtype(x.dtype))
     k_rope = L.apply_rope(k_rope, cos, sin)
     return torch.cat([c_kv, k_rope], dim=-1)
 
@@ -275,3 +282,34 @@ def mla_attention(p: MLA, cfg: MLAConfig, x, positions, *,
     o_lat = prefill_fn(q_abs.contiguous(), entries.contiguous(),
                        d_v=cfg.kv_lora_rank, scale=cfg.scale)
     return unabsorb_output(p, cfg, o_lat.to(x.dtype)), entries
+
+
+# ---------------------------------------------------------------------------
+# Train form (decompressed, causal) — the reference's mla_attention.
+# ---------------------------------------------------------------------------
+
+def mla_attention_train(p: MLA, cfg: MLAConfig, x, positions):
+    """Causal self-attention of x (B, S, D) in train form -> (out (B, S, D),
+    latent cache entries (B, S, d_qk)).
+
+    c^KV is decompressed into per-head k_nope and v; the rope band of the
+    key is shared across heads. The logits q_nope.k_nope + q_rope.k_rope and
+    the probabilities times v are computed in f32 from operands cast to f32
+    (the reference's f32-accumulating einsums; torch.einsum on bf16 operands
+    would return bf16; f64 for an f64 model), the causal band masked to
+    -inf before the softmax."""
+    S = x.shape[1]
+    ct = L.compute_dtype(x.dtype)
+    q_nope, q_rope = project_q(p, cfg, x, positions)
+    entries = latent_cache_entries(p, cfg, x, positions)    # (B, S, d_qk)
+    c_kv = entries[..., :cfg.kv_lora_rank]
+    k_rope = entries[..., cfg.kv_lora_rank:]
+    k_nope = torch.einsum("bsc,chd->bshd", c_kv, p.k_up)
+    v = torch.einsum("bsc,chd->bshd", c_kv, p.v_up)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.to(ct), k_nope.to(ct))
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.to(ct),
+                             k_rope.to(ct))) * cfg.scale
+    causal = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+    probs = torch.softmax(logits.masked_fill(~causal, float("-inf")), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(ct)).to(x.dtype)
+    return torch.einsum("bshd,hdm->bsm", o, p.o_proj), entries

@@ -1,12 +1,17 @@
-"""The model's serving form: one ModelConfig drives the families the port
-runs — dense and MoE transformers with MLA attention (DeepSeek-V2) and the
-attention-free SSM (Mamba2).
+"""The model: one ModelConfig drives the families the port runs — dense and
+MoE transformers with MLA attention (DeepSeek-V2) and the attention-free SSM
+(Mamba2).
 
-Step functions, the counterparts of the reference's prefill_step and
-serve_step:
+Step functions, the counterparts of the reference's train step,
+prefill_step and serve_step:
   * init_model         — parameters drawn on their device from a generator
-  * forward / prefill  — the full-sequence pass; prefill returns the
-                         last-token logits and the caches
+  * train_forward /    — the train form (the reference's forward / loss_fn):
+    loss_fn              decompressed MLA and the inline SSD intra-chunk
+                         term, plain PyTorch ops under autograd, each block
+                         recomputed in backward when cfg.remat is set; the
+                         chunked cross-entropy plus 0.01 x the MoE aux term
+  * forward / prefill  — the serving form's full-sequence pass; prefill
+                         returns the last-token logits and the caches
   * init_decode_state  — the cache in the reference's layout
   * decode_step        — one token against a seq_len cache
 
@@ -16,11 +21,13 @@ axis, as the reference's do: MLA {"dense_blocks": (k, B, S, d_qk), "blocks":
 (L - k, B, S, d_qk)}, Mamba2 {"blocks": (h (L, B, H, P, N), conv (L, B,
 d_conv - 1, C))}.
 
-The attention, prefill and intra-chunk inner ops are an explicit argument
-(`ops`), as the reference's absorbed_decode(partial_fn=...) and
-ssd_chunked(use_kernel=...) are: KERNELS (the hand-written kernels' wrappers,
-the default) or PLAIN (their plain versions, the oracle a card run holds the
-kernels against). Nothing switches between them behind the caller's back.
+The serving form's attention, prefill and intra-chunk inner ops are an
+explicit argument (`ops`), as the reference's
+absorbed_decode(partial_fn=...) and ssd_chunked(use_kernel=...) are:
+KERNELS (the hand-written kernels' wrappers, the default) or PLAIN (their
+plain versions, the oracle a card run holds the kernels against). Nothing switches between them behind the caller's back;
+the train form takes no ops (no kernel of the repo has a backward pass, and
+the reference trains without its kernels).
 
 GQA attention (models/attention.py) and the hybrid, audio and vlm families
 are not ported yet (ROADMAP A.10) and raise NotImplementedError.
@@ -29,9 +36,11 @@ are not ported yet (ROADMAP A.10) and raise NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
 from repro_torch.kernels.mla_decode import mla_decode, mla_decode_ref
@@ -261,6 +270,89 @@ def prefill(params, cfg: ModelConfig, batch, *, ops: Ops = KERNELS,
     logits = L.unembed(params["embed"],
                        cfg.norm_apply()(params["final_norm"], x[:, -1:]))
     return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# Train form and loss
+# ---------------------------------------------------------------------------
+
+def _train_block(lp, cfg: ModelConfig, moe_block: bool, positions, pinned,
+                 x):
+    """One layer in train form: x (B, S, D) -> (x', MoE aux or None, the
+    MoE layer's top-k indices (T, k) or None). The indices are returned,
+    not appended to a caller's list, so a block recomputed in backward does
+    not record its routes twice."""
+    na = cfg.norm_apply()
+    if cfg.family == "ssm":
+        y, _ = SSM.mamba2_forward(lp["mamba"], cfg.ssm, na(lp["ln"], x),
+                                  intra=SSM.ssd_intra_chunk_train)
+        return x + y, None, None
+    attn_out, _ = MLA.mla_attention_train(lp["attn"], cfg.mla,
+                                          na(lp["ln1"], x), positions)
+    x = x + attn_out
+    h = na(lp["ln2"], x)
+    if moe_block:
+        idx = []
+        mo, aux = MOE.moe_apply(lp["moe"], cfg.moe, h, idx, pinned=pinned)
+        return x + mo, aux, idx[0]
+    return x + L.mlp(lp["mlp"], h, cfg.mlp_kind), None, None
+
+
+def train_forward(params, cfg: ModelConfig, batch, *,
+                  routes: Optional[list] = None,
+                  pinned_routes: Optional[list] = None):
+    """batch {"tokens": (B, S)} -> (logits (B, S, V), aux): the train form
+    of every layer; with cfg.remat each block runs under
+    torch.utils.checkpoint (non-reentrant), the counterpart of the
+    reference's jax.checkpoint, keeping only its input for backward. When
+    `routes` is a list, every MoE layer appends its top-k indices (T, k)
+    once, in layer order; `pinned_routes`, such a list (another run's),
+    makes each MoE layer take its entry in place of its own top-k
+    (moe_apply(pinned=...))."""
+    _check_supported(cfg)
+    x, positions = _embed_inputs(params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stacks = [("blocks", cfg.family == "moe")]
+    if cfg.family == "moe" and cfg.first_k_dense:
+        stacks.insert(0, ("dense_blocks", False))
+    pinned = iter(pinned_routes or ())
+    for key, moe_block in stacks:
+        for lp in params[key]:
+            fn = functools.partial(
+                _train_block, lp, cfg, moe_block, positions,
+                next(pinned) if moe_block and pinned_routes else None)
+            x, a, idx = (checkpoint(fn, x, use_reentrant=False) if cfg.remat
+                         else fn(x))
+            if a is not None:
+                aux = aux + a
+            if idx is not None and routes is not None:
+                routes.append(idx)
+    logits = L.unembed(params["embed"],
+                       cfg.norm_apply()(params["final_norm"], x))
+    return logits, aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *,
+            routes: Optional[list] = None):
+    """Mean next-token cross-entropy of batch {"tokens", "targets": (B, S)}
+    plus 0.01 x the MoE aux term. The cross-entropy runs in chunks of the
+    sequence, the largest chunk of at most cfg.loss_chunk that divides S,
+    each chunk's logits in f32 (f64 for an f64 model)."""
+    logits, aux = train_forward(params, cfg, batch, routes=routes)
+    targets = batch["targets"].long()
+    B, S, _ = logits.shape
+    n_chunks = max(1, S // min(cfg.loss_chunk, S))
+    while S % n_chunks:
+        n_chunks += 1
+    chunk = S // n_chunks
+    ct = L.compute_dtype(logits.dtype)
+    total = torch.zeros((), dtype=ct, device=logits.device)
+    for i in range(n_chunks):
+        lg = logits[:, i * chunk:(i + 1) * chunk].to(ct)
+        tg = targets[:, i * chunk:(i + 1) * chunk]
+        gold = torch.gather(lg, -1, tg[..., None])[..., 0]
+        total = total + torch.sum(torch.logsumexp(lg, dim=-1) - gold)
+    return total / (B * chunk * n_chunks) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

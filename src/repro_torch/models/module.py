@@ -11,6 +11,10 @@ are lists of per-layer trees (nn.ModuleList); the reference's leading
 
 On the meta device nothing is drawn: init functions then give the shapes
 and dtypes alone, which is how convert.py checks carried-over weights.
+
+Every parameter is created frozen (requires_grad False): serving never
+differentiates. trainable(tree) is the one way to make a tree's parameters
+take gradients, which the training path does before its first step.
 """
 
 from __future__ import annotations
@@ -77,6 +81,15 @@ def init_stacked(n: int, init_fn: Callable[[], nn.Module]) -> nn.ModuleList:
     """n independently initialised copies of init_fn(), one per layer, drawn
     in layer order from the generator init_fn uses."""
     return nn.ModuleList(init_fn() for _ in range(n))
+
+
+def trainable(tree: nn.Module) -> nn.Module:
+    """Make every parameter of tree take gradients (in place); returns tree.
+    The reference differentiates every leaf, the f32 router and SSM
+    parameters included."""
+    for p in tree.parameters():
+        p.requires_grad_(True)
+    return tree
 
 
 def count_params(tree: nn.Module) -> int:

@@ -8,6 +8,12 @@ the same pairs as the reference drops, so a prefill in which one expert is
 over 1.25x its average load, or a decode in which two tokens pick the same
 expert at capacity 1, gives the reference's result. The expert-parallel
 shard_map form (ep_axis) comes with the distribution substrate.
+
+Under autograd the gradient flows as the reference's: through a kept pair's
+gather into its expert slot and its weighted write-back (to the token, the
+expert weights and the router's top-k weight), and through the aux term's
+mean router probabilities. A dropped pair is never written, so it gets no
+gradient, as the reference's trash row gets none.
 """
 
 from __future__ import annotations
@@ -47,12 +53,16 @@ def init_moe(gen, cfg: MoEConfig, *, dtype, device):
     return p
 
 
-def _router(p, cfg: MoEConfig, x):
+def _router(p, cfg: MoEConfig, x, idx=None):
     """x (T, d) -> (indices (T, k), weights (T, k) in x.dtype, probs (T, E)
-    f32): softmax, then top-k, then renormalised (DeepSeek-V2 style)."""
-    logits = x.to(cfg.router_dtype) @ p["router"]
+    in the router's dtype, cfg.router_dtype as initialised): softmax, then
+    top-k (or the given indices), then renormalised (DeepSeek-V2 style)."""
+    logits = x.to(p["router"].dtype) @ p["router"]
     probs = torch.softmax(logits, dim=-1)
-    w, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    if idx is None:
+        w, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    else:
+        w = torch.gather(probs, -1, idx)
     w = w / torch.sum(w, dim=-1, keepdim=True)
     return idx, w.to(x.dtype), probs
 
@@ -80,13 +90,17 @@ def dispatch_slots(idx: torch.Tensor, n_experts: int, capacity: int):
     return st, se, slot, slot < capacity, order
 
 
-def moe_apply(p, cfg: MoEConfig, x: torch.Tensor, routes=None):
+def moe_apply(p, cfg: MoEConfig, x: torch.Tensor, routes=None, *,
+              pinned=None):
     """x (..., d) -> ((..., d), aux load-balance term). When `routes` is a
-    list, the router's top-k indices (T, k) are appended to it."""
+    list, the top-k indices (T, k) are appended to it. `pinned` (T, k)
+    takes the place of the router's top-k choice (each pair weighted by the
+    router's own probabilities, renormalised): how a check holds two forms
+    of the model on the same routes, where a near-tie would flip one."""
     shape = x.shape
     xt = x.reshape(-1, shape[-1])
     T = xt.shape[0]
-    idx, w, probs = _router(p, cfg, xt)
+    idx, w, probs = _router(p, cfg, xt, pinned)
     if routes is not None:
         routes.append(idx)
     capacity = int(max(1, cfg.capacity_factor * T * cfg.top_k
@@ -108,7 +122,7 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor, routes=None):
         h = F.silu(xt @ p["sh_gate"]) * (xt @ p["sh_up"])
         y = y + (h @ p["sh_down"]).to(y.dtype)
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(F.one_hot(idx[:, 0], cfg.n_experts).to(torch.float32),
+    ce = torch.mean(F.one_hot(idx[:, 0], cfg.n_experts).to(probs.dtype),
                     dim=0)
     aux = cfg.n_experts * torch.sum(me * ce)
     return y.reshape(shape), aux

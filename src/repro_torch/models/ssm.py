@@ -6,6 +6,11 @@ inter-chunk recurrence over per-chunk states, a plain loop over chunks as in
 the reference (which computes it outside its kernel too). O(S * Q) compute
 for chunk size Q.
 
+Train form: the same chunked algorithm with the intra-chunk term as the
+reference's own inline einsums (ssd_intra_chunk_train, what its
+ssd_chunked(use_kernel=False) computes), in plain PyTorch ops that autograd
+differentiates; ssd_chunked takes it as its `intra` op.
+
 Decode form: the O(1) recurrence  h_t = a_t h_{t-1} + dt_t * B_t x_t^T,
 y_t = C_t h_t — the "cache" is a fixed-size state (H, hd, N) plus the last
 d_conv - 1 conv inputs.
@@ -87,6 +92,31 @@ def _causal_conv(p, xbc, conv_state=None):
     return out.to(xbc.dtype), new_state.to(xbc.dtype)
 
 
+def ssd_intra_chunk_train(x, dt, A, B, C):
+    """The intra-chunk term in train form: x (b, nc, Q, H, P), dt (b, nc, Q,
+    H), A (H,), B, C (b, nc, Q, N), f32 -> (y_intra (b, nc, Q, H, P),
+    chunk states (b, nc, H, P, N), cum (b, nc, Q, H)).
+
+        y_intra[t] = sum_{u<=t} C_t.B_u exp(cum_t - cum_u) dt_u x_u
+        S_c = sum_u exp(seg - cum_u) dt_u B_u x_u^T
+
+    The exponent is masked to -inf above the diagonal BEFORE exp: those
+    entries are positive and overflow, and a mask applied after exp would
+    leak NaN into the gradient."""
+    Q = x.shape[2]
+    cum = torch.cumsum(dt * A[None, None, None], dim=2)      # (b,nc,Q,h)
+    expo = cum[:, :, :, None] - cum[:, :, None]              # (b,nc,Q,Q,h)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    lmat = torch.exp(expo.masked_fill(~causal[None, None, :, :, None],
+                                      float("-inf")))
+    G = torch.einsum("bcqn,bckn->bcqk", C, B)[..., None] * lmat
+    y_intra = torch.einsum("bcqkh,bckh,bckhp->bcqhp", G, dt, x)
+    decay_out = torch.exp(cum[:, :, -1:] - cum)              # (b,nc,Q,h)
+    states = torch.einsum("bckh,bckh,bckn,bckhp->bchpn", decay_out, dt, B,
+                          x)
+    return y_intra, states, cum
+
+
 def ssd_chunked(cfg: Mamba2Config, x, dt, A, B, C, h0=None, *,
                 intra=ssd_intra_chunk):
     """Chunked SSD scan.
@@ -96,7 +126,8 @@ def ssd_chunked(cfg: Mamba2Config, x, dt, A, B, C, h0=None, *,
 
     intra is the intra-chunk op, (x, dt, A, B, C) over chunked f32 tensors
     -> (y_intra, chunk states, cum): the ssd_chunk kernel wrapper by
-    default, or its plain version (the reference's use_kernel=False form).
+    default, its plain version, or the train form ssd_intra_chunk_train
+    (the reference's use_kernel=False form, which training takes).
     """
     b, s, h, pdim = x.shape
     n = B.shape[-1]

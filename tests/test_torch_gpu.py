@@ -755,3 +755,93 @@ def test_fused_step_runs_the_kernels_on_several_streams(dev):
     assert "tiled_kernel" in names or "attend_kernel" in names, names
     assert "merge_kernel" in names and "splice_kernel" in names, names
     assert len({e["args"].get("stream") for e in kernels}) > 1
+
+
+# ---------------------------------------------------------------------------
+# The training path on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_v2_lite():
+    """V2-Lite's shape at smoke width (tests/torch_parity.py's config, in
+    the port's classes)."""
+    from repro_torch.models.mla import MLAConfig
+    from repro_torch.models.model import ModelConfig
+    from repro_torch.models.moe import MoEConfig
+    return ModelConfig(
+        name="v2-lite-tiny", family="moe", n_layers=3, d_model=64,
+        vocab=256, attn_type="mla", n_heads=4, n_kv_heads=4,
+        mla=MLAConfig(d_model=64, n_heads=4, kv_lora_rank=32,
+                      q_lora_rank=None, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16),
+        d_ff=128, first_k_dense=1,
+        moe=MoEConfig(d_model=64, d_expert=32, n_experts=8, top_k=3,
+                      n_shared=2))
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One train step of the tiny V2-Lite shape in f32 (n_micro 2) on the
+    card and on the CPU from the same weights and batch: no kernel launched,
+    equal routes, the loss, every gradient leaf and the gradient norm within
+    1e-4 (atol scaled by the leaf's max |grad|)."""
+    import copy
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.module import trainable
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import (TrainConfig, loss_and_grads,
+                                        make_train_step)
+    cfg = _tiny_v2_lite()
+    cpu = trainable(M.init_model(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu", dtype=torch.float32))
+    card = trainable(copy.deepcopy(cpu).to(dev))
+    batch = SyntheticPipeline.for_model(cfg, 32, 4, device="cpu").batch_at(0)
+    tcfg = TrainConfig(n_micro=2)
+    routes = {}
+    for name, params in (("cpu", cpu), ("card", card)):
+        b = {k: v.to(params.embed.table.device) for k, v in batch.items()}
+        routes[name] = []
+        M.loss_fn(params, cfg, b, routes=routes[name])
+    assert all(torch.equal(a.cpu(), b_) for a, b_ in zip(routes["card"],
+                                                          routes["cpu"]))
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    counters = _exec_counters() + (fp_ops.flash_prefill,
+                                   ssd_ops.ssd_intra_chunk)
+    before = [c.launches for c in counters]
+    loss_c, g_c = loss_and_grads(card, cfg, {k: v.to(dev) for k, v in
+                                             batch.items()}, tcfg)
+    loss_h, g_h = loss_and_grads(cpu, cfg, batch, tcfg)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+    assert math.isclose(float(loss_c), float(loss_h), rel_tol=1e-4)
+    for a, b_ in zip(g_c, g_h):
+        tol = 1e-4 * float(b_.abs().max())
+        assert bool(((a.cpu() - b_).abs() <= tol + 1e-4 * b_.abs()).all())
+    mets = {}
+    for name, params, b in (("card", card, {k: v.to(dev) for k, v in
+                                            batch.items()}),
+                            ("cpu", cpu, batch)):
+        ocfg = AdamWConfig(lr=1e-3)
+        _, _, m = make_train_step(cfg, ocfg, tcfg)(params,
+                                                   adamw_init(params, ocfg), b)
+        mets[name] = (float(m["loss"]), float(m["grad_norm"]))
+    assert math.isclose(mets["card"][0], mets["cpu"][0], rel_tol=1e-4)
+    assert math.isclose(mets["card"][1], mets["cpu"][1], rel_tol=1e-4)
+
+
+def test_train_cli_on_the_card(dev, tmp_path):
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "deepseek-v2-lite", "--smoke", "--steps", "4", "--ckpt-every", "2",
+         "--ckpt-dir", str(tmp_path), "--device", "cuda"],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.path.join(root, "src")})
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines[-2] == "[train] deepseek-smoke: 0.21M params"
+    assert lines[-1].startswith("[train] 4 steps in ")
+    assert lines[-1].endswith("checkpoints: [2, 4]")
