@@ -37,8 +37,8 @@ package. Phases, each fatal on failure:
    with f32 operands (csrc/flash_prefill.cu, split-TF32 products on the
    tensor cores) and once with bf16 operands (csrc/flash_prefill_bf16.cu),
    SDPA's own error against the plain version printed beside its time;
-   ssd_chunk (split TF32) at one sequence (hb 4 and 5) and at model (c)'s
-   two; the two split-TF32 kernels' bounds under both the f32 CUDA-core
+   ssd_chunk (split TF32) at one sequence (hb 4 and 5), at model (c)'s
+   two and at 5d (a)'s Zamba2-7B prefill (H 112, N 64); the two split-TF32 kernels' bounds under both the f32 CUDA-core
    peak and three TF32 products, their shared memory and blocks an SM;
 4. serve  — repro_torch.launch.serve at DeepSeek-V2-Lite width over the
    CLI's default world, every step verified against the plain oracle;
@@ -89,14 +89,37 @@ package. Phases, each fatal on failure:
    2e-2 in norm; (e) the f32 train form against f64 on V2-Lite width, 2
    layers, 2 x 512 tokens: loss within 1e-5, grad norm within 1e-4,
    equal routes;
+5d. families — the model families the port runs with GQA attention
+   (repro_torch.models.attention: einsums, no kernel, as in the
+   reference), weights drawn on the card from seed 0: (a) Zamba2-7B as
+   published (81 Mamba2 layers, 13 groups of 6 each followed by the shared
+   attention block, then 3 more) in bf16: prefill 2 x 2048 tokens
+   (ssd_chunk once per Mamba2 layer at x (2, 16, 128, 112, 64)), 8 greedy
+   decode steps on a 2056-slot cache filled from the prefill (SSM states
+   and shared K/V) — finite logits, the cache and state layouts, walls,
+   device busy share, peak memory; (b) Zamba2 at full width cut to 7
+   layers (one group of 6 and 1 more) in f32, 2 x 512 tokens and 8 decode
+   steps, kernels against plain versions: logits, every SSM state, conv
+   tail and the shared K/V, prefill caches and the state after decode,
+   within 1e-4; (c) the GQA families in bf16 at full width, each freed
+   before the next, the depth cuts and their reasons printed: qwen3-32b,
+   qwen2.5-32b, qwen1.5-32b (8 of 64 layers), nemotron-4-340b (2 of 96),
+   qwen3-moe-235b-a22b (2 of 94), llava-next-mistral-7b in full (576 patch
+   embeddings + 2 x 1472 tokens), whisper-large-v3 in full (1500 frames, 2
+   x 448 tokens): prefill, the decode state filled from it, 8 greedy decode
+   steps, finite logits, layouts, walls, busy share, peak memory; (d)
+   decode against forward in f32 (qwen3-32b cut to 2 layers; (b)'s
+   Zamba2): prefill S - 1 tokens into exactly S slots, decode token S - 1,
+   its logits against forward's last position, 1e-4 GQA and 1e-3 hybrid;
 6. proof of the path — each kernel's launch counter, zeroed before each of
-   phases 4, 4b, 4c, 5, the four parts of 5b and the parts of 5c and read
-   after it, is > 0 over the phases that run it (4c alone runs all four
-   exec kernels; flash_prefill's f32 and bf16 kernels
+   phases 4, 4b, 4c, 5, the four parts of 5b, the parts of 5c and of 5d
+   and read after it, is > 0 over the phases that run it (4c alone runs
+   all four exec kernels; flash_prefill's f32 and bf16 kernels
    counted apart: (a) launches the bf16 one once per layer in each prefill
    and the f32 one never, (d) the bf16 one once), and 0 for every kernel
    in the train steps of 5c, whose (d) launches the bf16 flash_prefill
-   once per layer and nothing else;
+   once per layer and nothing else; in 5d, ssd_chunk once per Mamba2 layer
+   in each prefill of (a) and (b) and nothing else, and no kernel in (c);
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -149,8 +172,10 @@ TOL = {"mla_decode": (1e-5, 1e-5), "softmax_merge": (1e-6, 0.0),
 # The model phase, kernels against plain versions through a whole model in
 # f32: every f32 reordering (about 1e-6 relative per kernel call) passes
 # through the layers, and the logits are O(1). V2-Lite cut to 4 layers:
-# 1e-4 absolute and relative; Mamba2-370m, 48 layers deep: 1e-3.
-MODEL_TOL = {"v2_lite": (1e-4, 1e-4), "mamba2": (1e-3, 1e-3)}
+# 1e-4 absolute and relative; Mamba2-370m, 48 layers deep: 1e-3; Zamba2-7B
+# cut to 7 Mamba2 layers and the shared block: V2-Lite's 1e-4.
+MODEL_TOL = {"v2_lite": (1e-4, 1e-4), "mamba2": (1e-3, 1e-3),
+             "zamba2": (1e-4, 1e-4)}
 # serve and goldens against the plain single-instance oracle (a tree of
 # merged partials vs one attention over the concatenated chunks)
 ORACLE_ATOL = 1e-5
@@ -1010,22 +1035,28 @@ def check_flash_prefill(torch, dev, cfg, dtype):
     return worst, cases
 
 
-def check_ssd_chunk(torch, dev, mcfg):
+def check_ssd_chunk(torch, dev, mcfg, zcfg):
+    """mcfg Mamba2-370m's and zcfg Zamba2-7B's Mamba2 geometry."""
     from repro_torch.kernels.ssd_chunk import (ssd_intra_chunk,
                                                ssd_intra_chunk_ref)
+    from repro_torch.kernels.ssd_chunk.ops import resources
     atol, rtol = TOL["ssd_chunk"]
-    Q, H, P, N = mcfg.chunk, mcfg.n_heads, mcfg.head_dim, mcfg.d_state
     g = torch.Generator(device=dev).manual_seed(7)
     worst, cases = 0.0, []
-    from repro_torch.kernels.ssd_chunk.ops import resources
-    smem, per_sm = resources(Q, P, N)
-    log(f"[kernels] ssd_chunk at Q={Q}, P={P}, N={N}: {smem} B of dynamic "
-        f"shared memory a block, {per_sm} block(s) an SM "
-        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    for c in (mcfg, zcfg):
+        smem, per_sm = resources(c.chunk, c.head_dim, c.d_state)
+        log(f"[kernels] ssd_chunk at Q={c.chunk}, P={c.head_dim}, "
+            f"N={c.d_state}: {smem} B of dynamic shared memory a block, "
+            f"{per_sm} block(s) an SM "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     # one 2048-token sequence of mamba2-370m; a head block that does not
-    # divide H; model (c)'s prefill (two sequences, the wrapper's hb)
-    for b, nc, hb in ((1, CHUNK // Q, 4), (1, CHUNK // Q, 5),
-                      (MODEL_BATCH, MODEL_PROMPT // Q, 4)):
+    # divide H; model (c)'s prefill (two sequences, the wrapper's hb); 5d
+    # (a)'s Zamba2-7B prefill (two sequences, 112 heads in 28 blocks of 4)
+    for c, b, hb in ((mcfg, 1, 4), (mcfg, 1, 5), (mcfg, MODEL_BATCH, 4),
+                     (zcfg, MODEL_BATCH, 4)):
+        Q, H, P, N = c.chunk, c.n_heads, c.head_dim, c.d_state
+        nc = (CHUNK if b == 1 else MODEL_PROMPT) // Q
+        smem, per_sm = resources(Q, P, N)
         # drawn as the reference's kernel test draws them
         rnd = lambda *shape: torch.randn(shape, device=dev, generator=g)
         ins = (rnd(b, nc, Q, H, P),
@@ -1565,28 +1596,26 @@ def profiled(torch, fn, top: int = 6):
     return out, sum(by.values()), ranked
 
 
-def run_model(torch, M, params, cfg, tokens, step_cfgs, *, dtype, ops,
+def run_model(torch, M, params, cfg, batch, step_cfgs, *, dtype, ops,
               feed=None, routes=None, profile_last=False):
-    """prefill tokens (B, S) through the entry points, then one decode_step
-    per config of step_cfgs on a cache of S + len(step_cfgs) slots holding
-    the prefill caches. Greedy tokens, or `feed`'s. Returns the prefill
-    logits and caches, the decode logits, the tokens fed and the walls;
-    with profile_last, the last step's device busy time and top kernels
-    (that step runs under the profiler, its wall is not kept)."""
+    """prefill batch ({"tokens": (B, S)} and the family's stub inputs)
+    through the entry points, then one decode_step per config of step_cfgs
+    on a cache of the context (S, and the VLM's patches) plus
+    len(step_cfgs) slots holding the prefill caches (fill_decode_state).
+    Greedy tokens, or `feed`'s. Returns the prefill logits and caches, the
+    decode logits, the tokens fed, the state after the last step and the
+    walls; with profile_last, the last step's device busy time and top
+    kernels (that step runs under the profiler, its wall is not kept)."""
+    tokens = batch["tokens"]
     B, S = tokens.shape
+    S += cfg.vlm_patches if cfg.family == "vlm" else 0
     dev = tokens.device
     t0 = time.perf_counter()
-    logits, caches = M.prefill(params, cfg, {"tokens": tokens}, ops=ops,
-                               routes=routes)
+    logits, caches = M.prefill(params, cfg, batch, ops=ops, routes=routes)
     torch.cuda.synchronize(dev)
     t_prefill = time.perf_counter() - t0
-    if cfg.family == "ssm":
-        state = {"blocks": tuple(c.clone() for c in caches["blocks"])}
-    else:
-        state = M.init_decode_state(cfg, B, S + len(step_cfgs), dtype=dtype,
-                                    device=dev)
-        for k, c in caches.items():
-            state[k][:, :, :S] = c
+    state = M.fill_decode_state(cfg, M.init_decode_state(
+        cfg, B, S + len(step_cfgs), dtype=dtype, device=dev), caches)
     tok = logits.argmax(-1)
     fed, outs, walls, prof = [], [], [], None
     for i, scfg in enumerate(step_cfgs):
@@ -1608,7 +1637,23 @@ def run_model(torch, M, params, cfg, tokens, step_cfgs, *, dtype, ops,
         outs.append(lg)
         tok = lg.argmax(-1)
     return {"prefill": logits, "caches": caches, "decode": outs, "fed": fed,
-            "prefill_s": t_prefill, "decode_s": walls, "profile": prof}
+            "state": state, "prefill_s": t_prefill, "decode_s": walls,
+            "profile": prof}
+
+
+def leaves(tree):
+    """The tensors of a cache or state tree (dicts by key, tuples in
+    order; None holds none)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in leaves(t)]
+    return [] if tree is None else [tree]
+
+
+def shapes(tree):
+    """{key: [leaf shapes]} of a cache or state dict."""
+    return {k: [tuple(x.shape) for x in leaves(v)] for k, v in tree.items()}
 
 
 def _prompt(torch, dev, vocab, length):
@@ -1638,8 +1683,9 @@ def model_full_bf16(torch, dev, cfg):
     n = count_params(params)
     torch.cuda.reset_peak_memory_stats(dev)
     tokens = _prompt(torch, dev, cfg.vocab, MODEL_PROMPT)
-    out = run_model(torch, M, params, cfg, tokens, [cfg] * (MODEL_STEPS + 1),
-                    dtype=torch.bfloat16, ops=M.KERNELS, profile_last=True)
+    out = run_model(torch, M, params, cfg, {"tokens": tokens},
+                    [cfg] * (MODEL_STEPS + 1), dtype=torch.bfloat16,
+                    ops=M.KERNELS, profile_last=True)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     # the first prefill above pays each kernel's and GEMM's first call: a
     # second one gives the warm wall, a third the device busy time
@@ -1704,15 +1750,16 @@ def model_verify(torch, dev, cfg, tol, step_cfgs, label, prompt):
     """The model in f32 through the kernels and through their plain
     versions on the same weights and tokens (a prefill of MODEL_BATCH x
     prompt, then step_cfgs' decode steps): equal MoE routes, prefill and
-    decode logits and every layer's cache within tol."""
+    decode logits, every cache leaf (latent rows, SSM states and conv
+    tails, K/V) and the decode state after the last step within tol."""
     from repro_torch.models import model as M
     params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                           device=dev, dtype=torch.float32)
-    tokens = _prompt(torch, dev, cfg.vocab, prompt)
+    batch = {"tokens": _prompt(torch, dev, cfg.vocab, prompt)}
     rk, rp = [], []
-    k = run_model(torch, M, params, cfg, tokens, step_cfgs,
+    k = run_model(torch, M, params, cfg, batch, step_cfgs,
                   dtype=torch.float32, ops=M.KERNELS, routes=rk)
-    p = run_model(torch, M, params, cfg, tokens, step_cfgs,
+    p = run_model(torch, M, params, cfg, batch, step_cfgs,
                   dtype=torch.float32, ops=M.PLAIN, feed=k["fed"], routes=rp)
     if len(rk) != len(rp) or not all(torch.equal(a, b)
                                      for a, b in zip(rk, rp)):
@@ -1722,13 +1769,13 @@ def model_verify(torch, dev, cfg, tol, step_cfgs, label, prompt):
         fail(f"{label}: MoE routes differ, (call, tokens): {where}")
     errs = {"prefill": _compare(torch, f"{label} prefill logits",
                                 k["prefill"], p["prefill"], tol)}
-    cache_err = 0.0
-    for key in k["caches"]:
-        for i, (a, b) in enumerate(zip(k["caches"][key],
-                                       p["caches"][key])):
-            cache_err = max(cache_err, _compare(
-                torch, f"{label} cache {key}[{i}]", a, b, tol))
-    errs["caches"] = cache_err
+    for what in ("caches", "state"):
+        got, want = leaves(k[what]), leaves(p[what])
+        if [x.shape for x in got] != [x.shape for x in want]:
+            fail(f"{label} {what}: layouts differ")
+        errs[what] = max(_compare(torch, f"{label} {what} leaf {i}", a, b,
+                                  tol)
+                         for i, (a, b) in enumerate(zip(got, want)))
     errs["decode"] = max(_compare(torch, f"{label} decode step {i}", a, b,
                                   tol)
                          for i, (a, b) in enumerate(zip(k["decode"],
@@ -2123,6 +2170,249 @@ def run_training(torch, dev, v2_lite, mamba2, counted, smi_line):
     return res, by_part
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: the model families (GQA attention, the hybrid, VLM, audio)
+# ---------------------------------------------------------------------------
+
+# (c) the GQA families in bf16 at full width: arch, the layers kept (None:
+# all) and why the depth is cut. Each weight is drawn in f32 before its
+# bf16 cast, so the largest tensor needs 6 bytes a parameter while it is
+# drawn (Nemotron's embedding, 256 000 x 18 432: 28 GB).
+FAMILY_RUNS = (
+    ("qwen3-32b", 8, "time, and memory beside the phase's other tensors"),
+    ("qwen2.5-32b", 8, "time, and memory beside the phase's other tensors"),
+    ("qwen1.5-32b", 8, "time, and memory beside the phase's other tensors"),
+    ("nemotron-4-340b", 2, "memory"),
+    ("qwen3-moe-235b-a22b", 2, "memory"),
+    ("llava-next-mistral-7b", None, None),
+    ("whisper-large-v3", None, None),
+)
+VLM_TEXT = MODEL_PROMPT - 576  # LLaVA's text after its 576 patch embeddings
+AUDIO_TOKENS = 448             # Whisper's decoder positions (its release's)
+# (d) decode against forward, f32: one GQA layer stack's reorderings, 1e-4;
+# the hybrid carries the SSD recurrence's (5b (c)'s SSM bound), 1e-3
+DECODE_FORWARD_TOL = {"gqa": 1e-4, "hybrid": 1e-3}
+DECODE_FORWARD_TOKENS = {"gqa": MODEL_PROMPT, "hybrid": 513}
+
+
+def family_batch(torch, dev, cfg, text: int):
+    """MODEL_BATCH sequences of `text` tokens from seed 1 on the card, and
+    the family's stub input (0.02 x N(0, 1) in bf16, seed 2): LLaVA's patch
+    embeddings, Whisper's 1500 frame embeddings."""
+    batch = {"tokens": _prompt(torch, dev, cfg.vocab, text)}
+    n = {"vlm": cfg.vlm_patches, "audio": cfg.enc_seq}.get(cfg.family)
+    if n:
+        g = torch.Generator(device=dev).manual_seed(2)
+        key = "patch_embeds" if cfg.family == "vlm" else "frame_embeds"
+        batch[key] = (0.02 * torch.randn((MODEL_BATCH, n, cfg.d_model),
+                                         device=dev, generator=g)).to(
+            torch.bfloat16)
+    return batch
+
+
+def prefill_cache_shapes(cfg, B: int, ctx: int, text: int):
+    """The reference's prefill cache layout of cfg for B sequences of ctx
+    context positions (text decoder tokens for the audio model)."""
+    a = cfg.attn_cfg
+    kv = lambda *lead, s=ctx: [lead + (B, s, a.n_kv_heads, a.hd)] * 2
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        ng, rem = divmod(cfg.n_layers, cfg.hybrid_group)
+        ssm = lambda *lead: [lead + (B, s.n_heads, s.head_dim, s.d_state),
+                             lead + (B, s.d_conv - 1,
+                                     s.d_inner + 2 * s.d_state)]
+        out = {"groups": ssm(ng, cfg.hybrid_group) + kv(ng)}
+        out["rem"] = ssm(rem) if rem else []
+        return out
+    if cfg.family == "audio":
+        return {"blocks": kv(cfg.n_layers, s=text)
+                + kv(cfg.n_layers, s=cfg.enc_seq)}
+    return {"blocks": kv(cfg.n_layers)}
+
+
+def family_full_bf16(torch, dev, cfg, text: int, label: str):
+    """One family's model in bf16, weights drawn on the card from seed 0:
+    prefill MODEL_BATCH x `text` tokens (and the stub inputs), fill the
+    decode state, MODEL_STEPS greedy decode steps (one more under the
+    profiler); a warm prefill's wall, one more prefill under the profiler.
+    Finite logits, the reference's cache layout; ssd_chunk launched once
+    per Mamba2 layer in each prefill. Returns the figures."""
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.models import model as M
+    from repro_torch.models.module import count_params
+    ssd = ssd_ops.ssd_intra_chunk
+    n_mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n = count_params(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = family_batch(torch, dev, cfg, text)
+    ctx = text + (cfg.vlm_patches if cfg.family == "vlm" else 0)
+    at = ssd.launches
+    out = run_model(torch, M, params, cfg, batch, [cfg] * (MODEL_STEPS + 1),
+                    dtype=torch.bfloat16, ops=M.KERNELS, profile_last=True)
+    before = ssd.launches
+    t0 = time.perf_counter()
+    M.prefill(params, cfg, batch)
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    if ssd.launches - before != n_mamba:
+        fail(f"{label} {cfg.name}: a prefill launched ssd_chunk "
+             f"{ssd.launches - before} times, want {n_mamba} (one per "
+             "Mamba2 layer)")
+    _, pf_busy, pf_top = profiled(torch, lambda: M.prefill(params, cfg,
+                                                           batch))
+    if ssd.launches - at != 3 * n_mamba:
+        fail(f"{label} {cfg.name}: three prefills launched ssd_chunk "
+             f"{ssd.launches - at} times, want {3 * n_mamba}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    _finite(torch, out["prefill"], f"{label} {cfg.name} prefill logits")
+    for i, lg in enumerate(out["decode"]):
+        _finite(torch, lg, f"{label} {cfg.name} decode step {i} logits")
+    if tuple(out["prefill"].shape) != (MODEL_BATCH, 1, cfg.vocab):
+        fail(f"{label} {cfg.name} prefill logits {tuple(out['prefill'].shape)}")
+    got = shapes(out["caches"])
+    want = prefill_cache_shapes(cfg, MODEL_BATCH, ctx, text)
+    if got != want:
+        fail(f"{label} {cfg.name} caches {got}, want {want}")
+    dp = out["profile"]
+    res = {"params": n, "init_s": init_s, "prefill_s": out["prefill_s"],
+           "warm_s": warm_s, "prefill_busy_ms": pf_busy,
+           "prefill_top_ms": pf_top, "decode_s": out["decode_s"],
+           "decode_busy_ms": dp["busy_ms"], "decode_top_ms": dp["top_ms"],
+           "peak_gib": peak, "caches": got,
+           "state": shapes(out["state"]),
+           "ssd_per_prefill": n_mamba}
+    log(f"[families] {label} {cfg.name}: {cfg.n_layers} layers"
+        + (f" (+ {cfg.n_enc_layers} encoder)" if cfg.n_enc_layers else "")
+        + f", {n} parameters in bf16 from seed 0 on the card in "
+        f"{init_s:.2f} s; prefill {MODEL_BATCH} x {text} tokens"
+        + (f" after {cfg.vlm_patches} patch embeddings"
+           if cfg.family == "vlm" else "")
+        + (f" over {cfg.enc_seq} frames" if cfg.family == "audio" else "")
+        + f" {out['prefill_s']:.3f} s (warm {warm_s:.3f} s, device busy "
+        f"{pf_busy:.1f} ms = {100 * pf_busy / 1e3 / warm_s:.1f}%), "
+        f"{MODEL_STEPS} decode steps "
+        + ", ".join(f"{w * 1e3:.1f}" for w in out["decode_s"])
+        + f" ms (one step busy {dp['busy_ms']:.2f} ms = "
+        f"{100 * dp['busy_ms'] / 1e3 / statistics.median(out['decode_s']):.1f}"
+        f"% of the median); peak {peak:.2f} GiB; logits finite; "
+        f"ssd_chunk {n_mamba} a prefill")
+    log(f"[families] {label} {cfg.name} caches {got}; decode state "
+        f"{res['state']}; top kernels ms: prefill {pf_top}, decode "
+        f"{dp['top_ms']}")
+    del params, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def decode_vs_forward(torch, dev, cfg, label: str):
+    """f32, weights from seed 0: prefill the first S - 1 of S tokens into a
+    cache of exactly S slots and decode token S - 1 (every slot written, so
+    C.1's unwritten slots do not enter); its logits against the last
+    position of forward over all S tokens. The hybrid's prefill length must
+    be a multiple of its chunk (128): S - 1 = 512, and its forward scans
+    S = 513 tokens in the largest chunk <= 128 that divides 513 (57): the
+    chunk is the scan's block length, not a weight."""
+    from repro_torch.models import model as M
+    kind = "hybrid" if cfg.family == "hybrid" else "gqa"
+    S, tol = DECODE_FORWARD_TOKENS[kind], DECODE_FORWARD_TOL[kind]
+    whole = cfg
+    if kind == "hybrid":
+        chunk = max(q for q in range(1, 129) if S % q == 0)
+        whole = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk=chunk))
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.float32)
+    tokens = _prompt(torch, dev, cfg.vocab, S)
+    want = M.forward(params, whole, {"tokens": tokens})[0][:, S - 1]
+    _, caches = M.prefill(params, cfg, {"tokens": tokens[:, :S - 1]})
+    state = M.fill_decode_state(cfg, M.init_decode_state(
+        cfg, MODEL_BATCH, S, dtype=torch.float32, device=dev), caches)
+    got = M.decode_step(params, cfg, state, tokens[:, S - 1:],
+                        torch.full((MODEL_BATCH, 1), S - 1, device=dev),
+                        S - 1)[0][:, 0]
+    err = _compare(torch, f"{label} {cfg.name} decode vs forward", got, want,
+                   (tol, tol))
+    log(f"[families] {label} {cfg.name} ({cfg.n_layers} layers, f32): "
+        f"prefill {S - 1} tokens into {S} slots, decode token {S - 1}: "
+        f"max|err| against forward over {S} tokens"
+        + (f" (chunk {whole.ssm.chunk})" if kind == "hybrid" else "")
+        + f" {err:.3e} (atol {tol:g}, rtol {tol:g})")
+    del params
+    torch.cuda.empty_cache()
+    return err
+
+
+def run_families(torch, dev, zamba2, counted):
+    """Phase 5d. Every counter is zeroed before each part and read after:
+    ssd_chunk once per Mamba2 layer in each prefill of (a) and (b), nothing
+    else in either; no kernel at all in (c) (the GQA families run einsums,
+    as the reference does). Returns (results, launches by part)."""
+    from repro_torch import configs as TC
+    from repro_torch.models import model as M
+    from repro_torch.models.module import count_params
+
+    def only_ssd(part, n, want):
+        if n["ssd_chunk"] != want or any(v for k, v in n.items()
+                                         if k != "ssd_chunk"):
+            fail(f"(5d) {part} launched {n}, want ssd_chunk {want} times "
+                 "and nothing else")
+        return n
+
+    res, by_part = {}, {}
+    res["a"], n = counted(lambda: family_full_bf16(
+        torch, dev, zamba2, MODEL_PROMPT, "(a)"))
+    by_part["families_zamba2"] = only_ssd("(a)", n, 3 * zamba2.n_layers)
+    cut = dataclasses.replace(zamba2, n_layers=zamba2.hybrid_group + 1)
+    log(f"[families] (b) {cut.name} at full width in f32, depth cut from "
+        f"{zamba2.n_layers} to {cut.n_layers} layers (one group of "
+        f"{cut.hybrid_group} and 1 more, the shared block once; time), "
+        f"prefill {MODEL_BATCH} x {VERIFY_PROMPT} tokens and {MODEL_STEPS} "
+        "decode steps: kernels against plain versions")
+    (errs, _, _, _), n = counted(lambda: model_verify(
+        torch, dev, cut, MODEL_TOL["zamba2"], [cut] * MODEL_STEPS,
+        "Zamba2 f32 cut", VERIFY_PROMPT))
+    by_part["families_verify"] = only_ssd("(b)", n, cut.n_layers)
+    res["b"] = errs
+    log(f"[families] (b) max|err| kernels vs plain: prefill logits "
+        f"{errs['prefill']:.3e}, caches (SSM states, conv tails, shared "
+        f"K/V) {errs['caches']:.3e}, decode logits {errs['decode']:.3e}, "
+        f"decode state {errs['state']:.3e} (atol "
+        f"{MODEL_TOL['zamba2'][0]:g}, rtol {MODEL_TOL['zamba2'][1]:g}); "
+        f"ssd_chunk {n['ssd_chunk']} launches (one prefill)")
+    res["c"] = {}
+    gqa = {k: 0 for k in n}
+    for arch, keep, why in FAMILY_RUNS:
+        full = TC.get_config(arch)
+        cfg = full if keep is None else dataclasses.replace(full,
+                                                            n_layers=keep)
+        if keep is not None:
+            gib = 2 * count_params(M.init_model(full, device="meta")) / 2**30
+            log(f"[families] (c) {full.name}: depth cut from "
+                f"{full.n_layers} to {keep} layers ({why}; all "
+                f"{full.n_layers}: {gib:.0f} GiB in bf16)")
+        text = {"vlm": VLM_TEXT, "audio": AUDIO_TOKENS}.get(cfg.family,
+                                                           MODEL_PROMPT)
+        res["c"][arch], n = counted(lambda: family_full_bf16(
+            torch, dev, cfg, text, "(c)"))
+        res["c"][arch]["cut"] = keep
+        if any(n.values()):
+            fail(f"(5d) (c) {arch} launched kernels: {n}")
+        gqa = {k: gqa[k] + v for k, v in n.items()}
+    by_part["families_gqa"] = gqa
+    qwen = dataclasses.replace(TC.get_config("qwen3-32b"), n_layers=2)
+    res["d"], n = counted(lambda: {
+        "qwen3-32b": decode_vs_forward(torch, dev, qwen, "(d)"),
+        "zamba2-7b": decode_vs_forward(torch, dev, cut, "(d)")})
+    by_part["families_decode_forward"] = only_ssd("(d)", n,
+                                                  2 * cut.n_layers)
+    return res, by_part
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2161,9 +2451,10 @@ def main() -> int:
         log(f"[build] {name}.cu ptxas -v: " + " | ".join(ptxas))
 
     # 3. kernels against plain versions
-    from repro_torch.configs import deepseek_v2_lite, mamba2_370m
+    from repro_torch.configs import deepseek_v2_lite, mamba2_370m, zamba2_7b
     from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA as cfg
     v2_lite, mamba2 = deepseek_v2_lite.config(), mamba2_370m.config()
+    zamba2 = zamba2_7b.config()
     checks = {"mla_decode": check_mla_decode(torch, dev, cfg),
               "softmax_merge": check_softmax_merge(torch, dev, cfg),
               "delta_rotate": check_delta_rotate(torch, dev, cfg),
@@ -2172,7 +2463,8 @@ def main() -> int:
                                                    torch.float32),
               "flash_prefill_bf16": check_flash_prefill(torch, dev, cfg,
                                                         torch.bfloat16),
-              "ssd_chunk": check_ssd_chunk(torch, dev, mamba2.ssm)}
+              "ssd_chunk": check_ssd_chunk(torch, dev, mamba2.ssm,
+                                           zamba2.ssm)}
 
     # 4-5. the main path: serve, the selection serve, then the goldens;
     # every counter is zeroed just before each phase and read just after
@@ -2286,12 +2578,20 @@ def main() -> int:
     train_res, train_launches = run_training(torch, dev, v2_lite, mamba2,
                                              counted, smi_line)
     train_s = time.perf_counter() - t0
+
+    # 5d. the model families
+    t0 = time.perf_counter()
+    fam_res, fam_launches = run_families(torch, dev, zamba2, counted)
+    fam_s = time.perf_counter() - t0
+    log(f"[families] phase 5d wall {fam_s:.1f} s; launches by part "
+        f"{fam_launches}")
     by_phase = {"serve": serve_launches, "selection_serve": sel_launches,
                 "mesh": mesh_launches,
                 "goldens": golden_launches, "model_v2_lite": full_launches,
                 "model_verify": verify_launches,
                 "model_mamba2": mamba_launches,
-                "model_mla_bf16": layer_launches, **train_launches}
+                "model_mla_bf16": layer_launches, **train_launches,
+                **fam_launches}
     launches = {k: sum(p[k] for p in by_phase.values()) for k in checks}
 
     # 6. proof of the path: the dense kernels over serve + goldens,
@@ -2315,6 +2615,8 @@ def main() -> int:
                                          "flash_prefill_bf16", "ssd_chunk",
                                          "mla_decode")
                 if sum(p[k] for p in model_phases) <= 0]
+    if fam_launches["families_zamba2"]["ssd_chunk"] <= 0:
+        missing.append("ssd_chunk (families)")
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
 
@@ -2364,6 +2666,11 @@ def main() -> int:
         f"{train_res['serve_rel']['own']:.3e} on the train form's; (e) f32 "
         f"vs f64 loss "
         f"{train_res['f64'][0]:.3e}, grad norm {train_res['f64'][1]:.3e}), "
+        f"families phase {fam_s:.1f} s ((a) Zamba2-7B prefill "
+        f"{fam_res['a']['warm_s']:.3f} s warm; (b) kernels vs plain "
+        f"{max(fam_res['b'].values()):.3e}; (d) decode vs forward "
+        f"{fam_res['d']['qwen3-32b']:.3e} GQA, "
+        f"{fam_res['d']['zamba2-7b']:.3e} hybrid), "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1,7 +1,11 @@
 """deepseek-v2-236b [moe] — 60L d_model=5120 128H, MLA kv_lora=512
 (q_lora=1536, nope=128, rope=64, v=128), MoE: 160 routed top-6 + 2 shared,
 d_expert=1536, first layer dense (d_ff=12288), vocab=102400.
-[arXiv:2405.04434]"""
+[arXiv:2405.04434; hf-verified tier]
+
+The paper's home regime: the latent c^KV entry is the routed wire object.
+long_500k uses the DSA-style top-k selection path (selection_k=2048 — the
+V3.2/GLM-5.1 budget, §5.4)."""
 
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.model import ModelConfig

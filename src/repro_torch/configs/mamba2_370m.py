@@ -1,10 +1,10 @@
-"""mamba2-370m [ssm] — 48L d_model=1024 (attention-free), ssm_state=128,
-head_dim=64, expand=2 (d_inner=2048, 32 SSD heads), chunk 128,
-vocab=50280. SSD (state-space duality). [arXiv:2405.21060]
+"""mamba2-370m [ssm] — 48L d_model=1024 (attn-free), ssm_state=128,
+head_dim=64, expand=2 (d_inner=2048, 32 SSD heads), vocab=50280.
+SSD (state-space duality). [arXiv:2405.21060; unverified tier]
 
-There is no KV cache: the decode state is a fixed-size (H, P, N) state per
-layer plus the conv tail, so the paper's per-chunk ROUTE/FETCH question
-degenerates to a one-shot state FETCH."""
+Technique inapplicability (DESIGN.md §4): no KV cache exists; the paper's
+per-chunk ROUTE/FETCH/LOCAL question degenerates — cross-instance handoff is
+a one-shot fixed-size state FETCH."""
 
 from repro_torch.models.model import ModelConfig
 from repro_torch.models.ssm import Mamba2Config

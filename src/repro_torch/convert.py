@@ -9,9 +9,12 @@ implementation), they arrive here as numpy arrays:
 * TorchExecBackend(query_source=...) takes the queries;
 * mla_params_from_numpy turns an MLA parameter tree (the nested dict of
   repro.models.mla.init_mla's values, as numpy) into the port's MLA module;
-* model_params_from_numpy does the same for a whole model: the value tree
-  of repro.models.model.init_model (after module.split), stacked leaves
-  carrying the leading layer axis, becomes the port's parameter tree.
+* model_params_from_numpy does the same for a whole model of any family:
+  the value tree of repro.models.model.init_model (after module.split),
+  stacked leaves carrying their leading layer axes (one for "blocks",
+  "dense_blocks", "rem" and "enc_blocks", two for the hybrid's (n_groups,
+  group) "groups"; none for "shared_attn", "enc_norm" and the rest),
+  becomes the port's parameter tree, whose stacks are lists (of lists).
 
 Every parameter is checked against the shape its config implies and takes
 the dtype the port's init gives it (the MoE router and the SSM's a_log,
@@ -46,7 +49,8 @@ def chunks_from_numpy(store: ChunkStore, arrays: Mapping[str, np.ndarray],
 
 
 def _layer(tree, i: int):
-    """Layer i of a stacked numpy tree."""
+    """Layer i of a stacked numpy tree (its leaves indexed on their first
+    axis: a nested stack is indexed again one level down)."""
     if isinstance(tree, Mapping):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]

@@ -106,6 +106,20 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
 
 
+def as_f32(what: str, *ts):
+    """The operands in f32, as the reference's kernels take them: a floating
+    tensor of another width (bf16, f16) is cast, an f32 one passes as it is
+    (no copy, its strides kept); anything else raises TypeError."""
+    import torch
+    out = []
+    for t in ts:
+        if not t.dtype.is_floating_point:
+            raise TypeError(f"{what}: operands must be floating point, got "
+                            f"{t.dtype}")
+        out.append(t if t.dtype == torch.float32 else t.to(torch.float32))
+    return out
+
+
 def sm_count(device) -> int:
     """The number of SMs of a CUDA device (cached per device index)."""
     import torch

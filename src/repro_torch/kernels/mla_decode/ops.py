@@ -151,9 +151,6 @@ def _check(q, ckv, lengths, d_v) -> None:
 
 
 def _check_cuda(q, ckv, lengths, d_v) -> None:
-    if q.dtype != torch.float32 or ckv.dtype != torch.float32:
-        raise TypeError(f"mla_decode kernel takes f32, got {q.dtype} / "
-                        f"{ckv.dtype}")
     D = q.shape[2]
     if D % 4 or D > MAX_D or d_v % 4 or d_v > MAX_DV:
         raise ValueError(f"mla_decode kernel needs D % 4 == 0, D <= {MAX_D}, "
@@ -178,8 +175,11 @@ def mla_decode(q: torch.Tensor, ckv: torch.Tensor,
     the first d_v columns of ckv, lengths (B,) valid rows (None: all S).
 
     Returns Partial(o (B, R, d_v), m (B, R), l (B, R)) in f32 — the
-    (o, m, l) wire triple of §3.2. CPU tensors take the plain version."""
+    (o, m, l) wire triple of §3.2. q and ckv may be bf16 or f16: they are
+    cast to f32 first, as the reference's kernel casts them. CPU tensors
+    take the plain version."""
     _check(q, ckv, lengths, d_v)
+    q, ckv = build.as_f32("mla_decode", q, ckv)
     if q.device.type == "cpu":
         return mla_decode_ref(q, ckv, lengths, d_v, scale)
     if q.device.type != "cuda":

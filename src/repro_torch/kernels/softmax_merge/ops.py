@@ -46,8 +46,9 @@ def _outputs(lead, d_v, device):
 def softmax_merge(o: torch.Tensor, m: torch.Tensor,
                   l: torch.Tensor) -> Partial:
     """Merge M partials exactly (§3.3): o (M, ..., d_v), m/l (M, ...).
-    Identity slots (m = -inf, l = 0) are no-ops. CPU tensors take the plain
-    version."""
+    Identity slots (m = -inf, l = 0) are no-ops. o, m and l may be bf16 or
+    f16: they are cast to f32 first, as the reference's kernel casts them.
+    CPU tensors take the plain version."""
     if o.ndim < 2 or o.shape[0] < 1 or m.shape != o.shape[:-1] \
             or l.shape != m.shape:
         raise ValueError(f"softmax_merge: o must be (M, ..., d_v) and m/l "
@@ -55,12 +56,11 @@ def softmax_merge(o: torch.Tensor, m: torch.Tensor,
                          f"{tuple(l.shape)}")
     if not (o.device == m.device == l.device):
         raise ValueError("softmax_merge: o, m and l must share a device")
+    o, m, l = build.as_f32("softmax_merge", o, m, l)
     if o.device.type == "cpu":
         return softmax_merge_ref(o, m, l)
     if o.device.type != "cuda":
         raise ValueError(f"softmax_merge: unsupported device {o.device}")
-    if not all(t.dtype == torch.float32 for t in (o, m, l)):
-        raise TypeError("softmax_merge kernel takes f32")
     if not all(t.is_contiguous() for t in (o, m, l)):
         raise ValueError("softmax_merge kernel: o, m, l must be contiguous")
     M, d_v = o.shape[0], o.shape[-1]
@@ -86,15 +86,15 @@ def softmax_merge_parts(parts: Sequence[Partial]) -> Partial:
     (..., d_v) and m/l (...) of one shape, contiguous. The same result as
     softmax_merge on their stack, bit for bit, without the stack. Raises,
     rather than copies, for more than MAX_PARTS parts or a part that is not
-    contiguous: callers with more stack them and call softmax_merge. CPU
-    tensors take the plain version."""
+    contiguous: callers with more stack them and call softmax_merge. Parts
+    in bf16 or f16 are cast to f32 first. CPU tensors take the plain
+    version."""
     M = len(parts)
     if not 1 <= M <= MAX_PARTS:
         raise ValueError(f"softmax_merge_parts: 1 to {MAX_PARTS} partials, "
                          f"got {M}: stack more and call softmax_merge")
     shape, device = parts[0].o.shape, parts[0].o.device
     lead = shape[:-1]
-    f32 = True
     for i, (o, m, l) in enumerate(parts):
         if not shape or o.shape != shape or m.shape != lead \
                 or l.shape != lead:
@@ -109,14 +109,13 @@ def softmax_merge_parts(parts: Sequence[Partial]) -> Partial:
                 and l.is_contiguous()):
             raise ValueError(f"softmax_merge_parts: part {i} is not "
                              f"contiguous (the kernel reads it in place)")
-        f32 = f32 and o.dtype == m.dtype == l.dtype == torch.float32
+    parts = [Partial(*build.as_f32("softmax_merge_parts", *p))
+             for p in parts]
     if device.type == "cpu":
         return softmax_merge_ref(*(torch.stack([p[k] for p in parts])
                                    for k in range(3)))
     if device.type != "cuda":
         raise ValueError(f"softmax_merge_parts: unsupported device {device}")
-    if not f32:
-        raise TypeError("softmax_merge kernel takes f32")
     # the slot table: the M o pointers, then the M m, then the M l
     table = (ctypes.c_void_p * (3 * M))(*[p[k].data_ptr() for k in range(3)
                                           for p in parts])

@@ -94,9 +94,6 @@ def _check(q, ckv, block_idx, kb, lengths, d_v, block_tokens) -> None:
 
 
 def _check_cuda(q, ckv, block_idx, kb, lengths, d_v, block_tokens) -> None:
-    if q.dtype != torch.float32 or ckv.dtype != torch.float32:
-        raise TypeError(f"sparse_select kernel takes f32, got {q.dtype} / "
-                        f"{ckv.dtype}")
     D = q.shape[2]
     if D % 4 or D > MAX_D or d_v % 4 or d_v > MAX_DV:
         raise ValueError(f"sparse_select kernel needs D % 4 == 0, D <= "
@@ -136,9 +133,11 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
     (None: S) skipped. Values are the first d_v columns of ckv.
 
     Returns Partial(o (B, R, d_v), m (B, R), l (B, R)) in f32; a row with
-    nothing selected is the merge identity. CPU tensors take the plain
-    version."""
+    nothing selected is the merge identity. q and ckv may be bf16 or f16:
+    they are cast to f32 first, as the reference's kernel casts them. CPU
+    tensors take the plain version."""
     _check(q, ckv, block_idx, kb, lengths, d_v, block_tokens)
+    q, ckv = build.as_f32("sparse_select", q, ckv)
     if q.device.type == "cpu":
         return sparse_select_ref(q, ckv, block_idx, kb, lengths, d_v,
                                  block_tokens, scale)

@@ -70,11 +70,7 @@ def _check(x, dt, A, B, C, hb) -> None:
 
 
 def _check_cuda(x, dt, A, B, C, hb) -> None:
-    ts = (x, dt, A, B, C)
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"ssd_intra_chunk kernel takes f32, got "
-                        f"{[str(t.dtype) for t in ts]}")
-    if not all(t.is_contiguous() for t in ts):
+    if not all(t.is_contiguous() for t in (x, dt, A, B, C)):
         raise ValueError("ssd_intra_chunk kernel: inputs must be contiguous")
     b, nc, Q, H, P = x.shape
     N = B.shape[-1]
@@ -96,9 +92,11 @@ def ssd_intra_chunk(x, dt, A, B, C, *, hb: int = 4):
     """Fused SSD intra-chunk: x (b, nc, Q, H, P), dt (b, nc, Q, H)
     post-softplus, A (H,) negative, B/C (b, nc, Q, N) -> (y_intra
     (b, nc, Q, H, P), chunk states (b, nc, H, P, N), cum (b, nc, Q, H)), all
-    f32. hb heads share one block's C B^T. CPU tensors take the plain
-    version."""
+    f32. The operands may be bf16 or f16: they are cast to f32 first, as
+    the reference's kernel casts them. hb heads share one block's C B^T. CPU
+    tensors take the plain version."""
     _check(x, dt, A, B, C, hb)
+    x, dt, A, B, C = build.as_f32("ssd_intra_chunk", x, dt, A, B, C)
     if x.device.type == "cpu":
         return ssd_intra_chunk_ref(x, dt, A, B, C)
     if x.device.type != "cuda":

@@ -7,7 +7,9 @@
 --smoke trains the arch's reduced config end to end (data pipeline ->
 grad-accumulation step -> AdamW -> asynchronous checkpoints ->
 fault-tolerant loop), its weights drawn from seed 0 on --device (cuda by
-default). Without --smoke the reference compiles the full config's train
+default), for any arch id of repro_torch.configs: the VLM and the audio
+model train on the pipeline's stub patch and frame embeddings. Without
+--smoke the reference compiles the full config's train
 step for the production mesh; that dry run belongs to the distribution
 substrate (ROADMAP A.12), and the port refuses it.
 """

@@ -1,6 +1,9 @@
-"""The model: one ModelConfig drives the families the port runs — dense and
-MoE transformers with MLA attention (DeepSeek-V2) and the attention-free SSM
-(Mamba2).
+"""The model: one ModelConfig drives every family of the reference — dense
+GQA/MHA transformers (Qwen, Nemotron), MLA (DeepSeek-V2), MoE (with MLA or
+GQA attention), the attention-free SSM (Mamba2), the hybrid (Zamba2: groups
+of Mamba2 layers, each followed by one shared attention block), the VLM
+(LLaVA: patch embeddings ahead of the text) and the encoder-decoder
+(Whisper: a non-causal encoder, a decoder with cross-attention).
 
 Step functions, the counterparts of the reference's train step,
 prefill_step and serve_step:
@@ -8,29 +11,38 @@ prefill_step and serve_step:
   * train_forward /    — the train form (the reference's forward / loss_fn):
     loss_fn              decompressed MLA and the inline SSD intra-chunk
                          term, plain PyTorch ops under autograd, each block
-                         recomputed in backward when cfg.remat is set; the
+                         (each Mamba2 layer and each attention block)
+                         recomputed in backward when cfg.remat is set, as
+                         the reference's scans are (not the hybrid's shared
+                         block, which its group scan runs whole); the
                          chunked cross-entropy plus 0.01 x the MoE aux term
   * forward / prefill  — the serving form's full-sequence pass; prefill
                          returns the last-token logits and the caches
-  * init_decode_state  — the cache in the reference's layout
+  * init_decode_state  — the cache in the reference's layout;
+    fill_decode_state    prefill's caches copied into it
   * decode_step        — one token against a seq_len cache
 
 Layers run as a Python loop over per-layer parameter trees (the reference
-scans stacked parameters); the caches come out stacked on a leading layer
-axis, as the reference's do: MLA {"dense_blocks": (k, B, S, d_qk), "blocks":
-(L - k, B, S, d_qk)}, Mamba2 {"blocks": (h (L, B, H, P, N), conv (L, B,
-d_conv - 1, C))}.
+scans stacked parameters; the hybrid's groups are a list of lists, as its
+(n_groups, group, ...) stacks are); the caches come out stacked on the
+leading layer axes, as the reference's do:
+  * MLA: {"dense_blocks": (k, B, S, d_qk), "blocks": (L - k, B, S, d_qk)};
+  * GQA: {"blocks": (k (L, B, S, Hkv, hd), v)} (and "dense_blocks");
+  * Mamba2: {"blocks": (h (L, B, H, P, N), conv (L, B, d_conv - 1, C))};
+  * hybrid: {"groups": ((h (ng, g, ...), conv (ng, g, ...)), (k (ng, B, S,
+    Hkv, hd), v)), "rem": the remaining layers' (h, conv) or None};
+  * audio: {"blocks": ((k, v) of self-attention (L, B, S, Hkv, hd), (k, v)
+    of cross-attention (L, B, S_enc, Hkv, hd))}.
 
 The serving form's attention, prefill and intra-chunk inner ops are an
 explicit argument (`ops`), as the reference's
 absorbed_decode(partial_fn=...) and ssd_chunked(use_kernel=...) are:
 KERNELS (the hand-written kernels' wrappers, the default) or PLAIN (their
-plain versions, the oracle a card run holds the kernels against). Nothing switches between them behind the caller's back;
-the train form takes no ops (no kernel of the repo has a backward pass, and
-the reference trains without its kernels).
-
-GQA attention (models/attention.py) and the hybrid, audio and vlm families
-are not ported yet (ROADMAP A.10) and raise NotImplementedError.
+plain versions, the oracle a card run holds the kernels against). Nothing
+switches between them behind the caller's back; the train form takes no ops
+(no kernel of the repo has a backward pass, and the reference trains
+without its kernels). GQA attention (models/attention.py) is einsums in
+both forms, as in the reference: no kernel of the repo runs in it.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
 from repro_torch.kernels.mla_decode import mla_decode, mla_decode_ref
 from repro_torch.kernels.sparse_select import sparse_select, sparse_select_ref
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk, ssd_intra_chunk_ref
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
@@ -93,10 +106,11 @@ class ModelConfig:
     remat: bool = True
 
     @property
-    def attn_cfg(self):
-        raise NotImplementedError(
-            "GQA attention (models/attention.py) is not ported yet: "
-            "ROADMAP A.10")
+    def attn_cfg(self) -> A.AttnConfig:
+        return A.AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
+                            self.head_dim, self.qkv_bias, self.qk_norm,
+                            self.rope_theta,
+                            use_rope=not self.encdec)
 
     @property
     def kv_bytes_token_layer(self) -> int:
@@ -134,17 +148,6 @@ PLAIN = Ops(flash_prefill_ref, mla_decode_ref, sparse_select_ref,
             ssd_intra_chunk_ref)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family in ("dense", "moe") and cfg.attn_type == "mla":
-        return
-    if cfg.family == "ssm":
-        return
-    if cfg.family in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attn_type} attention (models/attention.py) "
-            "is not ported yet: ROADMAP A.10")
-    raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not "
-                              "ported yet: ROADMAP A.10")
 
 
 # ---------------------------------------------------------------------------
@@ -156,23 +159,32 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """The parameter tree, every tensor drawn from `generator` on `device`
     (None: the device's default generator) in the reference's order. On the
     meta device it holds shapes and dtypes only."""
-    _check_supported(cfg)
     g, kw = generator, {"dtype": dtype, "device": device}
-    ni = cfg.norm_init()
+    norm = lambda: cfg.norm_init()(cfg.d_model, **kw)
     p: Dict[str, Any] = {"embed": L.init_embed(g, cfg.vocab, cfg.d_model,
                                                **kw),
-                         "final_norm": ni(cfg.d_model, **kw)}
+                         "final_norm": norm()}
+
+    def attn(acfg: Optional[A.AttnConfig] = None):
+        if cfg.attn_type == "mla":
+            return MLA.MLA(cfg.mla, generator=g, **kw)
+        return A.init_attn(g, acfg or cfg.attn_cfg, **kw)
+
+    def mlp():
+        return L.init_mlp(g, cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)
 
     def block(moe_block: bool) -> Tree:
-        b = {"ln1": ni(cfg.d_model, **kw), "ln2": ni(cfg.d_model, **kw),
-             "attn": MLA.MLA(cfg.mla, generator=g, **kw)}
+        b = {"ln1": norm(), "ln2": norm(), "attn": attn()}
         if moe_block:
             b["moe"] = MOE.init_moe(g, cfg.moe, **kw)
         else:
-            b["mlp"] = L.init_mlp(g, cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)
+            b["mlp"] = mlp()
         return Tree(b)
 
-    if cfg.family == "dense":
+    def mamba() -> Tree:
+        return Tree({"ln": norm(), "mamba": SSM.init_mamba2(g, cfg.ssm, **kw)})
+
+    if cfg.family in ("dense", "vlm"):
         p["blocks"] = init_stacked(cfg.n_layers, lambda: block(False))
     elif cfg.family == "moe":
         if cfg.first_k_dense:
@@ -180,83 +192,249 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                              lambda: block(False))
         p["blocks"] = init_stacked(cfg.n_layers - cfg.first_k_dense,
                                    lambda: block(True))
-    else:                                               # ssm
+    elif cfg.family == "ssm":
+        p["blocks"] = init_stacked(cfg.n_layers, mamba)
+    elif cfg.family == "hybrid":
+        n_groups, rem = divmod(cfg.n_layers, cfg.hybrid_group)
+        p["groups"] = init_stacked(
+            n_groups, lambda: init_stacked(cfg.hybrid_group, mamba))
+        if rem:
+            p["rem"] = init_stacked(rem, mamba)
+        # the SHARED attention block: one set of weights, reused after every
+        # group (Zamba2's shared transformer block without its
+        # per-invocation LoRA, as the reference simplifies it)
+        p["shared_attn"] = {"ln": norm(), "attn": attn(), "ln2": norm(),
+                            "mlp": mlp()}
+    elif cfg.family == "audio":
+        enc_cfg = dataclasses.replace(cfg.attn_cfg, causal=False)
+        p["enc_blocks"] = init_stacked(cfg.n_enc_layers, lambda: Tree(
+            {"ln1": norm(), "attn": attn(enc_cfg), "ln2": norm(),
+             "mlp": mlp()}))
+        p["enc_norm"] = norm()
         p["blocks"] = init_stacked(cfg.n_layers, lambda: Tree(
-            {"ln": ni(cfg.d_model, **kw),
-             "mamba": SSM.init_mamba2(g, cfg.ssm, **kw)}))
+            {"ln1": norm(), "attn": attn(), "lnx": norm(), "xattn": attn(),
+             "ln2": norm(), "mlp": mlp()}))
+    else:
+        raise ValueError(cfg.family)
     return Tree(p)
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# The full-sequence pass, in serving form (forward, prefill) and in train
+# form (train_forward, loss_fn)
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(params, batch):
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
-    return x, positions
+@dataclasses.dataclass(frozen=True)
+class _Form:
+    """How the layers run: the MLA attention, (p, mcfg, h, positions) ->
+    (out, entries); the SSD intra-chunk op; whether each block runs under
+    torch.utils.checkpoint."""
+    mla: Callable
+    intra: Callable
+    remat: bool
 
 
-def _trunk(params, cfg: ModelConfig, x, positions, ops: Ops, routes,
-           with_caches: bool):
-    """The layer stack over x (B, S, D) -> (x, caches, aux)."""
+def _serving(ops: Ops) -> _Form:
+    return _Form(functools.partial(MLA.mla_attention,
+                                   prefill_fn=ops.flash_prefill),
+                 ops.ssd_intra_chunk, False)
+
+
+def _training(cfg: ModelConfig) -> _Form:
+    """The reference's forward: decompressed MLA, the inline SSD term, each
+    block under checkpoint (non-reentrant, the counterpart of
+    jax.checkpoint: only its input is kept for backward) with cfg.remat."""
+    return _Form(MLA.mla_attention_train, SSM.ssd_intra_chunk_train,
+                 cfg.remat)
+
+
+def _run(fn, x, remat: bool):
+    return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+
+
+def _stacked(entries):
+    """Per-layer cache entries (tensors or tuples of them) -> the same
+    structure with each leaf stacked on a new leading layer axis, as the
+    reference's scans stack them."""
+    if isinstance(entries[0], tuple):
+        return tuple(_stacked(list(e)) for e in zip(*entries))
+    return torch.stack(entries)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def _block(lp, cfg: ModelConfig, form: _Form, moe_block: bool, positions,
+           pinned, x):
+    """One transformer layer: x (B, S, D) -> (x', its cache entry, MoE aux
+    or None, the MoE layer's top-k indices (T, k) or None). The indices are
+    returned, not appended to a caller's list, so a block recomputed in
+    backward does not record its routes twice."""
     na = cfg.norm_apply()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = na(lp["ln1"], x)
+    if cfg.attn_type == "mla":
+        attn_out, entry = form.mla(lp["attn"], cfg.mla, h, positions)
+    else:
+        attn_out, entry = A.attention(lp["attn"], cfg.attn_cfg, h, positions)
+    x = x + attn_out
+    h = na(lp["ln2"], x)
+    if moe_block:
+        idx = []
+        mo, aux = MOE.moe_apply(lp["moe"], cfg.moe, h, idx, pinned=pinned)
+        return x + mo, entry, aux, idx[0]
+    return x + L.mlp(lp["mlp"], h, cfg.mlp_kind), entry, None, None
+
+
+def _mamba_layer(lp, cfg: ModelConfig, form: _Form, x):
+    """One Mamba2 layer: x -> (x', (h_final, conv_state))."""
+    y, state = SSM.mamba2_forward(lp["mamba"], cfg.ssm,
+                                  cfg.norm_apply()(lp["ln"], x),
+                                  intra=form.intra)
+    return x + y, state
+
+
+def _mamba_stack(stack, cfg: ModelConfig, form: _Form, x,
+                 with_caches: bool):
+    states = []
+    for lp in stack:
+        x, st = _run(functools.partial(_mamba_layer, lp, cfg, form), x,
+                     form.remat)
+        if with_caches:
+            states.append(st)
+    return x, (_stacked(states) if with_caches else None)
+
+
+def _hybrid(params, cfg: ModelConfig, form: _Form, x, positions,
+            with_caches: bool):
+    """Each group's Mamba2 layers, then the shared attention block (not
+    under checkpoint: the reference scans the groups with remat=False),
+    then the remaining layers."""
+    na = cfg.norm_apply()
+    sa = params["shared_attn"]
+    groups = []
+    for gp in params["groups"]:
+        x, states = _mamba_stack(gp, cfg, form, x, with_caches)
+        attn_out, kv = A.attention(sa["attn"], cfg.attn_cfg,
+                                   na(sa["ln"], x), positions)
+        x = x + attn_out
+        x = x + L.mlp(sa["mlp"], na(sa["ln2"], x), cfg.mlp_kind)
+        if with_caches:
+            groups.append((states, kv))
+    rem = None
+    if "rem" in params:
+        x, rem = _mamba_stack(params["rem"], cfg, form, x, with_caches)
+    return x, ({"groups": _stacked(groups), "rem": rem} if with_caches
+               else {})
+
+
+def _audio(params, cfg: ModelConfig, form: _Form, batch, with_caches: bool):
+    """Whisper-style encoder-decoder: the frame embeddings (B, S_enc, D)
+    (the conv frontend is a stub) through the non-causal encoder, then the
+    tokens (B, S) through the decoder's self- and cross-attention. No
+    position enters (no RoPE, use_rope False). The frames are taken in the
+    model's dtype (torch multiplies like dtypes only; the reference promotes
+    a bf16 frame to an f32 model's dtype in its first product)."""
+    na = cfg.norm_apply()
+    enc_cfg = dataclasses.replace(cfg.attn_cfg, causal=False)
+    xe = batch["frame_embeds"].to(params["embed"]["table"].dtype)
+    B, Se = xe.shape[:2]
+    pos_e = _positions(B, Se, xe.device)
+
+    def enc_block(lp, h):
+        ao, _ = A.attention(lp["attn"], enc_cfg, na(lp["ln1"], h), pos_e)
+        h = h + ao
+        return h + L.mlp(lp["mlp"], na(lp["ln2"], h), cfg.mlp_kind)
+
+    for lp in params["enc_blocks"]:
+        xe = _run(functools.partial(enc_block, lp), xe, form.remat)
+    xe = na(params["enc_norm"], xe)
+
+    x = L.embed(params["embed"], batch["tokens"])
+    pos_d = _positions(B, x.shape[1], x.device)
+
+    def dec_block(lp, h):
+        ao, self_kv = A.attention(lp["attn"], cfg.attn_cfg, na(lp["ln1"], h),
+                                  pos_d)
+        h = h + ao
+        xo, cross_kv = A.attention(lp["xattn"], enc_cfg, na(lp["lnx"], h),
+                                   pos_d, x_kv=xe, kv_positions=pos_e)
+        h = h + xo
+        return (h + L.mlp(lp["mlp"], na(lp["ln2"], h), cfg.mlp_kind),
+                (self_kv, cross_kv))
+
+    entries = []
+    for lp in params["blocks"]:
+        x, e = _run(functools.partial(dec_block, lp), x, form.remat)
+        if with_caches:
+            entries.append(e)
+    return x, ({"blocks": _stacked(entries)} if with_caches else {})
+
+
+def _hidden(params, cfg: ModelConfig, batch, form: _Form, *, routes=None,
+            pinned=None, with_caches: bool = False):
+    """batch -> (the last layer's output at the text positions (B, S, D),
+    caches ({} without with_caches), MoE aux). batch holds "tokens" (B, S),
+    and "patch_embeds" (B, vlm_patches, D) for the VLM (placed ahead of the
+    text) or "frame_embeds" (B, S_enc, D) for the audio model. When
+    `routes` is a list, every MoE layer appends its top-k indices (T, k) to
+    it once, in layer order; `pinned`, such a list (another run's), makes
+    each MoE layer take its entry in place of its own top-k."""
+    aux = torch.zeros((), dtype=torch.float32,
+                      device=batch["tokens"].device)
+    if cfg.family == "audio":
+        x, caches = _audio(params, cfg, form, batch, with_caches)
+        return x, caches, aux
+    x = L.embed(params["embed"], batch["tokens"])
+    if cfg.family == "vlm":
+        # the anyres frontend stub: precomputed patch embeddings prepended
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    positions = _positions(*x.shape[:2], x.device)
     caches = {}
     if cfg.family == "ssm":
-        hs, convs = [], []
-        for lp in params["blocks"]:
-            y, (hf, cs) = SSM.mamba2_forward(lp["mamba"], cfg.ssm,
-                                             na(lp["ln"], x),
-                                             intra=ops.ssd_intra_chunk)
-            x = x + y
+        x, caches["blocks"] = _mamba_stack(params["blocks"], cfg, form, x,
+                                           with_caches)
+    elif cfg.family == "hybrid":
+        x, caches = _hybrid(params, cfg, form, x, positions, with_caches)
+    else:
+        stacks = [("blocks", cfg.family == "moe")]
+        if cfg.family == "moe" and cfg.first_k_dense:
+            stacks.insert(0, ("dense_blocks", False))
+        pinned = iter(pinned or ())
+        for key, moe_block in stacks:
+            entries = []
+            for lp in params[key]:
+                fn = functools.partial(_block, lp, cfg, form, moe_block,
+                                       positions,
+                                       next(pinned, None) if moe_block
+                                       else None)
+                x, e, a, idx = _run(fn, x, form.remat)
+                if a is not None:
+                    aux = aux + a
+                if idx is not None and routes is not None:
+                    routes.append(idx)
+                if with_caches:
+                    entries.append(e)
             if with_caches:
-                hs.append(hf)
-                convs.append(cs)
-        if with_caches:
-            caches["blocks"] = (torch.stack(hs), torch.stack(convs))
-        return x, caches, aux
+                caches[key] = _stacked(entries)
+    if cfg.family == "vlm":
+        x = x[:, cfg.vlm_patches:]               # logits over the text
+    return x, (caches if with_caches else {}), aux
 
-    def run(stack, moe_block: bool):
-        nonlocal x, aux
-        entries = []
-        for lp in stack:
-            h = na(lp["ln1"], x)
-            attn_out, e = MLA.mla_attention(lp["attn"], cfg.mla, h, positions,
-                                            prefill_fn=ops.flash_prefill)
-            x = x + attn_out
-            h = na(lp["ln2"], x)
-            if moe_block:
-                mo, a = MOE.moe_apply(lp["moe"], cfg.moe, h, routes)
-                x = x + mo
-                aux = aux + a
-            else:
-                x = x + L.mlp(lp["mlp"], h, cfg.mlp_kind)
-            if with_caches:
-                entries.append(e)
-        return torch.stack(entries) if with_caches else None
 
-    if cfg.family == "moe" and cfg.first_k_dense:
-        caches["dense_blocks"] = run(params["dense_blocks"], False)
-    caches["blocks"] = run(params["blocks"], cfg.family == "moe")
-    return x, caches, aux
+def _logits(params, cfg: ModelConfig, x):
+    return L.unembed(params["embed"],
+                     cfg.norm_apply()(params["final_norm"], x))
 
 
 def forward(params, cfg: ModelConfig, batch, *, return_caches: bool = False,
             ops: Ops = KERNELS, routes: Optional[list] = None):
-    """batch {"tokens": (B, S)} -> (logits (B, S, V), caches or None,
-    aux_loss). When `routes` is a list, every MoE layer appends its top-k
-    expert indices (T, k) to it, in layer order."""
-    _check_supported(cfg)
-    x, positions = _embed_inputs(params, batch)
-    x, caches, aux = _trunk(params, cfg, x, positions, ops, routes,
-                            return_caches)
-    logits = L.unembed(params["embed"],
-                       cfg.norm_apply()(params["final_norm"], x))
-    return logits, (caches if return_caches else None), aux
+    """batch (see _hidden) -> (logits (B, S, V) over the text positions,
+    caches or None, aux_loss). When `routes` is a list, every MoE layer
+    appends its top-k expert indices (T, k) to it, in layer order."""
+    x, caches, aux = _hidden(params, cfg, batch, _serving(ops), routes=routes,
+                             with_caches=return_caches)
+    return _logits(params, cfg, x), (caches if return_caches else None), aux
 
 
 def prefill(params, cfg: ModelConfig, batch, *, ops: Ops = KERNELS,
@@ -264,80 +442,34 @@ def prefill(params, cfg: ModelConfig, batch, *, ops: Ops = KERNELS,
     """(last-token logits (B, 1, V), caches): forward with the caches, the
     head applied to the last position only (the reference slices the full
     logits)."""
-    _check_supported(cfg)
-    x, positions = _embed_inputs(params, batch)
-    x, caches, _ = _trunk(params, cfg, x, positions, ops, routes, True)
-    logits = L.unembed(params["embed"],
-                       cfg.norm_apply()(params["final_norm"], x[:, -1:]))
-    return logits, caches
-
-
-# ---------------------------------------------------------------------------
-# Train form and loss
-# ---------------------------------------------------------------------------
-
-def _train_block(lp, cfg: ModelConfig, moe_block: bool, positions, pinned,
-                 x):
-    """One layer in train form: x (B, S, D) -> (x', MoE aux or None, the
-    MoE layer's top-k indices (T, k) or None). The indices are returned,
-    not appended to a caller's list, so a block recomputed in backward does
-    not record its routes twice."""
-    na = cfg.norm_apply()
-    if cfg.family == "ssm":
-        y, _ = SSM.mamba2_forward(lp["mamba"], cfg.ssm, na(lp["ln"], x),
-                                  intra=SSM.ssd_intra_chunk_train)
-        return x + y, None, None
-    attn_out, _ = MLA.mla_attention_train(lp["attn"], cfg.mla,
-                                          na(lp["ln1"], x), positions)
-    x = x + attn_out
-    h = na(lp["ln2"], x)
-    if moe_block:
-        idx = []
-        mo, aux = MOE.moe_apply(lp["moe"], cfg.moe, h, idx, pinned=pinned)
-        return x + mo, aux, idx[0]
-    return x + L.mlp(lp["mlp"], h, cfg.mlp_kind), None, None
+    x, caches, _ = _hidden(params, cfg, batch, _serving(ops), routes=routes,
+                           with_caches=True)
+    return _logits(params, cfg, x[:, -1:]), caches
 
 
 def train_forward(params, cfg: ModelConfig, batch, *,
                   routes: Optional[list] = None,
                   pinned_routes: Optional[list] = None):
-    """batch {"tokens": (B, S)} -> (logits (B, S, V), aux): the train form
-    of every layer; with cfg.remat each block runs under
-    torch.utils.checkpoint (non-reentrant), the counterpart of the
+    """batch (see _hidden) -> (logits (B, S, V) over the text positions,
+    aux): the train form of every layer; with cfg.remat each block runs
+    under torch.utils.checkpoint (non-reentrant), the counterpart of the
     reference's jax.checkpoint, keeping only its input for backward. When
     `routes` is a list, every MoE layer appends its top-k indices (T, k)
     once, in layer order; `pinned_routes`, such a list (another run's),
     makes each MoE layer take its entry in place of its own top-k
     (moe_apply(pinned=...))."""
-    _check_supported(cfg)
-    x, positions = _embed_inputs(params, batch)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    stacks = [("blocks", cfg.family == "moe")]
-    if cfg.family == "moe" and cfg.first_k_dense:
-        stacks.insert(0, ("dense_blocks", False))
-    pinned = iter(pinned_routes or ())
-    for key, moe_block in stacks:
-        for lp in params[key]:
-            fn = functools.partial(
-                _train_block, lp, cfg, moe_block, positions,
-                next(pinned) if moe_block and pinned_routes else None)
-            x, a, idx = (checkpoint(fn, x, use_reentrant=False) if cfg.remat
-                         else fn(x))
-            if a is not None:
-                aux = aux + a
-            if idx is not None and routes is not None:
-                routes.append(idx)
-    logits = L.unembed(params["embed"],
-                       cfg.norm_apply()(params["final_norm"], x))
-    return logits, aux
+    x, _, aux = _hidden(params, cfg, batch, _training(cfg), routes=routes,
+                        pinned=pinned_routes)
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *,
             routes: Optional[list] = None):
-    """Mean next-token cross-entropy of batch {"tokens", "targets": (B, S)}
-    plus 0.01 x the MoE aux term. The cross-entropy runs in chunks of the
-    sequence, the largest chunk of at most cfg.loss_chunk that divides S,
-    each chunk's logits in f32 (f64 for an f64 model)."""
+    """Mean next-token cross-entropy of batch {"tokens", "targets": (B, S),
+    and the family's stub inputs} plus 0.01 x the MoE aux term. The
+    cross-entropy runs in chunks of the sequence, the largest chunk of at
+    most cfg.loss_chunk that divides S, each chunk's logits in f32 (f64 for
+    an f64 model)."""
     logits, aux = train_forward(params, cfg, batch, routes=routes)
     targets = batch["targets"].long()
     B, S, _ = logits.shape
@@ -361,21 +493,84 @@ def loss_fn(params, cfg: ModelConfig, batch, *,
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *,
                       dtype=torch.bfloat16, device="cuda"):
-    """The zero cache in the reference's layout (SSM states in f32)."""
-    _check_supported(cfg)
+    """The zero cache in the reference's layout (SSM states in f32): MLA
+    (L, B, S, d_qk); GQA (k, v) (L, B, S, Hkv, hd); Mamba2 (h (L, B, H, P,
+    N), conv (L, B, d_conv - 1, C)); the hybrid {"groups": (h, conv) with
+    leading (n_groups, group), "shared_kv": (k, v) (n_groups, B, S, Hkv,
+    hd), "rem": (h, conv)}; the audio model {"self": (k, v) (L, B, S, Hkv,
+    hd), "cross": (k, v) (L, B, enc_seq, Hkv, hd)}."""
     mk = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
-    if cfg.family == "ssm":
+
+    def gqa_cache(n, s=seq_len):
+        a = cfg.attn_cfg
+        return (mk((n, batch, s, a.n_kv_heads, a.hd)),
+                mk((n, batch, s, a.n_kv_heads, a.hd)))
+
+    def attn_cache(n):
+        if cfg.attn_type == "mla":
+            return mk((n, batch, seq_len, cfg.mla.d_qk))
+        return gqa_cache(n)
+
+    def ssm_state(*lead):
         s = cfg.ssm
-        return {"blocks": (
-            mk((cfg.n_layers, batch, s.n_heads, s.head_dim, s.d_state),
-               torch.float32),
-            mk((cfg.n_layers, batch, s.d_conv - 1,
-                s.d_inner + 2 * s.d_state)))}
-    mla_cache = lambda n: mk((n, batch, seq_len, cfg.mla.d_qk))
-    if cfg.family == "moe" and cfg.first_k_dense:
-        return {"dense_blocks": mla_cache(cfg.first_k_dense),
-                "blocks": mla_cache(cfg.n_layers - cfg.first_k_dense)}
-    return {"blocks": mla_cache(cfg.n_layers)}
+        return (mk(lead + (batch, s.n_heads, s.head_dim, s.d_state),
+                   torch.float32),
+                mk(lead + (batch, s.d_conv - 1, s.d_inner + 2 * s.d_state)))
+
+    if cfg.family in ("dense", "vlm"):
+        return {"blocks": attn_cache(cfg.n_layers)}
+    if cfg.family == "moe":
+        st = {}
+        if cfg.first_k_dense:
+            st["dense_blocks"] = attn_cache(cfg.first_k_dense)
+        st["blocks"] = attn_cache(cfg.n_layers - cfg.first_k_dense)
+        return st
+    if cfg.family == "ssm":
+        return {"blocks": ssm_state(cfg.n_layers)}
+    if cfg.family == "hybrid":
+        n_groups, rem = divmod(cfg.n_layers, cfg.hybrid_group)
+        st = {"groups": ssm_state(n_groups, cfg.hybrid_group),
+              "shared_kv": gqa_cache(n_groups)}
+        if rem:
+            st["rem"] = ssm_state(rem)
+        return st
+    if cfg.family == "audio":
+        return {"self": gqa_cache(cfg.n_layers),
+                "cross": gqa_cache(cfg.n_layers, s=cfg.enc_seq)}
+    raise ValueError(cfg.family)
+
+
+def _copy_in(dst, src, seq_axis: Optional[int]) -> None:
+    if isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _copy_in(d, s, seq_axis)
+    elif seq_axis is None:
+        dst.copy_(src)
+    else:
+        dst.narrow(seq_axis, 0, src.shape[seq_axis]).copy_(src)
+
+
+def fill_decode_state(cfg: ModelConfig, state, caches):
+    """Copy prefill's caches into a decode state (init_decode_state's), in
+    place, and return it: the attention caches' S positions into its first
+    S slots, the SSM states and the audio model's cross-attention K/V
+    whole."""
+    if cfg.family == "ssm":
+        _copy_in(state["blocks"], caches["blocks"], None)
+    elif cfg.family == "hybrid":
+        states, kv = caches["groups"]
+        _copy_in(state["groups"], states, None)
+        _copy_in(state["shared_kv"], kv, 2)
+        if "rem" in state:
+            _copy_in(state["rem"], caches["rem"], None)
+    elif cfg.family == "audio":
+        self_kv, cross_kv = caches["blocks"]
+        _copy_in(state["self"], self_kv, 2)
+        _copy_in(state["cross"], cross_kv, None)
+    else:
+        for key, c in caches.items():
+            _copy_in(state[key], c, 2)
+    return state
 
 
 def top_k_lowest_first(scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -389,57 +584,129 @@ def _mla_decode_cached(p, cfg: ModelConfig, x, cache, positions, widx: int,
                        ops: Ops):
     """Absorbed MLA decode of x (B, 1, D) over the whole static cache
     (B, S, d_qk), after writing the new entry at widx in place. Like the
-    reference, it attends every slot, written or not (ROADMAP C). With
+    reference, it attends every slot, written or not (ROADMAP C.1). With
     selection_k > 0 it attends only the top-k entries of a mean-head latent
-    score, in place through sparse_select at token granularity."""
+    score, in place through sparse_select at token granularity. The kernels
+    take the model's dtype and compute in f32."""
     mcfg = cfg.mla
     q_nope, q_rope = MLA.project_q(p, mcfg, x, positions)
     q_abs = MLA.absorb_query(p, mcfg, q_nope, q_rope)       # (B, 1, H, d_qk)
     cache[:, widx] = MLA.latent_cache_entries(p, mcfg, x, positions)[:, 0]
     B, H = q_abs.shape[0], mcfg.n_heads
-    q = q_abs.reshape(B, H, mcfg.d_qk).to(torch.float32).contiguous()
-    ckv = cache.to(torch.float32)
+    q = q_abs.reshape(B, H, mcfg.d_qk).contiguous()
     if cfg.selection_k:
         qi = torch.mean(q_abs[..., :mcfg.kv_lora_rank], dim=2)   # (B, 1, dc)
         scores = torch.einsum("bqc,bsc->bqs", qi,
                               cache[..., :mcfg.kv_lora_rank])
         sel = top_k_lowest_first(scores[:, 0], cfg.selection_k)
-        part = ops.sparse_select(q, ckv, sel.to(torch.int32).contiguous(),
+        part = ops.sparse_select(q, cache, sel.to(torch.int32).contiguous(),
                                  None, None, d_v=mcfg.kv_lora_rank,
                                  scale=mcfg.scale, block_tokens=1)
     else:
-        part = ops.mla_decode(q, ckv, None, d_v=mcfg.kv_lora_rank,
+        part = ops.mla_decode(q, cache, None, d_v=mcfg.kv_lora_rank,
                               scale=mcfg.scale)
     o = part.o.reshape(B, 1, H, mcfg.kv_lora_rank).to(x.dtype)
     return MLA.unabsorb_output(p, mcfg, o)
+
+
+def _gqa_decode_cached(p, acfg: A.AttnConfig, x, cache, positions,
+                       widx: int):
+    """GQA decode of x (B, 1, D) over the whole static cache (k, v) (B, S,
+    Hkv, hd), after writing the new entry at widx in place. Like the
+    reference, it attends every slot, written or not (ROADMAP C.1): an
+    unwritten slot's zero key scores 0 and its zero value takes softmax
+    weight."""
+    k_cache, v_cache = cache
+    q, k_new, v_new = A._project(p, acfg, x, x, positions, positions)
+    k_cache[:, widx] = k_new[:, 0]
+    v_cache[:, widx] = v_new[:, 0]
+    out = A._sdpa(acfg, q, k_cache, v_cache, None)
+    return torch.einsum("bshd,hdm->bsm", out, p["o"])
+
+
+def _layer(cache, i: int):
+    """Layer i's cache: a tensor's, or each of a tuple's."""
+    if isinstance(cache, tuple):
+        return tuple(c[i] for c in cache)
+    return cache[i]
+
+
+def _decode_mamba(stack, cfg: ModelConfig, state, x):
+    """The stack's recurrent step over its (h, conv) state, overwritten in
+    place layer by layer."""
+    na = cfg.norm_apply()
+    hs, convs = state
+    for i, lp in enumerate(stack):
+        y, (h_new, conv_new) = SSM.mamba2_decode(
+            lp["mamba"], cfg.ssm, na(lp["ln"], x), (hs[i], convs[i]))
+        x = x + y
+        hs[i].copy_(h_new)
+        convs[i].copy_(conv_new)
+    return x
+
+
+def _decode_hybrid(params, cfg: ModelConfig, state, x, pos, widx: int):
+    na = cfg.norm_apply()
+    sa = params["shared_attn"]
+    hs, convs = state["groups"]
+    for gi, gp in enumerate(params["groups"]):
+        x = _decode_mamba(gp, cfg, (hs[gi], convs[gi]), x)
+        x = x + _gqa_decode_cached(sa["attn"], cfg.attn_cfg, na(sa["ln"], x),
+                                   _layer(state["shared_kv"], gi), pos, widx)
+        x = x + L.mlp(sa["mlp"], na(sa["ln2"], x), cfg.mlp_kind)
+    if "rem" in params:
+        x = _decode_mamba(params["rem"], cfg, state["rem"], x)
+    return x
+
+
+def _decode_audio(params, cfg: ModelConfig, state, x, pos, widx: int):
+    """The decoder's step: self-attention over state["self"] (written at
+    widx), cross-attention over state["cross"] (the prefill's encoder K/V,
+    read, never written)."""
+    na = cfg.norm_apply()
+    enc_cfg = dataclasses.replace(cfg.attn_cfg, causal=False)
+    for i, lp in enumerate(params["blocks"]):
+        x = x + _gqa_decode_cached(lp["attn"], cfg.attn_cfg,
+                                   na(lp["ln1"], x),
+                                   _layer(state["self"], i), pos, widx)
+        ck, cv = _layer(state["cross"], i)
+        q = torch.einsum("bsm,mhd->bshd", na(lp["lnx"], x),
+                         lp["xattn"]["q"])
+        xo = A._sdpa(enc_cfg, q, ck, cv, None)
+        x = x + torch.einsum("bshd,hdm->bsm", xo, lp["xattn"]["o"])
+        x = x + L.mlp(lp["mlp"], na(lp["ln2"], x), cfg.mlp_kind)
+    return x
 
 
 def decode_step(params, cfg: ModelConfig, state, token, pos, widx: int, *,
                 ops: Ops = KERNELS, routes: Optional[list] = None):
     """token (B, 1) -> (logits (B, 1, V), state). pos (B, 1) absolute
     positions; widx the cache slot to write. The state is updated in place
-    (the cache is written at widx, the SSM states overwritten) and returned:
-    a copy per step of the whole cache would cost more than the step."""
-    _check_supported(cfg)
+    (the caches are written at widx, the SSM states overwritten) and
+    returned: a copy per step of the whole cache would cost more than the
+    step."""
     x = L.embed(params["embed"], token)
     na = cfg.norm_apply()
     if cfg.family == "ssm":
-        hs, convs = state["blocks"]
-        for i, lp in enumerate(params["blocks"]):
-            y, (h_new, conv_new) = SSM.mamba2_decode(
-                lp["mamba"], cfg.ssm, na(lp["ln"], x), (hs[i], convs[i]))
-            x = x + y
-            hs[i].copy_(h_new)
-            convs[i].copy_(conv_new)
+        x = _decode_mamba(params["blocks"], cfg, state["blocks"], x)
+    elif cfg.family == "hybrid":
+        x = _decode_hybrid(params, cfg, state, x, pos, widx)
+    elif cfg.family == "audio":
+        x = _decode_audio(params, cfg, state, x, pos, widx)
     else:
         stacks = [("blocks", cfg.family == "moe")]
         if cfg.family == "moe" and cfg.first_k_dense:
             stacks.insert(0, ("dense_blocks", False))
         for key, moe_block in stacks:
-            for lp, cache in zip(params[key], state[key]):
+            for i, lp in enumerate(params[key]):
                 h = na(lp["ln1"], x)
-                x = x + _mla_decode_cached(lp["attn"], cfg, h, cache, pos,
-                                           widx, ops)
+                cache = _layer(state[key], i)
+                if cfg.attn_type == "mla":
+                    x = x + _mla_decode_cached(lp["attn"], cfg, h, cache,
+                                               pos, widx, ops)
+                else:
+                    x = x + _gqa_decode_cached(lp["attn"], cfg.attn_cfg, h,
+                                               cache, pos, widx)
                 h = na(lp["ln2"], x)
                 if moe_block:
                     x = x + MOE.moe_apply(lp["moe"], cfg.moe, h, routes)[0]

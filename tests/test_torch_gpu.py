@@ -506,13 +506,8 @@ def test_model_smoke_runs_the_kernels(dev, arch):
     outs = {}
     for name, ops in (("kernels", M.KERNELS), ("plain", M.PLAIN)):
         logits, caches = M.prefill(params, cfg, {"tokens": tok}, ops=ops)
-        state = M.init_decode_state(cfg, 2, 40, dtype=torch.float32,
-                                    device=dev)
-        if cfg.family == "ssm":
-            state = {"blocks": tuple(c.clone() for c in caches["blocks"])}
-        else:
-            for k in caches:
-                state[k][:, :, :32] = caches[k]
+        state = M.fill_decode_state(cfg, M.init_decode_state(
+            cfg, 2, 40, dtype=torch.float32, device=dev), caches)
         step, state = M.decode_step(params, cfg, state, tok[:, :1],
                                     torch.full((2, 1), 32, device=dev), 32,
                                     ops=ops)
@@ -845,3 +840,151 @@ def test_train_cli_on_the_card(dev, tmp_path):
     assert lines[-2] == "[train] deepseek-smoke: 0.21M params"
     assert lines[-1].startswith("[train] 4 steps in ")
     assert lines[-1].endswith("checkpoints: [2, 4]")
+
+
+# ---------------------------------------------------------------------------
+# The model families (GQA attention, the hybrid, VLM, audio) and the faults
+# C.2 and C.3 on the card
+# ---------------------------------------------------------------------------
+
+def _hybrid_small():
+    """Zamba2's shape at a narrow width the ssd_chunk kernel takes (Q 64,
+    P 64, N 64, 8 heads): 7 Mamba2 layers, 2 groups of 3 and 1 more."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.ssm import Mamba2Config
+    return dataclasses.replace(
+        get_smoke_config("zamba2-7b"), d_model=256,
+        ssm=Mamba2Config(d_model=256, d_state=64, head_dim=64, expand=2,
+                         chunk=64))
+
+
+def test_hybrid_prefill_kernels_match_plain(dev):
+    """The hybrid's prefill of 2 x 128 tokens and 2 decode steps through the
+    ssd_chunk kernel (once per Mamba2 layer) and through its plain version,
+    f32: logits, every cache leaf (SSM states, conv tails, the shared
+    block's K/V) and the decode state within 1e-4."""
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.models import model as M
+    cfg = _hybrid_small()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab, (2, 130), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    outs = {}
+    for name, ops in (("kernels", M.KERNELS), ("plain", M.PLAIN)):
+        before = ssd_ops.ssd_intra_chunk.launches
+        logits, caches = M.prefill(params, cfg, {"tokens": tok[:, :128]},
+                                   ops=ops)
+        launched = ssd_ops.ssd_intra_chunk.launches - before
+        assert launched == (cfg.n_layers if name == "kernels" else 0)
+        state = M.fill_decode_state(cfg, M.init_decode_state(
+            cfg, 2, 130, dtype=torch.float32, device=dev), caches)
+        steps = []
+        for i in range(2):
+            lg, state = M.decode_step(params, cfg, state,
+                                      tok[:, 128 + i:129 + i],
+                                      torch.full((2, 1), 128 + i,
+                                                 device=dev), 128 + i,
+                                      ops=ops)
+            steps.append(lg)
+        outs[name] = [logits, *steps, *_leaves(caches), *_leaves(state)]
+    for a, b in zip(outs["kernels"], outs["plain"]):
+        _close(a, b, 1e-4, 1e-4)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [] if tree is None else [tree]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "llava-next-mistral-7b",
+                                  "whisper-large-v3"])
+def test_gqa_decode_matches_forward(dev, arch):
+    """Prefill 31 tokens into a cache of exactly 32 context slots, decode
+    token 31 (every slot written): its logits equal the forward's at
+    position 31 over all 32 tokens, f32, within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import model as M
+    cfg = get_smoke_config(arch)
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.float32)
+    batch = SyntheticPipeline.for_model(
+        cfg, 32 + (cfg.vlm_patches if cfg.family == "vlm" else 0), 2,
+        device=dev).batch_at(0)
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in batch.items() if k != "targets"}
+    S = batch["tokens"].shape[1] - 1
+    want, _, _ = M.forward(params, cfg, batch)
+    _, caches = M.prefill(params, cfg,
+                          dict(batch, tokens=batch["tokens"][:, :S]))
+    ctx = S + (cfg.vlm_patches if cfg.family == "vlm" else 0)
+    state = M.fill_decode_state(cfg, M.init_decode_state(
+        cfg, 2, ctx + 1, dtype=torch.float32, device=dev), caches)
+    got, _ = M.decode_step(params, cfg, state, batch["tokens"][:, S:],
+                           torch.full((2, 1), ctx, device=dev), ctx)
+    _close(got[:, 0], want[:, S], 1e-4, 1e-4)
+
+
+def test_batch_on_the_card_equals_the_cpus(dev):
+    """C.2: the same seed and step give the same batch, tokens, targets
+    and the stub frame embeddings, on the card as on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    for arch in ("deepseek-v2-lite", "whisper-large-v3",
+                 "llava-next-mistral-7b"):
+        cfg = get_smoke_config(arch)
+        for step in (0, 7):
+            a = SyntheticPipeline.for_model(cfg, 129, 16, seed=3,
+                                            device=dev).batch_at(step)
+            b = SyntheticPipeline.for_model(cfg, 129, 16, seed=3,
+                                            device="cpu").batch_at(step)
+            assert a.keys() == b.keys()
+            assert all(a[k].device.type == "cuda" and torch.equal(
+                a[k].cpu(), b[k]) for k in a)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", ["mla_decode", "sparse_select",
+                                  "softmax_merge", "softmax_merge_parts",
+                                  "ssd_intra_chunk"])
+def test_kernels_take_narrow_operands_and_return_f32(dev, name, dtype):
+    """C.3 on the card: bf16 / f16 operands launch the f32 kernel on their
+    upcast and return f32, bit for bit the kernel's result on the f32
+    operands."""
+    from repro_torch.core.merge import Partial
+    from repro_torch.kernels.mla_decode import ops as mla_ops
+    from repro_torch.kernels.softmax_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_select import ops as sel_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    g = torch.Generator(device=dev).manual_seed(5)
+    f = lambda *s: torch.randn(s, device=dev, generator=g)
+    idx = torch.tensor([[1, 0], [2, 3]], dtype=torch.int32, device=dev)
+    calls = {
+        "mla_decode": (lambda q, c: mla_ops.mla_decode(q, c, d_v=512,
+                                                       scale=0.04),
+                       (f(2, 16, 576), f(2, 300, 576))),
+        "sparse_select": (lambda q, c: sel_ops.sparse_select(
+            q, c, idx, d_v=512, scale=0.04),
+            (f(2, 16, 576), f(2, 256, 576))),
+        "softmax_merge": (merge_ops.softmax_merge,
+                          (f(3, 2, 16, 512), f(3, 2, 16),
+                           f(3, 2, 16).abs())),
+        "softmax_merge_parts": (lambda o, m, l: merge_ops.softmax_merge_parts(
+            [Partial(o[i], m[i], l[i]) for i in range(3)]),
+            (f(3, 2, 16, 512), f(3, 2, 16), f(3, 2, 16).abs())),
+        "ssd_intra_chunk": (lambda *a: ssd_ops.ssd_intra_chunk(*a, hb=4),
+                            (f(1, 4, 128, 8, 64), f(1, 4, 128, 8).abs(),
+                             -f(8).abs(), f(1, 4, 128, 64),
+                             f(1, 4, 128, 64)))}
+    fn, ins = calls[name]
+    narrow = [t.to(dtype) for t in ins]
+    got, want = fn(*narrow), fn(*(t.float() for t in narrow))
+    torch.cuda.synchronize()
+    assert all(t.dtype == torch.float32 and t.device.type == "cuda"
+               for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

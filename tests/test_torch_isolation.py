@@ -33,13 +33,20 @@ PORT = ROOT / "src" / "repro_torch"
 # The verbatim copies of the JAX-free control plane. A later slice that
 # must diverge from one removes it here, with the reason beside it.
 # (serving/backends/__init__.py is adapted — it names TorchExecBackend —
-# and so is not listed.)
+# and so is not listed; nor are configs/__init__.py, which imports the
+# port's config modules by name, and configs/deepseek_v2_lite.py, which
+# also gives the serving path V2_LITE_MLA.)
 COPIES = ("core/constants.py", "core/cost_model.py", "core/predicate.py",
           "core/chunk_store.py", "serving/timeline.py", "serving/plan.py",
           "serving/backends/base.py", "serving/backends/analytic.py",
           "obs/__init__.py", "obs/trace.py", "obs/metrics.py",
           "obs/drift.py", "serving/engine.py", "serving/workload.py",
-          "serving/selection/types.py", "serving/selection/replay.py")
+          "serving/selection/types.py", "serving/selection/replay.py",
+          "configs/deepseek_v2_236b.py", "configs/mamba2_370m.py",
+          "configs/qwen1_5_32b.py", "configs/qwen2_5_32b.py",
+          "configs/qwen3_32b.py", "configs/nemotron_4_340b.py",
+          "configs/qwen3_moe_235b.py", "configs/llava_next_mistral_7b.py",
+          "configs/zamba2_7b.py", "configs/whisper_large_v3.py")
 
 _IMPORT_REPRO = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)
 # The copies also drop the reference's development-history tags (which

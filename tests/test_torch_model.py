@@ -50,7 +50,8 @@ from repro_torch.models import model as TMm
 from repro_torch.models import moe as TMOE
 from repro_torch.models import ssm as TSSM
 from repro_torch.models.module import Tree, count_params
-from torch_parity import numpy_weights, tiny_v2_lite as _tiny_v2_lite
+from torch_parity import (numpy_weights, ref_fill_decode_state,
+                          tiny_v2_lite as _tiny_v2_lite)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 SSM_TOL = dict(atol=2e-4, rtol=1e-3)
@@ -77,21 +78,6 @@ CASES = {
 }
 
 
-def _fill_state(state, caches, lib):
-    """The decode state with the prefill caches in its first S slots."""
-    if isinstance(caches["blocks"], tuple):          # SSM: the final states
-        return {"blocks": tuple(c if lib is jnp else c.clone()
-                                for c in caches["blocks"])}
-    out = {}
-    for k, c in caches.items():
-        if lib is jnp:
-            out[k] = state[k].at[:, :, :S].set(c)
-        else:
-            out[k] = state[k].clone()
-            out[k][:, :, :S] = c
-    return out
-
-
 @pytest.fixture(scope="module", params=sorted(CASES))
 def run(request):
     """The case's prefill of S tokens and STEPS decode steps, reference and
@@ -109,8 +95,8 @@ def run(request):
         jparams, jcfg, {"tokens": jnp.asarray(prompt)})
     ref = {"prefill": np.asarray(logits),
            "caches": jax.tree.map(np.asarray, caches), "decode": []}
-    state = _fill_state(JMm.init_decode_state(jcfg, B, seq,
-                                              dtype=jnp.float32), caches, jnp)
+    state = ref_fill_decode_state(
+        jcfg, JMm.init_decode_state(jcfg, B, seq, dtype=jnp.float32), caches)
     dec = jax.jit(JMm.decode_step, static_argnums=1)
     for i in range(STEPS):
         lg, state = dec(jparams, jcfg, state, jnp.asarray(steps[i]),
@@ -129,9 +115,9 @@ def run(request):
     port = {"prefill": logits.numpy(), "routes": routes,
             "caches": jax.tree.map(lambda t: t.numpy().copy(), caches),
             "decode": []}
-    state = _fill_state(TMm.init_decode_state(tcfg, B, seq,
-                                              dtype=torch.float32,
-                                              device="cpu"), caches, torch)
+    state = TMm.fill_decode_state(
+        tcfg, TMm.init_decode_state(tcfg, B, seq, dtype=torch.float32,
+                                    device="cpu"), caches)
     for i in range(STEPS):
         lg, state = TMm.decode_step(params, tcfg, state,
                                     torch.tensor(steps[i]),
@@ -228,8 +214,10 @@ def test_config_fields_equal_the_references(pair):
             == (torch.float32, jnp.float32)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite", "deepseek-v2-236b",
-                                  "mamba2-370m"])
+ALL_ARCHS = JC.ARCH_IDS + ["deepseek-v2-lite"]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("which", ["config", "smoke"])
 def test_registry_configs_equal_the_references(arch, which):
     get = {"config": "get_config", "smoke": "get_smoke_config"}[which]
@@ -238,17 +226,21 @@ def test_registry_configs_equal_the_references(arch, which):
     assert port.kv_bytes_token_layer == ref.kv_bytes_token_layer
 
 
-def test_registry_subset():
-    assert set(TC.ARCH_IDS) <= set(JC.ARCH_IDS)
-    assert all(JC.ALIASES[k] == v for k, v in TC.ALIASES.items())
+def test_registry_equals_the_references():
+    """Every id and alias of the reference resolves in the port, with the
+    reference's shapes, long-context archs and dry-run cells."""
+    assert TC.ARCH_IDS == JC.ARCH_IDS and TC.ALIASES == JC.ALIASES
+    assert TC.LONG_CTX_ARCHS == JC.LONG_CTX_ARCHS
     assert TC.SHAPES.keys() == JC.SHAPES.keys()
     assert all(dataclasses.asdict(TC.SHAPES[k])
                == dataclasses.asdict(JC.SHAPES[k]) for k in TC.SHAPES)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        TC.get_config("qwen3-32b")
+    for arch in list(JC.ALIASES) + JC.ARCH_IDS:
+        assert TC.supported_shapes(arch) == JC.supported_shapes(arch)
+        assert TC.get_config(arch).name == JC.get_config(arch).name
+    assert TC.all_cells() == JC.all_cells()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_param_count_equals_the_references(arch):
     jcfg = JC.get_config(arch)
     abstract = jax.eval_shape(lambda k: split(JMm.init_model(jcfg, k))[0],
@@ -256,20 +248,9 @@ def test_param_count_equals_the_references(arch):
     want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(abstract))
     got = count_params(TMm.init_model(TC.get_config(arch), device="meta"))
     assert got == want
-    assert got == {"deepseek-v2-lite": 15_496_769_024,
-                   "mamba2-370m": 368_338_432}[arch]
-
-
-def test_unported_families_raise_naming_the_roadmap_item():
-    gqa = TMm.ModelConfig(name="gqa", family="dense", n_layers=1,
-                          d_model=8, vocab=8)
-    hybrid = dataclasses.replace(TC.get_smoke_config("mamba2-370m"),
-                                 family="hybrid")
-    for cfg in (gqa, hybrid):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            TMm.init_model(cfg, device="meta")
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            TMm.init_decode_state(cfg, 1, 4, device="cpu")
+    known = {"deepseek-v2-lite": 15_496_769_024, "mamba2-370m": 368_338_432,
+             "zamba2-7b": 6_636_442_832}
+    assert got == known.get(arch, got)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ data pipeline and checkpoint format (repro_torch.optim, .data,
   the reference's round-trip, keep-last-k and async tests.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -248,10 +249,18 @@ def test_for_model_and_canonical_corpus_match_reference():
         (321, 12, 3, 5)
     np.testing.assert_array_equal(TP.canonical_corpus(4, 16, 100),
                                   JP.canonical_corpus(4, 16, 100))
-    for fam in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            SyntheticPipeline(DataConfig(vocab=10, seq_len=4, global_batch=1,
-                                         family=fam), device="cpu")
+    # the stub-input families: the reference's DataConfig, field by field
+    # (the VLM's text is the sequence less its patches)
+    from repro import configs as JC
+    from repro_torch import configs as TC
+    for arch in ("llava-next-mistral-7b", "whisper-large-v3"):
+        got = SyntheticPipeline.for_model(TC.get_config(arch), seq_len=2048,
+                                          global_batch=2, seed=5,
+                                          device="cpu").cfg
+        want = JP.SyntheticPipeline.for_model(JC.get_config(arch),
+                                              seq_len=2048, global_batch=2,
+                                              seed=5).cfg
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 # ---------------------------------------------------------------------------
