@@ -2413,6 +2413,289 @@ def run_families(torch, dev, zamba2, counted):
     return res, by_part
 
 
+# ---------------------------------------------------------------------------
+# 5e. distribution: the sharded train step on the card, the dry run
+# ---------------------------------------------------------------------------
+
+DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 128, 3   # (a): 4 x 128 tokens, 3 steps
+# (a) the world-1 mesh's steps against the same steps unsharded: the same
+# arithmetic up to DTensor's redistributions (no-ops on one card) and the
+# vocab-parallel cross-entropy's sum order; AdamW turns a gradient's last
+# bits into parameter steps of up to lr where a gradient is near zero
+DIST_LOSS_RTOL, DIST_PARAM_RTOL = 1e-5, 1e-4
+CM_TOL = 2e-5                                  # the collective matmul
+DIST_TIMEOUT = {"a": 300, "b": 900}            # seconds, each subprocess
+DRYRUN_ARCH = "deepseek-v2-236b"
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_part_a(torch, device="cuda"):
+    """Phase 5e (a), in a process of its own (one default process group): a
+    world-1 NCCL group on a (1, 1) ("data", "model") mesh on the card. The
+    V2-Lite smoke config in f32 (weights drawn on the card from seed 0),
+    n_micro 2: DIST_STEPS train steps with param_shardings, sp_policy and
+    ep_axis "model" against the same steps unsharded (losses, every
+    parameter, the MoE routes of the first batch's microbatches); the
+    compressed all-reduce (int32 payload, error feedback exact: mean + new
+    error = gradient); the collective matmul, overlapped = barrier = dense;
+    the sharded parameters saved as DTensors and restored into plain
+    tensors, bit for bit. Prints one "DIST-A {json}" line. device "cpu"
+    (python3 chip_smoke.py --dist-part a cpu) rehearses it on a gloo group
+    on the host."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import collective_matmul as CM
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.delta_rotate import ops as rot_ops
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
+    from repro_torch.kernels.mla_decode import ops as mla_ops
+    from repro_torch.kernels.softmax_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_select import ops as sel_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.module import trainable
+    from repro_torch.optim import compress
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import TrainConfig, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = device == "cuda"
+    dev = torch.device("cuda", 0) if card else torch.device("cpu")
+    if card:
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if card else (lambda d=None: None)
+    dist.init_process_group("nccl" if card else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = get_smoke_config("deepseek-v2-lite")
+    wrappers = {"mla_decode": mla_ops.mla_decode,
+                "softmax_merge": merge_ops.softmax_merge,
+                "delta_rotate": rot_ops.delta_rotate,
+                "sparse_select": sel_ops.sparse_select,
+                "flash_prefill": fp_ops.flash_prefill,
+                "ssd_chunk": ssd_ops.ssd_intra_chunk}
+    by_dtype = fp_ops.flash_prefill.launches_by_dtype
+    for w in wrappers.values():
+        w.launches = 0
+    for k in by_dtype:
+        by_dtype[k] = 0
+    g = torch.Generator(device=dev).manual_seed(1)
+    batches = [{k: torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_SEQ),
+                                 generator=g, device=dev, dtype=torch.int32)
+                for k in ("tokens", "targets")} for _ in range(DIST_STEPS)]
+    half = DIST_BATCH // 2
+    micro = [{k: v[i * half:(i + 1) * half] for k, v in batches[0].items()}
+             for i in range(2)]
+    ocfg = AdamWConfig()
+
+    def fresh():
+        return trainable(M.init_model(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+            dtype=torch.float32))
+
+    def steps(params, opt, step_fn, wrap):
+        losses, walls = [], []
+        for b in batches:
+            sync(dev)
+            t = time.perf_counter()
+            params, opt, mets = step_fn(params, opt, wrap(b))
+            loss = mets["loss"]
+            loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                         else loss)
+            walls.append(time.perf_counter() - t)
+            losses.append(loss)
+        return params, losses, walls
+
+    plain = fresh()
+    routes0 = []
+    for mb in micro:
+        M.loss_fn(plain, cfg, mb, routes=routes0)
+    plain, losses0, walls0 = steps(
+        plain, adamw_init(plain, ocfg),
+        make_train_step(cfg, ocfg, TrainConfig(n_micro=2)), lambda b: b)
+
+    params = fresh()
+    shard = SH.param_shardings(params, mesh)
+    SH.shard_params(params, shard)
+    bs = SH.batch_sharding(mesh)
+    wrap = lambda b: {k: SH.distribute(v, mesh, bs.spec)
+                      for k, v in b.items()}
+    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication():
+        routes1 = []
+        for mb in micro:
+            M.loss_fn(params, cfg, wrap(mb), routes=routes1)
+        routes1 = [r.full_tensor() for r in routes1]
+        params, losses1, walls1 = steps(
+            params, adamw_init(params, ocfg),
+            make_train_step(cfg, ocfg, TrainConfig(n_micro=2,
+                                                   ep_axis="model"),
+                            param_shardings=shard), wrap)
+    whole = [p.detach().full_tensor() for p in params.parameters()]
+    param_rel = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(whole, plain.parameters()))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses1, losses0))
+    routes_equal = len(routes1) == len(routes0) > 0 and all(
+        torch.equal(a, b) for a, b in zip(routes1, routes0))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    launches["flash_prefill"] = by_dtype["float32"]
+    launches["flash_prefill_bf16"] = by_dtype["bfloat16"]
+
+    # the checkpoint: saved from the DTensors, restored into plain tensors
+    with tempfile.TemporaryDirectory() as d:
+        cm = CheckpointManager(d)
+        cm.save(1, params, blocking=True)
+        back = cm.restore(1, fresh())
+    ckpt_equal = all(torch.equal(a, b) for a, b in
+                     zip(whole, back.parameters()))
+
+    # the compressed all-reduce: int32 payload, error feedback exact
+    grp = mesh.get_group("data")
+    gr = torch.randn(4096, generator=g, device=dev)
+    seen = []
+    real = dist.all_reduce
+
+    def spy(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        seen.append((t.dtype, op))
+        return real(t, op=op, group=group, async_op=async_op)
+
+    dist.all_reduce = spy
+    (mean,), (err,) = compress.compressed_psum_with_feedback(
+        [gr], [torch.zeros_like(gr)], grp)
+    dist.all_reduce = real
+    feedback_err = float((mean + err - gr).abs().max() / gr.abs().max())
+    payload = [str(d) for d, op in seen if op == dist.ReduceOp.SUM]
+
+    # the collective matmul at a TP layer's width
+    x = torch.randn(256, 2048, generator=g, device=dev)
+    w = torch.randn(2048, 1408, generator=g, device=dev)
+    dense = x @ w
+    cm_err = {fn.__name__: float((fn(x, w, grp) - dense).abs().max()
+                                 / dense.abs().max())
+              for fn in (CM.allgather_matmul_overlapped,
+                         CM.allgather_matmul_barrier)}
+    dist.destroy_process_group()
+    print("DIST-A " + json.dumps({
+        "losses": losses1, "unsharded_losses": losses0,
+        "loss_rel": loss_rel, "param_rel": param_rel,
+        "routes": len(routes1), "routes_equal": routes_equal,
+        "walls_s": walls1, "unsharded_walls_s": walls0,
+        "launches": launches, "ckpt_equal": ckpt_equal,
+        "feedback_rel": feedback_err, "payload": payload,
+        "cm_rel": cm_err}), flush=True)
+
+
+def run_subprocess_part(part, argv):
+    """Run argv (a part of phase 5e) in a subprocess with its timeout;
+    echo its output; fail on a non-zero exit or a timeout."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(argv, capture_output=True, text=True, env=env,
+                             timeout=DIST_TIMEOUT[part], cwd=ROOT)
+    except subprocess.TimeoutExpired:
+        fail(f"(5e) ({part}) did not end within {DIST_TIMEOUT[part]} s")
+    wall = time.perf_counter() - t0
+    sys.stdout.write(res.stdout)
+    if res.returncode != 0:
+        fail(f"(5e) ({part}) exited {res.returncode}: "
+             f"{res.stderr.strip()[-3000:]}")
+    return res.stdout, wall
+
+
+def run_distribution(torch, smi_line):
+    """Phase 5e. (a) the sharded train step on the card (dist_part_a, in a
+    subprocess); (b) the full config's dry run through the launcher, python
+    -m repro_torch.launch.train --arch deepseek-v2-236b (no --smoke): the
+    production mesh (16, 16) over a fake group, on meta tensors, on the
+    host. Returns (walls, launches of (a)'s train steps)."""
+    out, a_wall = run_subprocess_part(
+        "a", [sys.executable, os.path.abspath(__file__), "--dist-part", "a"])
+    found = [line for line in out.splitlines() if line.startswith("DIST-A ")]
+    if not found:
+        fail("(5e) (a) printed no result")
+    r = json.loads(found[-1][len("DIST-A "):])
+    log(f"[dist] (a) world-1 NCCL group, (1, 1) (data, model) mesh: the "
+        f"V2-Lite smoke config in f32, n_micro 2, param_shardings + "
+        f"sp_policy + ep_axis model, {DIST_STEPS} steps of {DIST_BATCH} x "
+        f"{DIST_SEQ} tokens against the same steps unsharded: losses "
+        + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(
+            r["losses"], r["unsharded_losses"]))
+        + f" (max rel {r['loss_rel']:.3e}, rtol {DIST_LOSS_RTOL:g}); "
+        f"parameters max|diff|/max {r['param_rel']:.3e} (within "
+        f"{DIST_PARAM_RTOL:g}); {r['routes']} MoE routes equal "
+        f"{r['routes_equal']}; step walls sharded "
+        + ", ".join(f"{w * 1e3:.1f}" for w in r["walls_s"])
+        + " ms, unsharded "
+        + ", ".join(f"{w * 1e3:.1f}" for w in r["unsharded_walls_s"])
+        + f" ms; kernel launches in the steps {r['launches']}; {smi_line}")
+    log(f"[dist] (a) checkpoint saved from DTensors, restored into plain "
+        f"tensors bit for bit: {r['ckpt_equal']}; compressed all-reduce: "
+        f"payload {r['payload']}, |mean + error - grad|/max "
+        f"{r['feedback_rel']:.3e}; collective matmul (256 x 2048 @ 2048 x "
+        f"1408 f32) vs dense, max|err|/max: {r['cm_rel']} (tol {CM_TOL:g})"
+        f"; (a) wall {a_wall:.1f} s; {smi_line}")
+    if r["loss_rel"] > DIST_LOSS_RTOL or r["param_rel"] > DIST_PARAM_RTOL \
+            or not r["routes_equal"]:
+        fail("(5e) (a) the sharded steps differ from the unsharded ones")
+    if not r["ckpt_equal"]:
+        fail("(5e) (a) the restored checkpoint differs")
+    if r["payload"] != ["torch.int32"] or r["feedback_rel"] > 1e-6:
+        fail(f"(5e) (a) compressed all-reduce: payload {r['payload']}, "
+             f"feedback {r['feedback_rel']}")
+    if max(r["cm_rel"].values()) > CM_TOL:
+        fail(f"(5e) (a) collective matmul errs {r['cm_rel']}")
+    if any(r["launches"].values()):
+        fail(f"(5e) (a) the train steps launched kernels: {r['launches']}")
+
+    rec_path = os.path.join(ROOT, "build", "dryrun_torch",
+                            "deepseek_v2_236b__train_4k__pod1.json")
+    if os.path.exists(rec_path):
+        os.remove(rec_path)
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            DRYRUN_ARCH]
+    log(f"[dist] (b) {' '.join(argv[1:])} (no --smoke): the full config's "
+        "train_4k on the (16, 16) mesh over a fake group, on meta tensors")
+    _, b_wall = run_subprocess_part("b", argv)
+    with open(rec_path) as fh:
+        rec = json.load(fh)
+    if not rec.get("ok"):
+        fail(f"(5e) (b) the dry run's record is not ok: {rec.get('error')}")
+    mem, col, roof = rec["memory"], rec["collectives"], rec["roofline"]
+    gib = lambda b: b / 2**30
+    log(f"[dist] (b) {rec['arch']} {rec['shape']} on {rec['mesh']} "
+        f"({rec['n_devices']} devices, {rec['n_params']} parameters, "
+        f"{rec['n_layers']} layers, depth cut {rec['depth_cut']}, n_micro "
+        f"{rec['n_micro']}, ops {rec['ops'].split(' ')[0]}): per device "
+        f"argument bytes {mem['argument_bytes']} ({gib(mem['argument_bytes']):.2f}"
+        f" GiB), peak temporary {mem['peak_temp_bytes']} "
+        f"({gib(mem['peak_temp_bytes']):.2f} GiB), together "
+        f"{gib(mem['device_bytes']):.2f} GiB against "
+        f"{gib(mem['hbm_bytes']):.0f} GiB (fits {mem['fits']}); FLOPs "
+        f"{rec['flops']:.6e}; traffic bytes {rec['traffic_bytes']:.6e}; "
+        f"collectives {col['counts']}, result bytes "
+        f"{col['result_bytes']:.6e}, wire bytes {col['wire_bytes']:.6e}; "
+        f"roofline on one H100: compute {roof['compute_s']:.4f} s, memory "
+        f"{roof['memory_s']:.4f} s, collective {roof['collective_s']:.4f} s "
+        f"({roof['rates']['collective_fabric']} at "
+        f"{roof['rates']['collective_Bps']:.3g} B/s), dominant "
+        f"{roof['dominant']}; dry-run wall {b_wall:.1f} s on the host "
+        f"(build {rec['t_build_s']} s, analyse {rec['t_analyse_s']} s); "
+        f"{smi_line}")
+    return {"a_s": a_wall, "b_s": b_wall, "record": rec}, r["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2585,13 +2868,20 @@ def main() -> int:
     fam_s = time.perf_counter() - t0
     log(f"[families] phase 5d wall {fam_s:.1f} s; launches by part "
         f"{fam_launches}")
+
+    # 5e. distribution: the sharded train step, the production dry run
+    t0 = time.perf_counter()
+    dist_res, dist_launches = run_distribution(torch, smi_line)
+    dist_s = time.perf_counter() - t0
+    log(f"[dist] phase 5e wall {dist_s:.1f} s; {smi_line}")
     by_phase = {"serve": serve_launches, "selection_serve": sel_launches,
                 "mesh": mesh_launches,
                 "goldens": golden_launches, "model_v2_lite": full_launches,
                 "model_verify": verify_launches,
                 "model_mamba2": mamba_launches,
                 "model_mla_bf16": layer_launches, **train_launches,
-                **fam_launches}
+                **fam_launches,
+                "dist_train": {k: dist_launches.get(k, 0) for k in checks}}
     launches = {k: sum(p[k] for p in by_phase.values()) for k in checks}
 
     # 6. proof of the path: the dense kernels over serve + goldens,
@@ -2670,7 +2960,10 @@ def main() -> int:
         f"{fam_res['a']['warm_s']:.3f} s warm; (b) kernels vs plain "
         f"{max(fam_res['b'].values()):.3e}; (d) decode vs forward "
         f"{fam_res['d']['qwen3-32b']:.3e} GQA, "
-        f"{fam_res['d']['zamba2-7b']:.3e} hybrid), "
+        f"{fam_res['d']['zamba2-7b']:.3e} hybrid), distribution phase "
+        f"{dist_s:.1f} s ((a) {dist_res['a_s']:.1f} s, (b) the "
+        f"{DRYRUN_ARCH} dry run {dist_res['b_s']:.1f} s, dominant "
+        f"{dist_res['record']['roofline']['dominant']}), "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -2681,4 +2974,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:3] == ["--dist-part", "a"]:     # phase 5e (a)'s process
+        import torch
+        sys.path.insert(0, SRC)
+        dist_part_a(torch, *sys.argv[3:4])
+        sys.exit(0)
     sys.exit(main())

@@ -9,6 +9,13 @@ A tree is a tensor, a mapping (leaves in sorted-key order, as jax.tree
 flattens a dict), a list or tuple (in order) or a module (its parameters()
 in order). bf16 and every other dtype go through a uint8 view of their
 bytes one way and a view back the other, with no numpy dtype for bf16.
+
+Sharded state: a DTensor leaf is saved whole (full_tensor, a gather that
+every rank of the process group joins), and in a process group rank 0
+alone writes; a blocking save and wait() end at a barrier, so every rank
+may read the snapshot after. restore(..., shardings=...) places each leaf
+on a mesh (a DTensor with the given placements), which need not be the
+mesh it was saved from: the elastic restore onto another topology.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 _DTYPE_NAMES = {torch.float64: "float64", torch.float32: "float32",
@@ -44,6 +52,46 @@ def _flatten(tree) -> list:
     raise TypeError(f"checkpoint: cannot flatten a {type(tree).__name__}")
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _in_group() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _place(tree, shardings, leaves: list):
+    """tree with its leaves taken in order from `leaves` (a new tree; a
+    module's parameters are replaced in place and the module returned)."""
+    if isinstance(tree, torch.Tensor):
+        return leaves.pop(0)
+    if isinstance(tree, nn.Module):
+        for path, p in list(tree.named_parameters()):
+            owner, _, name = path.rpartition(".")
+            setattr(tree.get_submodule(owner), name, nn.Parameter(
+                leaves.pop(0), requires_grad=p.requires_grad))
+        return tree
+    if isinstance(tree, Mapping):
+        return {k: _place(tree[k], shardings[k], leaves)
+                for k in sorted(tree)}
+    return type(tree)(_place(t, s, leaves) for t, s in zip(tree, shardings))
+
+
+def _flat_shardings(tree, shardings) -> list:
+    """shardings, a tree of tree's structure (a module's: {parameter path:
+    sharding}, as param_shardings gives it), in _flatten's leaf order."""
+    if isinstance(tree, torch.Tensor):
+        return [shardings]
+    if isinstance(tree, nn.Module):
+        return [shardings[k] for k, _ in tree.named_parameters()]
+    if isinstance(tree, Mapping):
+        return [s for k in sorted(tree)
+                for s in _flat_shardings(tree[k], shardings[k])]
+    return [s for t, sh in zip(tree, shardings)
+            for s in _flat_shardings(t, sh)]
+
+
 class CheckpointManager:
     def __init__(self, directory, keep: int = 3):
         self.dir = pathlib.Path(directory)
@@ -55,11 +103,16 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree, blocking: bool = False):
-        """Snapshot a tree. The device-to-host copy happens here, before
-        returning (so the caller may overwrite the tensors); the write runs
-        on a thread unless blocking."""
+        """Snapshot a tree. The device-to-host copy (of a DTensor, its whole
+        value) happens here, before returning (so the caller may overwrite
+        the tensors); the write runs on a thread unless blocking."""
         self.wait()
-        host = [t.detach().to("cpu", copy=True) for t in _flatten(tree)]
+        host = [_whole(t).detach().to("cpu", copy=True)
+                for t in _flatten(tree)]
+        if _in_group() and dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return
 
         def write():
             tmp = self.dir / f"step_{step:08d}.tmp"
@@ -83,6 +136,8 @@ class CheckpointManager:
 
         if blocking:
             write()
+            if _in_group():
+                dist.barrier()
             return
 
         def run():
@@ -95,10 +150,13 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self):
-        """Join the pending write; raise what it raised."""
+        """Join the pending write (in a process group, every rank's: a
+        barrier); raise what it raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _in_group():
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -119,12 +177,20 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     @torch.no_grad()
-    def restore(self, step: int, target_tree):
+    def restore(self, step: int, target_tree, shardings=None):
         """Copy the snapshot into target_tree's tensors, in place (each
-        keeps its dtype and device), and return target_tree."""
+        keeps its dtype and device; a DTensor its placements), and return
+        target_tree. With shardings (a tree of target_tree's structure of
+        distributed.sharding.NamedSharding; a module's as param_shardings
+        gives it) each leaf becomes a DTensor on its sharding's mesh and
+        placements instead, in a new tree (a module's parameters replaced
+        in place)."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
         path = self.dir / f"step_{step:08d}"
         manifest = json.loads((path / "manifest.json").read_text())
         leaves = _flatten(target_tree)
+        placed = ([None] * len(leaves) if shardings is None
+                  else _flat_shardings(target_tree, shardings))
         with np.load(path / "leaves.npz") as data:
             if len(leaves) != len(data.files):
                 raise ValueError(f"leaf count mismatch: {len(leaves)} vs "
@@ -136,5 +202,19 @@ class CheckpointManager:
                 if arr.shape != ref.shape:
                     raise ValueError(f"leaf {i}: {tuple(arr.shape)} vs "
                                      f"{tuple(ref.shape)}")
-                ref.copy_(arr)
-        return target_tree
+                sh = placed[i]
+                if sh is not None:
+                    local = ref.to_local() if isinstance(ref, DTensor) \
+                        else ref
+                    placed[i] = distribute_tensor(
+                        arr.to(local.device, local.dtype), sh.mesh,
+                        sh.placements)
+                elif isinstance(ref, DTensor):
+                    ref.copy_(distribute_tensor(
+                        arr.to(ref.to_local().device, ref.dtype),
+                        ref.device_mesh, ref.placements))
+                else:
+                    ref.copy_(arr)
+        if shardings is None:
+            return target_tree
+        return _place(target_tree, shardings, placed)

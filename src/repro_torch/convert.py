@@ -56,29 +56,41 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _load(node: nn.Module, tree, device, path: str) -> None:
-    """Replace the (meta) parameters of node by the arrays of tree, in place:
-    same names, shapes checked, each parameter keeping its own dtype."""
+def pairs(node: nn.Module, tree, path: str = ""):
+    """Yield (path, module, name, leaf) for every parameter of node: its
+    path as named_parameters gives it, the module that holds it, its name
+    there, and the leaf of the reference's tree that it takes (a norm's
+    {"scale": leaf} unwrapped, a stack's leaf indexed by the layer, once per
+    list level). Every key of the tree must match one of node's."""
     if isinstance(node, nn.ModuleList):
         for i, child in enumerate(node):
-            _load(child, _layer(tree, i), device, f"{path}[{i}]")
+            yield from pairs(child, _layer(tree, i), f"{path}.{i}")
         return
     own = dict(node.named_parameters(recurse=False))
     children = dict(node.named_children())
     if set(tree) != set(own) | set(children):
         raise ValueError(f"{path or 'params'}: got keys {sorted(tree)}, the "
                          f"config implies {sorted(set(own) | set(children))}")
-    for name, old in own.items():
+    for name in own:
         value = tree[name]
         if isinstance(value, Mapping):          # an MLA norm {"scale": ...}
             value = value["scale"]
+        yield (f"{path}.{name}" if path else name), node, name, value
+    for name, child in children.items():
+        yield from pairs(child, tree[name], f"{path}.{name}" if path
+                         else name)
+
+
+def _load(node: nn.Module, tree, device) -> None:
+    """Replace the (meta) parameters of node by the arrays of tree, in place:
+    same names, shapes checked, each parameter keeping its own dtype."""
+    for path, owner, name, value in pairs(node, tree):
+        old = getattr(owner, name)
         t = _tensor(value, old.dtype, device)
         if t.shape != old.shape:
-            raise ValueError(f"{path}.{name}: got shape {tuple(t.shape)}, "
-                             f"cfg implies {tuple(old.shape)}")
-        setattr(node, name, nn.Parameter(t, requires_grad=False))
-    for name, child in children.items():
-        _load(child, tree[name], device, f"{path}.{name}")
+            raise ValueError(f"{path}: got shape {tuple(t.shape)}, cfg "
+                             f"implies {tuple(old.shape)}")
+        setattr(owner, name, nn.Parameter(t, requires_grad=False))
 
 
 def mla_params_from_numpy(params: Mapping, cfg: MLAConfig,
@@ -86,7 +98,7 @@ def mla_params_from_numpy(params: Mapping, cfg: MLAConfig,
     """{name: array} with norms as {"scale": array} -> the MLA module, each
     parameter checked against the shape cfg implies."""
     mod = MLA(cfg, dtype=dtype, device="meta")
-    _load(mod, params, device, "mla")
+    _load(mod, params, device)
     return mod
 
 
@@ -96,5 +108,5 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig,
     the leading layer axis) -> the port's model parameters (init_model's
     tree), every shape checked against what cfg implies."""
     model = init_model(cfg, device="meta", dtype=dtype)
-    _load(model, tree, device, "params")
+    _load(model, tree, device)
     return model

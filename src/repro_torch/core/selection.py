@@ -37,8 +37,10 @@ def init_indexer(gen, cfg: IndexerConfig, *, dtype=torch.bfloat16,
                  device="cuda"):
     """The lightweight score projections, drawn from gen on device."""
     shape = (cfg.d_model, cfg.d_index)
-    return {"q_proj": param(shape, gen, dtype=dtype, device=device),
-            "k_proj": param(shape, gen, dtype=dtype, device=device)}
+    return {"q_proj": param(shape, gen, dtype=dtype, device=device,
+                            axes=("embed", None)),
+            "k_proj": param(shape, gen, dtype=dtype, device=device,
+                            axes=("embed", None))}
 
 
 def index_scores(p, x_q: torch.Tensor, keys_idx: torch.Tensor) -> torch.Tensor:

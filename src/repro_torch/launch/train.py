@@ -9,9 +9,13 @@ grad-accumulation step -> AdamW -> asynchronous checkpoints ->
 fault-tolerant loop), its weights drawn from seed 0 on --device (cuda by
 default), for any arch id of repro_torch.configs: the VLM and the audio
 model train on the pipeline's stub patch and frame embeddings. Without
---smoke the reference compiles the full config's train
-step for the production mesh; that dry run belongs to the distribution
-substrate (ROADMAP A.12), and the port refuses it.
+--smoke it builds the FULL config's train step on the production mesh
+(16, 16) and runs it on meta tensors over a fake process group, the dry
+run of launch/dryrun.py (cell train_4k, its record under
+build/dryrun_torch/), and exits 0 if and only if the record is ok: where
+a real run on 256 cards would start.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b
 """
 
 import argparse
@@ -50,9 +54,10 @@ def main(argv=None) -> list:
     """Runs the CLI; returns the loop's log."""
     args = build_parser().parse_args(argv)
     if not args.smoke:
-        raise SystemExit(
-            "repro_torch.launch.train: only --smoke runs in the port; the "
-            "full config's production-mesh dry run is ROADMAP A.12")
+        # full config: the production-mesh train step, dry run
+        from repro_torch.launch.dryrun import run_cell
+        rec = run_cell(args.arch, "train_4k", False, force=True)
+        raise SystemExit(0 if rec.get("ok") else 1)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("repro_torch.launch.train: no CUDA device; pass "
                          "--device cpu to train on the CPU")

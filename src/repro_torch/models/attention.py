@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import local_heads
 from repro_torch.models import layers as L
 from repro_torch.models.module import param, zeros
 
@@ -64,14 +65,18 @@ def init_attn(gen, cfg: AttnConfig, *, dtype, device,
     dm, hd = cfg.d_model, cfg.hd
     dkv = d_kv_src or dm
     kw = {"dtype": dtype, "device": device}
-    p = {"q": param((dm, cfg.n_heads, hd), gen, **kw),
-         "k": param((dkv, cfg.n_kv_heads, hd), gen, **kw),
-         "v": param((dkv, cfg.n_kv_heads, hd), gen, **kw),
-         "o": param((cfg.n_heads, hd, dm), gen, **kw)}
+    p = {"q": param((dm, cfg.n_heads, hd), gen, axes=("embed", "heads", None),
+                    **kw),
+         "k": param((dkv, cfg.n_kv_heads, hd), gen, axes=("embed", "kv", None),
+                    **kw),
+         "v": param((dkv, cfg.n_kv_heads, hd), gen, axes=("embed", "kv", None),
+                    **kw),
+         "o": param((cfg.n_heads, hd, dm), gen, axes=("heads", None, "embed"),
+                    **kw)}
     if cfg.qkv_bias:
-        p["q_b"] = zeros((cfg.n_heads, hd), **kw)
-        p["k_b"] = zeros((cfg.n_kv_heads, hd), **kw)
-        p["v_b"] = zeros((cfg.n_kv_heads, hd), **kw)
+        p["q_b"] = zeros((cfg.n_heads, hd), axes=("heads", None), **kw)
+        p["k_b"] = zeros((cfg.n_kv_heads, hd), axes=("kv", None), **kw)
+        p["v_b"] = zeros((cfg.n_kv_heads, hd), axes=("kv", None), **kw)
     if cfg.qk_norm:
         p["q_norm"] = L.init_rmsnorm(hd, **kw)
         p["k_norm"] = L.init_rmsnorm(hd, **kw)
@@ -81,9 +86,9 @@ def init_attn(gen, cfg: AttnConfig, *, dtype, device,
 def _project(p, cfg: AttnConfig, x, x_kv, positions, kv_positions):
     """q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd): the projections, then the
     biases, then qk-norm, then RoPE at rope_theta."""
-    q = torch.einsum("bsm,mhd->bshd", x, p["q"])
-    k = torch.einsum("bsm,mhd->bshd", x_kv, p["k"])
-    v = torch.einsum("bsm,mhd->bshd", x_kv, p["v"])
+    q = L.project_heads(x, p["q"])
+    k = L.project_heads(x_kv, p["k"])
+    v = L.project_heads(x_kv, p["v"])
     if "q_b" in p:
         q, k, v = q + p["q_b"], k + p["k_b"], v + p["v_b"]
     if "q_norm" in p:
@@ -104,16 +109,22 @@ def _sdpa(cfg: AttnConfig, q, k, v, mask):
     pairs that attend, or None. GQA: the query heads fold into Hkv groups of
     H / Hkv. The products in f32 from operands cast to f32 (see the module
     docstring); returns (B, Sq, H, d) in q's dtype."""
-    groups = cfg.n_heads // cfg.n_kv_heads
-    B, Sq, H, d = q.shape
     ct = L.compute_dtype(q.dtype)
-    qg = q.reshape(B, Sq, cfg.n_kv_heads, groups, d).to(ct)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(ct)) * cfg.scale
-    if mask is not None:
-        logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(ct))
-    return o.reshape(B, Sq, H, d).to(q.dtype)
+
+    def attend(q, k, v):
+        B, Sq, H, d = q.shape
+        hkv = k.shape[2]                 # a shard's kv heads and its groups
+        qg = q.reshape(B, Sq, hkv, H // hkv, d)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * cfg.scale
+        if mask is not None:
+            logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+        return o.reshape(B, Sq, H, d)
+
+    # on a mesh: each (batch row, kv head group) on its own shard
+    return local_heads(attend, [q.to(ct), k.to(ct), v.to(ct)],
+                       (2, 2, 2)).to(q.dtype)
 
 
 def attention(p, cfg: AttnConfig, x, positions, x_kv=None, kv_positions=None,
@@ -132,7 +143,7 @@ def attention(p, cfg: AttnConfig, x, positions, x_kv=None, kv_positions=None,
                             device=x.device).tril(Sk - Sq)[None]
         mask = causal if mask is None else (mask & causal)
     out = _sdpa(cfg, q, k, v, mask)
-    out = torch.einsum("bshd,hdm->bsm", out, p["o"])
+    out = L.merge_heads(out, p["o"])
     return out, (k, v)
 
 
@@ -153,5 +164,5 @@ def decode_step(p, cfg: AttnConfig, x, kv_cache, positions, cache_len=None):
         valid = (pos < cache_len.to(x.device)[:, None]) | (pos == S - 1)
         mask = valid[:, None, :]                    # (B, Sq=1, Sk=S)
     out = _sdpa(cfg, q, k, v, mask)
-    out = torch.einsum("bshd,hdm->bsm", out, p["o"])
+    out = L.merge_heads(out, p["o"])
     return out, (k_new, v_new)

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (is_dtensor,
+                                              vocab_parallel_embedding)
 from repro_torch.models.module import ones, param, zeros
 
 
@@ -30,7 +32,7 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def init_rmsnorm(d: int, *, dtype, device):
-    return {"scale": ones((d,), dtype=dtype, device=device)}
+    return {"scale": ones((d,), dtype=dtype, device=device, axes=("embed",))}
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
@@ -43,8 +45,8 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
 
 
 def init_layernorm(d: int, *, dtype, device):
-    return {"scale": ones((d,), dtype=dtype, device=device),
-            "bias": zeros((d,), dtype=dtype, device=device)}
+    return {"scale": ones((d,), dtype=dtype, device=device, axes=("embed",)),
+            "bias": zeros((d,), dtype=dtype, device=device, axes=("embed",))}
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -61,11 +63,13 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 # Dense / MLP
 # ---------------------------------------------------------------------------
 
-def init_dense(gen, d_in: int, d_out: int, *, bias: bool = False, dtype,
-               device):
-    p = {"w": param((d_in, d_out), gen, dtype=dtype, device=device)}
+def init_dense(gen, d_in: int, d_out: int, axes, *, bias: bool = False,
+               dtype, device):
+    """w (d_in, d_out) on the logical axes `axes`; b (d_out,) on axes[1]."""
+    p = {"w": param((d_in, d_out), gen, dtype=dtype, device=device,
+                    axes=axes)}
     if bias:
-        p["b"] = zeros((d_out,), dtype=dtype, device=device)
+        p["b"] = zeros((d_out,), dtype=dtype, device=device, axes=axes[1:])
     return p
 
 
@@ -76,19 +80,37 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., M) through a head projection w (M, H, D) -> (..., H, D): one
+    product over (M, H * D), the einsum "...m,mhd->...hd". Written with the
+    head dim outermost in every flattened pair, so a DTensor sharded over
+    the heads keeps its layout through the views."""
+    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """o (..., H, D) through an output projection w (H, D, M) -> (..., M):
+    one product over (H * D, M), the einsum "...hd,hdm->...m" (see
+    project_heads)."""
+    return o.flatten(-2) @ w.flatten(0, 1)
+
+
 def init_mlp(gen, d_model: int, d_ff: int, kind: str = "swiglu", *, dtype,
              device):
     """kind: swiglu (gate+up+down) | squared_relu (up+down) | gelu (up+down,
     with biases). Drawn in the reference's order: gate, up, down."""
     p = {}
     if kind == "swiglu":
-        p["gate"] = init_dense(gen, d_model, d_ff, dtype=dtype, device=device)
-        p["up"] = init_dense(gen, d_model, d_ff, dtype=dtype, device=device)
-    else:
-        p["up"] = init_dense(gen, d_model, d_ff, bias=(kind == "gelu"),
+        p["gate"] = init_dense(gen, d_model, d_ff, ("embed", "mlp"),
+                               dtype=dtype, device=device)
+        p["up"] = init_dense(gen, d_model, d_ff, ("embed", "mlp"),
                              dtype=dtype, device=device)
-    p["down"] = init_dense(gen, d_ff, d_model, bias=(kind == "gelu"),
-                           dtype=dtype, device=device)
+    else:
+        p["up"] = init_dense(gen, d_model, d_ff, ("embed", "mlp"),
+                             bias=(kind == "gelu"), dtype=dtype,
+                             device=device)
+    p["down"] = init_dense(gen, d_ff, d_model, ("mlp", "embed"),
+                           bias=(kind == "gelu"), dtype=dtype, device=device)
     return p
 
 
@@ -110,10 +132,14 @@ def mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
 
 def init_embed(gen, vocab: int, d_model: int, *, dtype, device):
     return {"table": param((vocab, d_model), gen, dtype=dtype, device=device,
-                           scale=1.0)}
+                           scale=1.0, axes=("vocab", "embed"))}
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    """The table's rows at tokens; a DTensor table's vocab-parallel
+    (distributed.sharding.vocab_parallel_embedding)."""
+    if is_dtensor(p["table"]):
+        return vocab_parallel_embedding(p["table"], tokens)
     return p["table"][tokens]
 
 

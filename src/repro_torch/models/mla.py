@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.merge import Partial, partial_from_logits
+from repro_torch.distributed.sharding import local_heads
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.kernels.sparse_select import sparse_select
@@ -74,22 +75,27 @@ class MLAConfig:
         return self.kv_lora_rank + self.qk_rope_head_dim
 
 
-def param_shapes(cfg: MLAConfig):
-    """{name: shape} of the MLA parameters cfg implies."""
+def param_specs(cfg: MLAConfig):
+    """{name: (shape, logical axes)} of the MLA parameters cfg implies, in
+    init order (a norm's axes are its scale's in the reference)."""
     h, dm = cfg.n_heads, cfg.d_model
-    shapes = {}
+    specs = {}
     if cfg.q_lora_rank:
-        shapes["q_down"] = (dm, cfg.q_lora_rank)
-        shapes["q_norm"] = (cfg.q_lora_rank,)
-        shapes["q_up"] = (cfg.q_lora_rank, h, cfg.qk_head_dim)
+        specs["q_down"] = ((dm, cfg.q_lora_rank), ("embed", None))
+        specs["q_norm"] = ((cfg.q_lora_rank,), ("embed",))
+        specs["q_up"] = ((cfg.q_lora_rank, h, cfg.qk_head_dim),
+                         (None, "heads", None))
     else:
-        shapes["q_proj"] = (dm, h, cfg.qk_head_dim)
-    shapes["kv_down"] = (dm, cfg.kv_lora_rank + cfg.qk_rope_head_dim)
-    shapes["kv_norm"] = (cfg.kv_lora_rank,)
-    shapes["k_up"] = (cfg.kv_lora_rank, h, cfg.qk_nope_head_dim)
-    shapes["v_up"] = (cfg.kv_lora_rank, h, cfg.v_head_dim)
-    shapes["o_proj"] = (h, cfg.v_head_dim, dm)
-    return shapes
+        specs["q_proj"] = ((dm, h, cfg.qk_head_dim), ("embed", "heads", None))
+    specs["kv_down"] = ((dm, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                        ("embed", None))
+    specs["kv_norm"] = ((cfg.kv_lora_rank,), ("embed",))
+    specs["k_up"] = ((cfg.kv_lora_rank, h, cfg.qk_nope_head_dim),
+                     (None, "heads", None))
+    specs["v_up"] = ((cfg.kv_lora_rank, h, cfg.v_head_dim),
+                     (None, "heads", None))
+    specs["o_proj"] = ((h, cfg.v_head_dim, dm), ("heads", None, "embed"))
+    return specs
 
 
 class MLA(nn.Module):
@@ -102,7 +108,9 @@ class MLA(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        for name, shape in param_shapes(cfg).items():
+        self._axes = {}
+        for name, (shape, axes) in param_specs(cfg).items():
+            self._axes[name] = axes
             if name.endswith("_norm"):
                 t = ones(shape, dtype=dtype, device=device)
             else:
@@ -122,9 +130,9 @@ def project_q(p: MLA, cfg: MLAConfig, x, positions):
     """x (B, S, D) -> q_nope (B, S, H, dn), q_rope (B, S, H, dr) (rotated)."""
     if cfg.q_lora_rank:
         qc = L.rmsnorm(p.q_norm, x @ p.q_down)
-        q = torch.einsum("bsc,chd->bshd", qc, p.q_up)
+        q = L.project_heads(qc, p.q_up)
     else:
-        q = torch.einsum("bsm,mhd->bshd", x, p.q_proj)
+        q = L.project_heads(x, p.q_proj)
     q_nope = q[..., :cfg.qk_nope_head_dim]
     q_rope = q[..., cfg.qk_nope_head_dim:]
     cos, sin = L.rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta,
@@ -154,7 +162,7 @@ def unabsorb_output(p: MLA, cfg: MLAConfig, o_latent):
     """Latent partial output (B, S, H, d_c) -> model output (B, S, D):
     fold W_uv then o_proj."""
     o = torch.einsum("bshc,chd->bshd", o_latent, p.v_up)
-    return torch.einsum("bshd,hdm->bsm", o, p.o_proj)
+    return L.merge_heads(o, p.o_proj)
 
 
 # ---------------------------------------------------------------------------
@@ -279,8 +287,10 @@ def mla_attention(p: MLA, cfg: MLAConfig, x, positions, *,
     q_nope, q_rope = project_q(p, cfg, x, positions)
     q_abs = absorb_query(p, cfg, q_nope, q_rope)            # (B, S, H, d_qk)
     entries = latent_cache_entries(p, cfg, x, positions)    # (B, S, d_qk)
-    o_lat = prefill_fn(q_abs.contiguous(), entries.contiguous(),
-                       d_v=cfg.kv_lora_rank, scale=cfg.scale)
+    o_lat = local_heads(
+        lambda q, c: prefill_fn(q.contiguous(), c.contiguous(),
+                                d_v=cfg.kv_lora_rank, scale=cfg.scale),
+        [q_abs, entries], (2, None))
     return unabsorb_output(p, cfg, o_lat.to(x.dtype)), entries
 
 
@@ -304,12 +314,21 @@ def mla_attention_train(p: MLA, cfg: MLAConfig, x, positions):
     entries = latent_cache_entries(p, cfg, x, positions)    # (B, S, d_qk)
     c_kv = entries[..., :cfg.kv_lora_rank]
     k_rope = entries[..., cfg.kv_lora_rank:]
-    k_nope = torch.einsum("bsc,chd->bshd", c_kv, p.k_up)
-    v = torch.einsum("bsc,chd->bshd", c_kv, p.v_up)
-    logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.to(ct), k_nope.to(ct))
-              + torch.einsum("bqhd,bkd->bhqk", q_rope.to(ct),
-                             k_rope.to(ct))) * cfg.scale
-    causal = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-    probs = torch.softmax(logits.masked_fill(~causal, float("-inf")), dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(ct)).to(x.dtype)
-    return torch.einsum("bshd,hdm->bsm", o, p.o_proj), entries
+    k_nope = L.project_heads(c_kv, p.k_up)
+    v = L.project_heads(c_kv, p.v_up)
+
+    def attend(q_nope, k_nope, q_rope, k_rope, v):
+        logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+                  + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)) \
+            * cfg.scale
+        causal = torch.ones((S, S), dtype=torch.bool,
+                            device=logits.device).tril()
+        probs = torch.softmax(logits.masked_fill(~causal, float("-inf")),
+                              dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+    # on a mesh: each (batch row, head) on its own shard (local_heads)
+    o = local_heads(attend, [q_nope.to(ct), k_nope.to(ct), q_rope.to(ct),
+                             k_rope.to(ct), v.to(ct)],
+                    (2, 2, 2, None, 2)).to(x.dtype)
+    return L.merge_heads(o, p.o_proj), entries

@@ -34,6 +34,16 @@ leading layer axes, as the reference's do:
   * audio: {"blocks": ((k, v) of self-attention (L, B, S, Hkv, hd), (k, v)
     of cross-attention (L, B, S_enc, Hkv, hd))}.
 
+On a mesh (distributed.sharding, distributed.policy) the parameters and
+the batch are DTensors and the step runs under a sharding policy: the
+residual stream is constrained between blocks (sequence-parallel), a
+block's normalised input has its sequence gathered ("block_in"), a
+branch's output joins the residual in the residual's layout (_add); the
+MoE runs its expert-parallel form on local tensors (_moe_call), the
+attention cores per (batch row, head) shard (sharding.local_heads), the
+cross-entropy vocab-parallel. Without a policy every constraint is a no-op
+and the code is the single-device model's.
+
 The serving form's attention, prefill and intra-chunk inner ops are an
 explicit argument (`ops`), as the reference's
 absorbed_decode(partial_fn=...) and ssd_chunked(use_kernel=...) are:
@@ -49,11 +59,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import policy as POL
+from repro_torch.distributed.sharding import (axis_sizes, dp_entry,
+                                              local_inputs, placements)
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
 from repro_torch.kernels.mla_decode import mla_decode, mla_decode_ref
 from repro_torch.kernels.sparse_select import sparse_select, sparse_select_ref
@@ -126,9 +140,14 @@ class ModelConfig:
                 else L.init_layernorm)
 
     def norm_apply(self):
+        """The norm; its output is a block's input, constrained as the
+        policy's "block_in" (the sequence gathered before the projections,
+        Megatron-SP; a no-op without a policy)."""
         if self.norm_kind == "rmsnorm":
-            return lambda p, x: L.rmsnorm(p["scale"], x)
-        return L.layernorm
+            norm = lambda p, x: L.rmsnorm(p["scale"], x)
+        else:
+            norm = L.layernorm
+        return lambda p, x: POL.constrain(norm(p, x), "block_in")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +167,72 @@ PLAIN = Ops(flash_prefill_ref, mla_decode_ref, sparse_select_ref,
             ssd_intra_chunk_ref)
 
 
+# ---------------------------------------------------------------------------
+# MoE execution: under a sharding policy whose mesh has a `model` dim, the
+# expert layer runs on local tensors (the reference runs it under
+# shard_map): activations replicated over `model` within a data shard, each
+# shard computes its resident experts, one all-reduce over `model`
+# combines. DTensor has no sharding rule for the dispatch's argsort or
+# searchsorted.
+# ---------------------------------------------------------------------------
+
+# each MoE parameter's spec inside the block: the expert stacks over
+# `model`, the shared FFN's width over `model`, the router replicated
+_MOE_SPECS = {"router": (), "gate": ("model",), "up": ("model",),
+              "down": ("model",), "sh_gate": (None, "model"),
+              "sh_up": (None, "model"), "sh_down": ("model",)}
+
+
+def _moe_spec(name: str, ep: str):
+    """_MOE_SPECS[name] with the expert dim named ep."""
+    return tuple(ep if a == "model" else a for a in _MOE_SPECS[name])
+
+
+def _moe_call(p_moe, cfg: ModelConfig, x, routes=None, pinned=None,
+              ep_axis: Optional[str] = None):
+    """moe_apply, or under a policy whose mesh has the dim ep_axis (None:
+    "model") its expert-parallel form over that dim: x (B, S, D)
+    and the parameters brought to the block's placements and taken as
+    local tensors, each local gradient declared for what it is (a sum over
+    the data shards and the expert dim's ranks, or a shard), the aux term
+    averaged over the data shards. Returns (y as a DTensor, aux); `routes`
+    gets this shard's top-k indices as a DTensor over the batch."""
+    pol = POL.current()
+    sizes = {} if pol is None else axis_sizes(pol.mesh)
+    ep = ep_axis or "model"
+    if ep not in sizes:
+        return MOE.moe_apply(p_moe, cfg.moe, x, routes, pinned=pinned)
+    if pinned is not None:
+        raise ValueError("pinned routes are not taken under a sharding "
+                         "policy")
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, names = pol.mesh, list(sizes)
+    dp = [a for a in ("pod", "data") if a in sizes]
+    n_dp = math.prod(sizes[a] for a in dp)
+    split = bool(dp) and x.shape[0] % n_dp == 0   # tokens split over dp
+    x_spec = (dp_entry(mesh) if split else None, None, None)
+    # the block is split over the expert dim (the stacks, the shared
+    # FFN's width) and the data dims that split the tokens: the router's
+    # and x's local gradients are partial sums over those (local_inputs)
+    keys = [k for k, _ in p_moe.named_parameters()]
+    *local, xl = local_inputs(mesh, [(p_moe[k], _moe_spec(k, ep))
+                                     for k in keys] + [(x, x_spec)])
+    own = []
+    y, aux = MOE.moe_apply(dict(zip(keys, local)), cfg.moe, xl, own,
+                           ep_axis=MOE.ExpertAxis(mesh, ep))
+    out_pl = placements(x_spec, mesh)
+    if routes is not None:
+        routes.append(DTensor.from_local(own[0], mesh, out_pl,
+                                         run_check=False))
+    # the mean over the data shards as a sum of aux / (n_dp * n_model),
+    # partial over those dims: each rank's gradient is then its share
+    n_sum = (n_dp if split else 1) * sizes[ep]
+    aux = DTensor.from_local(
+        aux / n_sum, mesh,
+        [Partial() if a == ep or (split and a in dp) else Replicate()
+         for a in names], run_check=False)
+    return (DTensor.from_local(y, mesh, out_pl, run_check=False),
+            aux.redistribute(mesh, [Replicate()] * len(names)))
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +334,18 @@ def _training(cfg: ModelConfig) -> _Form:
 
 
 def _run(fn, x, remat: bool):
-    return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    """fn(x), under checkpoint with remat. The recompute in backward runs
+    under the sharding policy of the forward: on the card the autograd
+    engine runs backward in a thread of its own, which the policy's
+    context variable does not reach."""
+    if not remat:
+        return fn(x)
+    pol = POL.current()
+
+    def body(h):
+        with POL.use_policy(pol):
+            return fn(h)
+    return checkpoint(body, x, use_reentrant=False)
 
 
 def _stacked(entries):
@@ -265,8 +361,18 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
+def _add(x, y):
+    """x + y for a block's branch output y joining the residual x: under a
+    policy y first takes the residual's layout (a reduce-scatter of its
+    partial sums over `model`), so that its gradient comes back to the
+    branch in the branch's own layout, the sequence whole: a gradient
+    sharded over the sequence would reach the branch's product, whose view
+    of (batch, sequence) as one dim torch 2.11's DTensor refuses."""
+    return x + POL.constrain(y, "residual")
+
+
 def _block(lp, cfg: ModelConfig, form: _Form, moe_block: bool, positions,
-           pinned, x):
+           pinned, ep_axis, x):
     """One transformer layer: x (B, S, D) -> (x', its cache entry, MoE aux
     or None, the MoE layer's top-k indices (T, k) or None). The indices are
     returned, not appended to a caller's list, so a block recomputed in
@@ -277,13 +383,13 @@ def _block(lp, cfg: ModelConfig, form: _Form, moe_block: bool, positions,
         attn_out, entry = form.mla(lp["attn"], cfg.mla, h, positions)
     else:
         attn_out, entry = A.attention(lp["attn"], cfg.attn_cfg, h, positions)
-    x = x + attn_out
+    x = _add(x, attn_out)
     h = na(lp["ln2"], x)
     if moe_block:
         idx = []
-        mo, aux = MOE.moe_apply(lp["moe"], cfg.moe, h, idx, pinned=pinned)
-        return x + mo, entry, aux, idx[0]
-    return x + L.mlp(lp["mlp"], h, cfg.mlp_kind), entry, None, None
+        mo, aux = _moe_call(lp["moe"], cfg, h, idx, pinned, ep_axis)
+        return _add(x, mo), entry, aux, idx[0]
+    return _add(x, L.mlp(lp["mlp"], h, cfg.mlp_kind)), entry, None, None
 
 
 def _mamba_layer(lp, cfg: ModelConfig, form: _Form, x):
@@ -291,13 +397,14 @@ def _mamba_layer(lp, cfg: ModelConfig, form: _Form, x):
     y, state = SSM.mamba2_forward(lp["mamba"], cfg.ssm,
                                   cfg.norm_apply()(lp["ln"], x),
                                   intra=form.intra)
-    return x + y, state
+    return _add(x, y), state
 
 
 def _mamba_stack(stack, cfg: ModelConfig, form: _Form, x,
                  with_caches: bool):
     states = []
     for lp in stack:
+        x = POL.constrain(x, "residual")
         x, st = _run(functools.partial(_mamba_layer, lp, cfg, form), x,
                      form.remat)
         if with_caches:
@@ -314,11 +421,12 @@ def _hybrid(params, cfg: ModelConfig, form: _Form, x, positions,
     sa = params["shared_attn"]
     groups = []
     for gp in params["groups"]:
+        x = POL.constrain(x, "residual")
         x, states = _mamba_stack(gp, cfg, form, x, with_caches)
         attn_out, kv = A.attention(sa["attn"], cfg.attn_cfg,
                                    na(sa["ln"], x), positions)
-        x = x + attn_out
-        x = x + L.mlp(sa["mlp"], na(sa["ln2"], x), cfg.mlp_kind)
+        x = _add(x, attn_out)
+        x = _add(x, L.mlp(sa["mlp"], na(sa["ln2"], x), cfg.mlp_kind))
         if with_caches:
             groups.append((states, kv))
     rem = None
@@ -343,10 +451,11 @@ def _audio(params, cfg: ModelConfig, form: _Form, batch, with_caches: bool):
 
     def enc_block(lp, h):
         ao, _ = A.attention(lp["attn"], enc_cfg, na(lp["ln1"], h), pos_e)
-        h = h + ao
-        return h + L.mlp(lp["mlp"], na(lp["ln2"], h), cfg.mlp_kind)
+        h = _add(h, ao)
+        return _add(h, L.mlp(lp["mlp"], na(lp["ln2"], h), cfg.mlp_kind))
 
     for lp in params["enc_blocks"]:
+        xe = POL.constrain(xe, "residual")
         xe = _run(functools.partial(enc_block, lp), xe, form.remat)
     xe = na(params["enc_norm"], xe)
 
@@ -356,15 +465,16 @@ def _audio(params, cfg: ModelConfig, form: _Form, batch, with_caches: bool):
     def dec_block(lp, h):
         ao, self_kv = A.attention(lp["attn"], cfg.attn_cfg, na(lp["ln1"], h),
                                   pos_d)
-        h = h + ao
+        h = _add(h, ao)
         xo, cross_kv = A.attention(lp["xattn"], enc_cfg, na(lp["lnx"], h),
                                    pos_d, x_kv=xe, kv_positions=pos_e)
-        h = h + xo
-        return (h + L.mlp(lp["mlp"], na(lp["ln2"], h), cfg.mlp_kind),
+        h = _add(h, xo)
+        return (_add(h, L.mlp(lp["mlp"], na(lp["ln2"], h), cfg.mlp_kind)),
                 (self_kv, cross_kv))
 
     entries = []
     for lp in params["blocks"]:
+        x = POL.constrain(x, "residual")
         x, e = _run(functools.partial(dec_block, lp), x, form.remat)
         if with_caches:
             entries.append(e)
@@ -372,14 +482,17 @@ def _audio(params, cfg: ModelConfig, form: _Form, batch, with_caches: bool):
 
 
 def _hidden(params, cfg: ModelConfig, batch, form: _Form, *, routes=None,
-            pinned=None, with_caches: bool = False):
+            pinned=None, with_caches: bool = False,
+            ep_axis: Optional[str] = None):
     """batch -> (the last layer's output at the text positions (B, S, D),
     caches ({} without with_caches), MoE aux). batch holds "tokens" (B, S),
     and "patch_embeds" (B, vlm_patches, D) for the VLM (placed ahead of the
     text) or "frame_embeds" (B, S_enc, D) for the audio model. When
     `routes` is a list, every MoE layer appends its top-k indices (T, k) to
     it once, in layer order; `pinned`, such a list (another run's), makes
-    each MoE layer take its entry in place of its own top-k."""
+    each MoE layer take its entry in place of its own top-k. ep_axis: the
+    mesh dim the MoE experts split over under a sharding policy (None:
+    "model")."""
     aux = torch.zeros((), dtype=torch.float32,
                       device=batch["tokens"].device)
     if cfg.family == "audio":
@@ -407,7 +520,9 @@ def _hidden(params, cfg: ModelConfig, batch, form: _Form, *, routes=None,
                 fn = functools.partial(_block, lp, cfg, form, moe_block,
                                        positions,
                                        next(pinned, None) if moe_block
-                                       else None)
+                                       else None, ep_axis)
+                # the sequence-parallel residual (a no-op without a policy)
+                x = POL.constrain(x, "residual")
                 x, e, a, idx = _run(fn, x, form.remat)
                 if a is not None:
                     aux = aux + a
@@ -449,7 +564,8 @@ def prefill(params, cfg: ModelConfig, batch, *, ops: Ops = KERNELS,
 
 def train_forward(params, cfg: ModelConfig, batch, *,
                   routes: Optional[list] = None,
-                  pinned_routes: Optional[list] = None):
+                  pinned_routes: Optional[list] = None,
+                  ep_axis: Optional[str] = None):
     """batch (see _hidden) -> (logits (B, S, V) over the text positions,
     aux): the train form of every layer; with cfg.remat each block runs
     under torch.utils.checkpoint (non-reentrant), the counterpart of the
@@ -457,20 +573,22 @@ def train_forward(params, cfg: ModelConfig, batch, *,
     `routes` is a list, every MoE layer appends its top-k indices (T, k)
     once, in layer order; `pinned_routes`, such a list (another run's),
     makes each MoE layer take its entry in place of its own top-k
-    (moe_apply(pinned=...))."""
+    (moe_apply(pinned=...)). ep_axis: see _hidden."""
     x, _, aux = _hidden(params, cfg, batch, _training(cfg), routes=routes,
-                        pinned=pinned_routes)
+                        pinned=pinned_routes, ep_axis=ep_axis)
     return _logits(params, cfg, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *,
-            routes: Optional[list] = None):
+            routes: Optional[list] = None, ep_axis: Optional[str] = None):
     """Mean next-token cross-entropy of batch {"tokens", "targets": (B, S),
     and the family's stub inputs} plus 0.01 x the MoE aux term. The
     cross-entropy runs in chunks of the sequence, the largest chunk of at
     most cfg.loss_chunk that divides S, each chunk's logits in f32 (f64 for
     an f64 model)."""
-    logits, aux = train_forward(params, cfg, batch, routes=routes)
+    logits, aux = train_forward(params, cfg, batch, routes=routes,
+                                ep_axis=ep_axis)
+    logits = POL.constrain(logits, "logits")
     targets = batch["targets"].long()
     B, S, _ = logits.shape
     n_chunks = max(1, S // min(cfg.loss_chunk, S))
@@ -482,9 +600,76 @@ def loss_fn(params, cfg: ModelConfig, batch, *,
     for i in range(n_chunks):
         lg = logits[:, i * chunk:(i + 1) * chunk].to(ct)
         tg = targets[:, i * chunk:(i + 1) * chunk]
-        gold = torch.gather(lg, -1, tg[..., None])[..., 0]
-        total = total + torch.sum(torch.logsumexp(lg, dim=-1) - gold)
-    return total / (B * chunk * n_chunks) + 0.01 * aux
+        total = total + _ce_sum(lg, tg)
+    loss = total / (B * chunk * n_chunks) + 0.01 * aux
+    return _replicated(loss)
+
+
+def _replicated(t):
+    """A DTensor as a replicated one (a scalar loss partial over the data
+    shards is all-reduced); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _ce_sum(lg, tg):
+    """The sum over (B, c) of logsumexp(lg) - lg at the target: lg (B, c, V)
+    in the compute dtype, tg (B, c) int64."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(lg, DTensor):
+        return _ce_sum_vocab_parallel(lg, tg)
+    gold = torch.gather(lg, -1, tg[..., None])[..., 0]
+    return torch.sum(torch.logsumexp(lg, dim=-1) - gold)
+
+
+def _ce_sum_vocab_parallel(lg, tg):
+    """_ce_sum of DTensor logits, vocab-parallel (Megatron-style) on local
+    tensors: the logits brought to tokens over the data dims and the vocab
+    over `model` (each where it divides), then the max (as a stabiliser,
+    no gradient), the sum of exponentials and the target's logit each
+    all-reduced over `model`. DTensor's gather over the sharded vocab dim
+    has no reduction that works here. Returns a DTensor scalar, a partial
+    sum over the data dims that split the tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = lg.device_mesh
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
+    dp = [a for a in ("pod", "data") if a in sizes]
+    B, _, V = lg.shape
+    b_entry = dp_entry(mesh) if dp and \
+        B % math.prod(sizes[a] for a in dp) == 0 else None
+    v_split = "model" in sizes and V % sizes["model"] == 0
+    if not isinstance(tg, DTensor):
+        tg = DTensor.from_local(tg, mesh, [Replicate()] * len(names),
+                                run_check=False)
+    local, tg_l = local_inputs(mesh, [
+        (lg, (b_entry, None, "model" if v_split else None)),
+        (tg, (b_entry, None))])
+    tok = placements((b_entry, None), mesh)
+
+    def over_vocab(t, op="sum"):
+        if not v_split:
+            return t
+        part = [Partial(op) if a == "model" else p
+                for a, p in zip(names, tok)]
+        return DTensor.from_local(t, mesh, part, run_check=False) \
+            .redistribute(mesh, tok).to_local()
+
+    v_loc = local.shape[-1]
+    off = mesh.get_local_rank("model") * v_loc if v_split else 0
+    m = over_vocab(local.detach().amax(dim=-1), "max")
+    lse = m + torch.log(over_vocab(
+        torch.sum(torch.exp(local - m[..., None]), dim=-1)))
+    mine = (tg_l >= off) & (tg_l < off + v_loc)
+    idx = torch.where(mine, tg_l - off, 0)
+    gold = over_vocab(torch.where(
+        mine, torch.gather(local, -1, idx[..., None])[..., 0], 0.0))
+    return DTensor.from_local(torch.sum(lse - gold), mesh,
+                              [Partial() if b_entry and a in dp
+                               else Replicate() for a in names],
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -621,7 +806,7 @@ def _gqa_decode_cached(p, acfg: A.AttnConfig, x, cache, positions,
     k_cache[:, widx] = k_new[:, 0]
     v_cache[:, widx] = v_new[:, 0]
     out = A._sdpa(acfg, q, k_cache, v_cache, None)
-    return torch.einsum("bshd,hdm->bsm", out, p["o"])
+    return L.merge_heads(out, p["o"])
 
 
 def _layer(cache, i: int):
@@ -670,10 +855,9 @@ def _decode_audio(params, cfg: ModelConfig, state, x, pos, widx: int):
                                    na(lp["ln1"], x),
                                    _layer(state["self"], i), pos, widx)
         ck, cv = _layer(state["cross"], i)
-        q = torch.einsum("bsm,mhd->bshd", na(lp["lnx"], x),
-                         lp["xattn"]["q"])
+        q = L.project_heads(na(lp["lnx"], x), lp["xattn"]["q"])
         xo = A._sdpa(enc_cfg, q, ck, cv, None)
-        x = x + torch.einsum("bshd,hdm->bsm", xo, lp["xattn"]["o"])
+        x = x + L.merge_heads(xo, lp["xattn"]["o"])
         x = x + L.mlp(lp["mlp"], na(lp["ln2"], x), cfg.mlp_kind)
     return x
 
@@ -709,7 +893,7 @@ def decode_step(params, cfg: ModelConfig, state, token, pos, widx: int, *,
                                                cache, pos, widx)
                 h = na(lp["ln2"], x)
                 if moe_block:
-                    x = x + MOE.moe_apply(lp["moe"], cfg.moe, h, routes)[0]
+                    x = x + _moe_call(lp["moe"], cfg, h, routes)[0]
                 else:
                     x = x + L.mlp(lp["mlp"], h, cfg.mlp_kind)
     logits = L.unembed(params["embed"], na(params["final_norm"], x))

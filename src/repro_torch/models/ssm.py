@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk
 from repro_torch.models import layers as L
-from repro_torch.models.module import param, zeros
+from repro_torch.models.module import ones, param, tag, zeros
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,16 +52,18 @@ def init_mamba2(gen, cfg: Mamba2Config, *, dtype, device):
     f32 = torch.float32
     return {
         "in_proj": param((cfg.d_model, 2 * di + 2 * n + h), gen, dtype=dtype,
-                         device=device),
+                         device=device, axes=("embed", "mlp")),
         "conv_w": param((cfg.d_conv, di + 2 * n), gen, dtype=dtype,
-                        device=device, scale=0.5),
-        "conv_b": zeros((di + 2 * n,), dtype=dtype, device=device),
-        "a_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=f32,
-                                          device=device)),
-        "dt_bias": zeros((h,), dtype=f32, device=device),
-        "d_skip": torch.ones((h,), dtype=f32, device=device),
+                        device=device, scale=0.5, axes=(None, "mlp")),
+        "conv_b": zeros((di + 2 * n,), dtype=dtype, device=device,
+                        axes=("mlp",)),
+        "a_log": tag(torch.log(torch.linspace(1.0, 16.0, h, dtype=f32,
+                                              device=device)), ("heads",)),
+        "dt_bias": zeros((h,), dtype=f32, device=device, axes=("heads",)),
+        "d_skip": ones((h,), dtype=f32, device=device, axes=("heads",)),
         "norm": L.init_rmsnorm(di, dtype=dtype, device=device),
-        "out_proj": param((di, cfg.d_model), gen, dtype=dtype, device=device),
+        "out_proj": param((di, cfg.d_model), gen, dtype=dtype, device=device,
+                          axes=("mlp", "embed")),
     }
 
 

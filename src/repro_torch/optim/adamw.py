@@ -38,10 +38,11 @@ def _leaves(params) -> list:
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
     """{"m": [zeros], "v": [zeros], "step": 0-d int32}, the moments in
-    cfg.state_dtype on each parameter's device."""
+    cfg.state_dtype on each parameter's device (a DTensor parameter's on its
+    placements)."""
     leaves = _leaves(params)
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.state_dtype,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.state_dtype,
+                                       memory_format=torch.contiguous_format)
     return {"m": [zeros(p) for p in leaves],
             "v": [zeros(p) for p in leaves],
             "step": torch.zeros((), dtype=torch.int32,

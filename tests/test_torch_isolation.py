@@ -104,6 +104,33 @@ def test_import_leaves_jax_and_repro_out():
     assert "ISOLATED" in res.stdout
 
 
+# the distribution and launch modules (ROADMAP A.12), named: imported in a
+# fresh interpreter, none pulls in jax or the JAX package
+DISTRIBUTION = ("repro_torch.distributed.sharding",
+                "repro_torch.distributed.policy",
+                "repro_torch.distributed.collective_matmul",
+                "repro_torch.distributed.step_costs",
+                "repro_torch.launch.mesh", "repro_torch.launch.input_specs",
+                "repro_torch.launch.dryrun", "repro_torch.optim.compress")
+
+
+def test_distribution_modules_leave_jax_and_repro_out():
+    prog = (
+        "import importlib, sys\n"
+        f"for n in {DISTRIBUTION!r}:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ISOLATED')\n")
+    res = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr
+    assert "ISOLATED" in res.stdout
+
+
 def test_no_source_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30

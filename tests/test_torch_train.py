@@ -403,9 +403,20 @@ def test_cli_smoke_on_cpu(tmp_path):
                         r"checkpoints: \[2, 4\]", lines[-1])
 
 
-def test_cli_refuses_the_full_config_and_a_missing_card():
-    with pytest.raises(SystemExit, match="A.12"):
-        launch_train.main(["--arch", "mamba2-370m", "--device", "cpu"])
+def test_cli_refuses_the_full_config_and_a_missing_card(monkeypatch):
+    """Without --smoke the full config goes to the production-mesh dry run
+    (launch/dryrun.run_cell, train_4k on (16, 16)): exit 0 if and only if
+    its record is ok (the dry run itself: tests/test_torch_dryrun.py)."""
+    from repro_torch.launch import dryrun
+    calls = []
+    for ok, code in ((True, 0), (False, 1)):
+        monkeypatch.setattr(dryrun, "run_cell", lambda *a, **k: (
+            calls.append((a, k)), {"ok": ok})[1])
+        with pytest.raises(SystemExit) as exc:
+            launch_train.main(["--arch", "mamba2-370m", "--device", "cpu"])
+        assert exc.value.code == code
+    assert calls == [(("mamba2-370m", "train_4k", False),
+                      {"force": True})] * 2
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             launch_train.main(["--arch", "mamba2-370m", "--smoke"])
