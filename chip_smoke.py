@@ -54,7 +54,10 @@ package. Phases, each fatal on failure:
    (StepStats equal to the analytic run, fused against serial within
    1e-6); each step's measured stage walls beside the analytic ones (serial:
    host wall and CUDA-event time), the fused phase_wall_total, one fused
-   step's kernels by stream under the profiler;
+   step's kernels by stream under the profiler; the mesh indexer (scoring
+   on the holder's stream) choosing a host IndexerService's blocks for
+   every (step, request, chunk) of the selection serves and the selection
+   scenario, and its index stage's median wall, serial and fused;
 5. goldens — the routed_only / fetch_heavy / mixed_congested scenarios,
    the selection scenario and a FETCH forced under selection, at V2-Lite
    width: StepStats equal to the analytic backend's (replaying the live
@@ -111,15 +114,28 @@ package. Phases, each fatal on failure:
    decode against forward in f32 (qwen3-32b cut to 2 layers; (b)'s
    Zamba2): prefill S - 1 tokens into exactly S slots, decode token S - 1,
    its logits against forward's last position, 1e-4 GQA and 1e-3 hybrid;
+5e. distribution — (a) the sharded train step on a world-1 NCCL group
+   against the unsharded one, (b) the 236B production-mesh dry run;
+5f. examples — repro_torch.examples in-process through run():
+   quickstart (route+merge and the mla_decode kernel within 1e-5),
+   serve_routed, agentic_fanout (routed fork decode within 1e-5),
+   plan_execute (equal primitives and latency every step, within 1e-5;
+   routed and fetched counts) and train_mla_100m --full, the ~100M
+   configuration unreduced, 200 steps (falling loss, one restore, the
+   steps run checked and any replay bit for bit; step wall, tokens/s,
+   one step's busy share, peak memory);
 6. proof of the path — each kernel's launch counter, zeroed before each of
    phases 4, 4b, 4c, 5, the four parts of 5b, the parts of 5c and of 5d
-   and read after it, is > 0 over the phases that run it (4c alone runs
+   and each example of 5f, and read after it, is > 0 over the phases that run it (4c alone runs
    all four exec kernels; flash_prefill's f32 and bf16 kernels
    counted apart: (a) launches the bf16 one once per layer in each prefill
    and the f32 one never, (d) the bf16 one once), and 0 for every kernel
    in the train steps of 5c, whose (d) launches the bf16 flash_prefill
    once per layer and nothing else; in 5d, ssd_chunk once per Mamba2 layer
    in each prefill of (a) and (b) and nothing else, and no kernel in (c);
+   in 5f, mla_decode in quickstart, agentic_fanout and plan_execute,
+   softmax_merge in quickstart and plan_execute, delta_rotate in
+   plan_execute where it fetched, and no kernel in the train steps;
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -1449,12 +1465,62 @@ def profile_mesh_step(torch, serve):
             "overlap_share": overlap}
 
 
-def run_mesh_goldens(torch, cfg, device="cuda"):
+# The index stage when the mesh service scored in host numpy after copying
+# the gathered query back (its earlier version, on an NVIDIA H100 80GB HBM3
+# at 700 W): the serial median host wall and the analytic stage, us
+INDEX_HOST_US, INDEX_ANALYTIC_US = 361.79, 16.04
+
+
+def check_mesh_indexer(eng, tag, acc):
+    """The mesh service's verdicts (on-card scoring) against a host
+    IndexerService's on the same store and queries, per (step, request,
+    chunk): the blocks must be equal (a near-tie flip fails, printing the
+    two pooled block scores of every block that differs). Accumulates the
+    pairs checked, the service's call walls by mode (fused or serial) and
+    the plan's analytic index stages into acc."""
+    from repro_torch.core import selection as SEL
+    from repro_torch.serving.selection import IndexerService
+    svc = eng.selector
+    host = IndexerService(svc.cfg, svc.mla, svc.dtype, svc.device,
+                          svc.query_source)
+    n = 0
+    for step, sels in sorted(svc.log.items()):
+        reqs = {rq.req_id: rq for rq in eng.plans[step - 1].requests}
+        for rid, got in sorted(sels.items()):
+            rq = reqs[rid]
+            want = host.select_request(eng.store, rq, step)
+            for cid in rq.chunk_ids:
+                n += 1
+                if got.blocks[cid] == want.blocks[cid]:
+                    continue
+                iq = host.index_query(rq, step)
+                card = SEL.block_scores(svc.pooled_scores(
+                    eng.store, rq, iq, cid, step), svc.block_tokens)
+                hst = SEL.block_scores(host.pooled_scores(
+                    eng.store, rq, iq, cid, step), svc.block_tokens)
+                flips = sorted(set(got.blocks[cid]) ^ set(want.blocks[cid]))
+                fail(f"mesh indexer {tag}: step {step}, request {rid}, chunk "
+                     f"{cid}: blocks {got.blocks[cid]} on the card, "
+                     f"{want.blocks[cid]} on the host; pooled block scores "
+                     + ", ".join(f"block {b}: card {float(card[b])!r} / host "
+                                 f"{float(hst[b])!r}" for b in flips))
+    acc["pairs"] += n
+    acc["fused" if eng.backend.fused else "serial"] += list(
+        svc.measured_index_s.values())
+    acc["analytic"] += [e["analytic_s"]
+                        for es in eng.backend.stage_log.values() for e in es
+                        if e["stage"] == "index"]
+    log(f"[mesh] {tag}: on-card index scoring chose the host "
+        f"IndexerService's blocks for all {n} (step, request, chunk)")
+
+
+def run_mesh_goldens(torch, cfg, index_acc, device="cuda"):
     """The three dense goldens and the selection scenario (priced on the
     H100 fabrics) through ShardMapExecBackend, fused and serial: StepStats
     equal to the analytic run, outputs within ORACLE_ATOL of the oracle,
     fused against serial within MESH_MODES_ATOL, no filled stage on any
-    planned step."""
+    planned step; the selection scenario's verdicts against the host
+    indexer's (check_mesh_indexer)."""
     import functools
     from repro_torch.serving.backends import AnalyticBackend
     from repro_torch.serving.backends.shard_map import ShardMapExecBackend
@@ -1502,6 +1568,8 @@ def run_mesh_goldens(torch, cfg, device="cuda"):
                                       max_oracle_err(eng, reqs, step))
             log_step_totals(f"{name} {mode}", eng.backend)
             logs[mode] += list(eng.backend.stage_log.values())
+            if eng.selector is not None:
+                check_mesh_indexer(eng, f"{name} {mode}", index_acc)
         modes = 0.0
         for step in range(1, len(steps) + 1):
             fo = engines["fused"].outputs_of(step)
@@ -1536,6 +1604,7 @@ def run_mesh(torch, cfg, device="cuda"):
     dense, sel = ["--selection-frac", "0"], [
         "--selection", "--selection-frac", "0.5", "--selection-k", "512"]
     walls, stage = {}, {}
+    index_acc = {"pairs": 0, "fused": [], "serial": [], "analytic": []}
     for label, extra in (("fused", dense), ("serial", dense + [
             "--serial-exec"]), ("fused depth 2", dense + [
                 "--pipeline-depth", "2"]), ("selection fused", sel),
@@ -1552,14 +1621,22 @@ def run_mesh(torch, cfg, device="cuda"):
                 eng.backend.phase_wall_total)
         log(f"[mesh] serve {label}: {walls[label]:.2f} s wall, every step "
             f"within {ORACLE_ATOL:g} of its oracle")
-    worst, logs = run_mesh_goldens(torch, cfg, device)
+        if eng.selector is not None:
+            check_mesh_indexer(eng, f"serve {label}", index_acc)
+    worst, logs = run_mesh_goldens(torch, cfg, index_acc, device)
     for mode in ("fused", "serial"):
         stage[f"goldens {mode}"] = stage_rows(logs[mode])
         log_stage_rows(f"goldens {mode}", stage[f"goldens {mode}"],
                        mode == "fused")
     conc = (profile_mesh_step(torch, serve) if device == "cuda"
             else {"streams": 0})
-    return walls, worst, conc
+    index = {"pairs": index_acc["pairs"],
+             "analytic_us": statistics.median(index_acc["analytic"]) * 1e6}
+    for mode in ("serial", "fused"):
+        w = index_acc[mode]
+        index[mode] = {"n": len(w), "median_us": statistics.median(w) * 1e6,
+                       "min_us": min(w) * 1e6, "max_us": max(w) * 1e6}
+    return walls, worst, conc, index
 
 
 # ---------------------------------------------------------------------------
@@ -2696,6 +2773,144 @@ def run_distribution(torch, smi_line):
     return {"a_s": a_wall, "b_s": b_wall, "record": rec}, r["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 5f: the example drivers (repro_torch.examples)
+# ---------------------------------------------------------------------------
+
+# train_mla_100m --full: the reference's step count (its --steps default);
+# the phase's wall allows it in full
+EXAMPLE_TRAIN_STEPS = 200
+
+
+def echoed(name, fn, *args, **kw):
+    """fn's result; its printed lines, each prefixed "[examples] name:",
+    are logged after it returns or raises."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kw)
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[examples] {name}: {line}")
+
+
+def example_train_profile(torch, dev, ex):
+    """One step of train_mla_100m --full from fresh weights (seed 0) under
+    the profiler, after a warm step: (device busy ms, top kernels)."""
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.module import trainable
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         cosine_schedule)
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = ex.build_config(True)
+    params = trainable(M.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.float32))
+    ocfg = AdamWConfig(lr=1e-3)
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(cfg, ocfg, TrainConfig(n_micro=2),
+                           cosine_schedule(1e-3, warmup=20,
+                                           total=EXAMPLE_TRAIN_STEPS))
+    pipe = SyntheticPipeline.for_model(cfg, seq_len=128, global_batch=4,
+                                       device=dev)
+    step(params, opt, pipe.batch_at(0))
+    _, busy_ms, top = profiled(torch, lambda: step(params, opt,
+                                                   pipe.batch_at(1)))
+    return busy_ms, top
+
+
+def run_examples(torch, dev, counted, smi_line):
+    """Phase 5f: the five example drivers in-process through run(), each
+    counted apart. Returns (results, launches by example)."""
+    from repro_torch.examples import (agentic_fanout, plan_execute,
+                                      quickstart, serve_routed,
+                                      train_mla_100m)
+    atol = TOL["mla_decode"][0]
+    res, by = {}, {}
+    t0 = time.perf_counter()
+    r, by["ex_quickstart"] = counted(
+        lambda: echoed("quickstart", quickstart.run, "cuda"))
+    log(f"[examples] quickstart: route+merge max|err| {r['route_err']:.3e}, "
+        f"mla_decode kernel {r['kernel_err']:.3e} (atol {atol:g}); "
+        f"launches {by['ex_quickstart']}")
+    if not (r["route_err"] <= atol and r["kernel_err"] <= atol):
+        fail(f"quickstart: errors {r['route_err']}, {r['kernel_err']}")
+    _, by["ex_serve_routed"] = counted(
+        lambda: echoed("serve_routed", serve_routed.run))
+    r, by["ex_agentic_fanout"] = counted(
+        lambda: echoed("agentic_fanout", agentic_fanout.run, "cuda"))
+    log(f"[examples] agentic_fanout: routed fork decode max|err| "
+        f"{r['max_err']:.3e} (< {agentic_fanout.TOL:g}); fan-in "
+        f"{r['fan_in']}, replicate {r['replicate']}, holders {r['holders']}; "
+        f"launches {by['ex_agentic_fanout']}")
+    r, by["ex_plan_execute"] = counted(
+        lambda: echoed("plan_execute", plan_execute.run, "cuda"))
+    log(f"[examples] plan_execute: {r['steps']} steps, primitives and "
+        f"latency equal to the analytic backend's every step, max|err| "
+        f"{r['max_err']:.3e} (atol {plan_execute.ATOL:g}); {r['routed']} "
+        f"routed, {r['fetched']} fetched of {r['dispatches']} dispatches; "
+        f"launches {by['ex_plan_execute']}")
+    res["plan_execute"] = r
+    log(f"[examples] quickstart .. plan_execute wall "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # train_mla_100m --full: the ~100M configuration unreduced
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as d:
+        log(f"[examples] train_mla_100m --full --steps "
+            f"{EXAMPLE_TRAIN_STEPS} (the reference's count) --seq 128 "
+            f"--batch 4")
+        r, n = counted(lambda: echoed(
+            "train_mla_100m", train_mla_100m.run, "cuda",
+            EXAMPLE_TRAIN_STEPS, 128, 4, True, d))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if any(n.values()):
+        fail(f"train_mla_100m launched kernels in its train steps: {n}")
+    by["ex_train_mla_100m"] = n
+    busy_ms, top = example_train_profile(torch, dev, train_mla_100m)
+    walls = [w for _, _, w in r["ran"]]
+    wall = statistics.median(walls[1:])           # the first step warms up
+    back = [e["step"] for e in r["events"] if e.get("event") == "restored"]
+    fault_at = r["steps"] // 2
+    ran = [s for s, _, _ in r["ran"]]
+    if len(back) != 1 or ran != list(range(fault_at)) + list(
+            range(back[0], r["steps"])):
+        fail(f"train_mla_100m: restores {r['events']}, steps run {ran} (want "
+             f"one restore, to the last checkpoint before the failure at "
+             f"step {fault_at}, and every step from there)")
+    # the steps between the checkpoint and the failure ran twice (none when
+    # the checkpoint is at the failed step itself)
+    first, again = {}, {}
+    for s, x, _ in r["ran"]:
+        (again if s in first else first)[s] = x
+    if any(again[s] != first[s] for s in again):
+        fail(f"train_mla_100m: replayed losses {again} differ from their "
+             f"first run")
+    replay = (f"steps {back[0]}..{fault_at - 1} replayed bit for bit"
+              if again else "a checkpoint at the failed step: nothing "
+              "replayed")
+    log(f"[examples] train_mla_100m {r['name']}: {r['params']} parameters "
+        f"(f32 weights and AdamW moments), {r['steps']} steps of "
+        f"{r['tokens_per_step']} tokens in {r['wall_s']:.1f} s "
+        f"({r['steps_per_s']:.2f} steps/s, checkpoints and the restore "
+        f"included); step wall median {wall * 1e3:.1f} ms ({min(walls) * 1e3:.1f}"
+        f"-{max(walls) * 1e3:.1f}), {r['tokens_per_step'] / wall:.0f} "
+        f"tokens/s; loss {r['losses'][0][1]:.4f} -> {r['losses'][-1][1]:.4f}"
+        f" (first -> last logged); the failure before step {fault_at}, one "
+        f"restore, to step {back[0]} ({replay}); checkpoints kept "
+        f"{r['checkpoints']}; one step under the profiler: device busy "
+        f"{busy_ms:.1f} ms = {100 * busy_ms / 1e3 / wall:.1f}% of the median "
+        f"wall, top kernels ms {top}; max_memory_allocated {peak:.2f} GiB; "
+        f"launches {n}; {smi_line}")
+    res["train"] = {k: v for k, v in r.items() if k != "ran"}
+    res["train"].update(step_s=wall, tokens_s=r["tokens_per_step"] / wall,
+                        busy_ms=busy_ms, busy_share=busy_ms / 1e3 / wall,
+                        peak_gib=peak)
+    return res, by
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2812,9 +3027,19 @@ def main() -> int:
         f"pairs; every step within {ORACLE_ATOL:g} of the selection oracle; "
         f"launches {sel_launches}")
     # 4c. the multi-instance backend
-    (mesh_walls, mesh_worst, mesh_conc), mesh_launches = counted(
-        lambda: run_mesh(torch, cfg))
+    (mesh_walls, mesh_worst, mesh_conc, mesh_index), mesh_launches = \
+        counted(lambda: run_mesh(torch, cfg))
     log(f"[mesh] launches {mesh_launches}")
+    log(f"[mesh] index stage, scored on the holder's stream "
+        f"(ShardMapIndexerService), median wall a call: "
+        + ", ".join(f"{mode} {w['median_us']:.2f} us over {w['n']} calls "
+                    f"({w['min_us']:.2f}-{w['max_us']:.2f})" for mode, w in
+                    ((m, mesh_index[m]) for m in ("serial", "fused")))
+        + f"; analytic median {mesh_index['analytic_us']:.2f} us; host "
+        f"scoring (the earlier service), serial: {INDEX_HOST_US} us (analytic "
+        f"{INDEX_ANALYTIC_US}); blocks equal to the host IndexerService's "
+        f"for all {mesh_index['pairs']} (step, request, chunk) of the "
+        f"selection serves and the selection scenario; {smi_line}")
     (golden_err, sel_golden_err), golden_launches = counted(
         lambda: (run_goldens(torch, cfg), run_selection_goldens(torch, cfg)))
 
@@ -2874,6 +3099,13 @@ def main() -> int:
     dist_res, dist_launches = run_distribution(torch, smi_line)
     dist_s = time.perf_counter() - t0
     log(f"[dist] phase 5e wall {dist_s:.1f} s; {smi_line}")
+
+    # 5f. the example drivers
+    t0 = time.perf_counter()
+    ex_res, ex_launches = run_examples(torch, dev, counted, smi_line)
+    ex_s = time.perf_counter() - t0
+    log(f"[examples] phase 5f wall {ex_s:.1f} s; launches by example "
+        f"{ex_launches}")
     by_phase = {"serve": serve_launches, "selection_serve": sel_launches,
                 "mesh": mesh_launches,
                 "goldens": golden_launches, "model_v2_lite": full_launches,
@@ -2881,7 +3113,8 @@ def main() -> int:
                 "model_mamba2": mamba_launches,
                 "model_mla_bf16": layer_launches, **train_launches,
                 **fam_launches,
-                "dist_train": {k: dist_launches.get(k, 0) for k in checks}}
+                "dist_train": {k: dist_launches.get(k, 0) for k in checks},
+                **ex_launches}
     launches = {k: sum(p[k] for p in by_phase.values()) for k in checks}
 
     # 6. proof of the path: the dense kernels over serve + goldens,
@@ -2907,6 +3140,14 @@ def main() -> int:
                 if sum(p[k] for p in model_phases) <= 0]
     if fam_launches["families_zamba2"]["ssd_chunk"] <= 0:
         missing.append("ssd_chunk (families)")
+    # 5f: the routed decode of the examples on the kernels
+    want_ex = {"ex_quickstart": ("mla_decode", "softmax_merge"),
+               "ex_agentic_fanout": ("mla_decode",),
+               "ex_plan_execute": ("mla_decode", "softmax_merge")
+               + (("delta_rotate",) if ex_res["plan_execute"]["fetched"]
+                  else ())}
+    missing += [f"{k} ({ex})" for ex, ks in want_ex.items() for k in ks
+                if ex_launches[ex][k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
 
@@ -2963,7 +3204,11 @@ def main() -> int:
         f"{fam_res['d']['zamba2-7b']:.3e} hybrid), distribution phase "
         f"{dist_s:.1f} s ((a) {dist_res['a_s']:.1f} s, (b) the "
         f"{DRYRUN_ARCH} dry run {dist_res['b_s']:.1f} s, dominant "
-        f"{dist_res['record']['roofline']['dominant']}), "
+        f"{dist_res['record']['roofline']['dominant']}), examples phase "
+        f"{ex_s:.1f} s (train_mla_100m --full "
+        f"{ex_res['train']['step_s'] * 1e3:.1f} ms a step, "
+        f"{100 * ex_res['train']['busy_share']:.1f}% busy), mesh index "
+        f"stage {mesh_index['serial']['median_us']:.2f} us median serial, "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

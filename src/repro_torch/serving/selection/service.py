@@ -21,18 +21,20 @@ Per decode step, for every request in the selection regime:
            backend attends the selected blocks in place (sparse_select) and
            merges partials.
 
-Everything here is host-side control plane on small arrays: scoring runs
-in numpy f32 on host copies of the query and of the index keys, so the
+IndexerService is host-side control plane on small arrays: scoring runs in
+numpy f32 on host copies of the query and of the index keys, so the
 verdicts are bit-identical to the JAX package's on the same arrays and
-queries (scored on the card in another summation order, near-ties could
-flip a block). torch appears only to materialize the canonical chunk arrays
-and queries — the exec backend's deterministic materialization, on the same
+queries. torch appears only to materialize the canonical chunk arrays and
+queries — the exec backend's deterministic materialization, on the same
 device — and to copy them to the host: one transfer per chunk at first
-touch, one per selected request per step.
+touch, one per selected request per step. ShardMapIndexerService scores on
+the holder's partition of the mesh instead, as the reference's mesh service
+scores on its device, and returns only the pooled scores.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple, TYPE_CHECKING
@@ -58,6 +60,23 @@ def pooled_max(scores: np.ndarray) -> np.ndarray:
     """Pool index scores over a request's query rows: max — a token ANY
     row wants is kept. (S,) from (m_q, S)."""
     return np.asarray(scores).max(axis=0)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor copied to the host, after the work of the current stream
+    that makes it: the one copy that leaves the mesh service."""
+    return t.cpu().numpy()
+
+
+@contextlib.contextmanager
+def _ieee_f32_products():
+    """f32 matrix products in full f32 (no TF32) inside the block."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,21 +271,27 @@ class IndexerService:
 
 
 class ShardMapIndexerService(IndexerService):
-    """The scoring round trip across an instance mesh: the requester's
-    narrow indexer query rides the mesh's all_gather to the holder's
-    partition, and the holder scores its resident keys and pools them. The
-    scores are the same numpy f32 arithmetic as IndexerService.
-    pooled_scores on the query the gather delivered (an exact f32 copy),
-    so the verdicts are bit-identical to the host service's and to the JAX
-    package's: scoring on the card, in another summation order, could flip
-    near-tie blocks. The candidate policy (block top-k, global merge) is
-    the inherited code — only WHERE the scores are computed moved.
+    """The scoring round trip across an instance mesh, after the reference's
+    (its einsum under shard_map): the requester's narrow indexer query rides
+    the mesh's all_gather to the holder's partition; on the holder's stream
+    the holder scores its resident keys, (m_q, d_index) x (d_index, S) in
+    f32 with TF32 off, and max-pools over the query rows; only the (S,)
+    pooled vector is copied back to the host. The keys live on the card in
+    the holder's partition, put there once per (chunk, holder) from the
+    store's sidecar (ensure_index_keys: position-invariant, so a replica's
+    keys are the same bytes). The candidate policy (block top-k, global
+    merge) is the inherited code — only WHERE the scores are computed
+    moved. The product sums in another order than the host service's
+    numpy, so a near-tie block could flip: the card's check (chip_smoke.py
+    phase 4c) and tests/test_torch_mesh.py hold the blocks equal to
+    IndexerService's.
 
     The mesh has its own streams (one per instance, made on first use),
     so a scoring round at plan time never queues behind a step the exec
-    backend still has in flight. Each call's wall accumulates in
-    measured_index_s keyed (step, req_id, chunk_id); the mesh exec backend
-    folds it into the dispatch's measured "index" stage."""
+    backend still has in flight. Each call's wall (query put, gather,
+    product, pool, copy back) accumulates in measured_index_s keyed (step,
+    req_id, chunk_id); the mesh exec backend folds it into the dispatch's
+    measured "index" stage."""
 
     name = "indexer-shard_map"
 
@@ -276,21 +301,28 @@ class ShardMapIndexerService(IndexerService):
         super().__init__(cfg, mla, dtype, device, query_source)
         self.measured_index_s: Dict[Tuple[int, int, str], float] = {}
         self.mesh: Optional[InstanceMesh] = None
+        # the holders' resident keys, (S, d_index) f32, by (chunk, holder)
+        self.device_keys: Dict[Tuple[str, int], torch.Tensor] = {}
 
     def pooled_scores(self, store: ChunkStore, rq: Request, iq: np.ndarray,
                       chunk_id: str, step: int) -> np.ndarray:
         keys = self.ensure_index_keys(store, chunk_id)
         if self.mesh is None or self.mesh.n != store.n_instances:
             self.mesh = InstanceMesh(store.n_instances, self.device)
+            self.device_keys.clear()
         mesh = self.mesh
-        t0 = time.perf_counter()
         holder, home = store.lookup(chunk_id).holder, rq.home
+        resident = self.device_keys.get((chunk_id, holder))
+        if resident is None:
+            resident = self.device_keys[(chunk_id, holder)] = mesh.put(
+                keys, holder)
+        t0 = time.perf_counter()
         shards = [None] * mesh.n
         shards[home] = mesh.put(np.asarray(iq, np.float32), home)
         gathered = mesh.all_gather(shards, to=[holder])[holder]
-        with mesh.on(holder):
-            iq_h = gathered[home].cpu().numpy()      # waits for the gather
-        pooled = pooled_max(iq_h @ keys.T)
+        with mesh.on(holder), _ieee_f32_products():
+            scores = torch.matmul(gathered[home], resident.T)  # (m_q, S)
+            pooled = _to_host(scores.amax(dim=0))   # waits for the holder
         tk = (step, rq.req_id, chunk_id)
         self.measured_index_s[tk] = (self.measured_index_s.get(tk, 0.0)
                                      + time.perf_counter() - t0)

@@ -1,7 +1,8 @@
 """The port stands alone and never falls back:
 
 * importing repro_torch and every submodule pulls in neither jax nor the
-  JAX package (checked in a fresh interpreter), and no source under
+  JAX package (checked in a fresh interpreter; the distribution modules
+  and the example drivers also by name), and no source under
   src/repro_torch/ (nor chip_smoke.py) imports either;
 * the control-plane modules copied from repro stay verbatim copies, up to
   the import rewrite repro. -> repro_torch. and the removal of the
@@ -114,10 +115,18 @@ DISTRIBUTION = ("repro_torch.distributed.sharding",
                 "repro_torch.launch.dryrun", "repro_torch.optim.compress")
 
 
-def test_distribution_modules_leave_jax_and_repro_out():
+# the example drivers (repro_torch.examples), named likewise
+EXAMPLES = ("repro_torch.examples", "repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_routed",
+            "repro_torch.examples.agentic_fanout",
+            "repro_torch.examples.plan_execute",
+            "repro_torch.examples.train_mla_100m")
+
+
+def _imports_leave_jax_and_repro_out(modules) -> None:
     prog = (
         "import importlib, sys\n"
-        f"for n in {DISTRIBUTION!r}:\n"
+        f"for n in {modules!r}:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -129,6 +138,14 @@ def test_distribution_modules_leave_jax_and_repro_out():
                               "PATH": "/usr/bin:/bin"})
     assert res.returncode == 0, res.stderr
     assert "ISOLATED" in res.stdout
+
+
+def test_distribution_modules_leave_jax_and_repro_out():
+    _imports_leave_jax_and_repro_out(DISTRIBUTION)
+
+
+def test_example_drivers_leave_jax_and_repro_out():
+    _imports_leave_jax_and_repro_out(EXAMPLES)
 
 
 def test_no_source_imports_jax_or_repro():

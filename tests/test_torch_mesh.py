@@ -19,7 +19,9 @@ indexer), on the CPU, against the JAX package.
   tests/progs/dist_routing_prog.py:153).
 * check_instance_shards / check_route_shards raise the reference's
   messages, naming the shard and both shapes.
-* ShardMapIndexerService picks exactly IndexerService's blocks.
+* ShardMapIndexerService picks exactly IndexerService's blocks, scoring
+  on the holder's partition against one key tensor per (chunk, holder)
+  and copying back only the (S,) pooled scores.
 """
 
 import os
@@ -414,3 +416,35 @@ def test_mesh_indexer_picks_the_host_services_blocks(block_tokens):
     assert n == 4
     assert mesh.obs_counts == host.obs_counts
     assert mesh.mesh.n == m_eng.store.n_instances
+
+
+def test_mesh_indexer_keeps_keys_on_the_holder_and_returns_only_pooled(
+        monkeypatch):
+    """One device key tensor per (chunk, holder), the store's sidecar bytes;
+    each scoring call copies back one (S,) f32 vector and nothing else."""
+    from repro_torch.serving.selection import service
+    copies = []
+
+    def spy(t):
+        copies.append((tuple(t.shape), t.dtype))
+        return t.cpu().numpy()
+    monkeypatch.setattr(service, "_to_host", spy)
+    mesh = ShardMapIndexerService(SelectionConfig(), TINY_MLA, device="cpu",
+                                  query_source=_query_source(TINY_MLA))
+    eng, steps = torch_selection_scenario(selector=mesh)
+    calls = []
+    for step, reqs in enumerate(steps, start=1):
+        for rq in reqs:
+            if rq.k_selected is None:
+                continue
+            mesh.select_request(eng.store, rq, step)
+            calls += [eng.store.lookup(cid).length for cid in rq.chunk_ids]
+    assert copies == [((n,), torch.float32) for n in calls]
+    want = {(cid, eng.store.lookup(cid).holder)
+            for reqs in steps for rq in reqs if rq.k_selected is not None
+            for cid in rq.chunk_ids}
+    assert set(mesh.device_keys) == want
+    for (cid, _), keys in mesh.device_keys.items():
+        assert keys.dtype == torch.float32
+        np.testing.assert_array_equal(keys.numpy(),
+                                      eng.store.lookup(cid).index_keys)
