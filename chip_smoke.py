@@ -196,6 +196,11 @@ MODEL_TOL = {"v2_lite": (1e-4, 1e-4), "mamba2": (1e-3, 1e-3),
 # merged partials vs one attention over the concatenated chunks)
 ORACLE_ATOL = 1e-5
 
+KERNELS = ("mla_decode", "softmax_merge", "delta_rotate", "sparse_select",
+           "flash_prefill", "flash_prefill_bf16", "ssd_chunk")
+# the kernels of the mesh's path (phases 4c-4e)
+MESH_KERNELS = KERNELS[:4]
+
 CHUNK = 2048          # tokens per chunk on the main path
 PLAIN_ITERS = 30      # timed calls of a plain version (many kernels each)
 
@@ -1371,18 +1376,20 @@ def log_step_totals(tag, backend):
         log(f"[mesh] {tag} step {step} (us): {body}")
 
 
-def run_mesh_serve(torch, serve, extra, device="cuda"):
-    """The serve CLI through --backend shard_map at V2-Lite width: every
-    step within ORACLE_ATOL of its oracle and a measured report with no
-    filled stage."""
+def run_mesh_serve(torch, serve, extra, device="cuda", devices=None):
+    """The serve CLI through --backend shard_map at V2-Lite width (its mesh
+    over `devices`, the card slots; None: the CLI's own, every visible
+    card once): every step within ORACLE_ATOL of its oracle and a measured
+    report with no filled stage."""
     argv = (["--backend", "shard_map", "--device", device, "--exec-geometry",
              "v2-lite", "--verify", "--intra-fabric", MESH_FABRICS[0],
              "--cross-fabric", MESH_FABRICS[1]] + extra)
-    log(f"[mesh] repro_torch.launch.serve {' '.join(argv)}")
+    log(f"[mesh] repro_torch.launch.serve {' '.join(argv)}"
+        + ("" if devices is None else f" (slots {slot_names(devices)})"))
     t0 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        eng = serve.main(argv)
+        eng = serve.main(argv, devices=devices)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1443,7 +1450,7 @@ def mesh_concurrency(kernels):
             multi / busy if busy else 0.0)
 
 
-def profile_mesh_step(torch, serve):
+def profile_mesh_step(torch, serve, devices=None):
     """One fused step of the serve default world (after a warm step) under
     the profiler: the streams its kernels ran on and how much of the busy
     time had more than one kernel running."""
@@ -1451,7 +1458,7 @@ def profile_mesh_step(torch, serve):
         ["--backend", "shard_map", "--device", "cuda", "--exec-geometry",
          "v2-lite", "--selection-frac", "0", "--intra-fabric",
          MESH_FABRICS[0], "--cross-fabric", MESH_FABRICS[1]])
-    eng = serve.build_engine(args)
+    eng = serve.build_engine(args, devices)
     steps = serve.build_trace(args, eng)
     eng.schedule_step(steps[0])
     kernels = stream_trace(torch, lambda: eng.schedule_step(steps[1]))
@@ -1514,13 +1521,15 @@ def check_mesh_indexer(eng, tag, acc):
         f"IndexerService's blocks for all {n} (step, request, chunk)")
 
 
-def run_mesh_goldens(torch, cfg, index_acc, device="cuda"):
+def run_mesh_goldens(torch, cfg, index_acc, device="cuda", devices=None,
+                     outs=None):
     """The three dense goldens and the selection scenario (priced on the
-    H100 fabrics) through ShardMapExecBackend, fused and serial: StepStats
-    equal to the analytic run, outputs within ORACLE_ATOL of the oracle,
-    fused against serial within MESH_MODES_ATOL, no filled stage on any
-    planned step; the selection scenario's verdicts against the host
-    indexer's (check_mesh_indexer)."""
+    H100 fabrics) through ShardMapExecBackend over `devices`, fused and
+    serial: StepStats equal to the analytic run, outputs within
+    ORACLE_ATOL of the oracle, fused against serial within
+    MESH_MODES_ATOL, no filled stage on any planned step; the selection
+    scenario's verdicts against the host indexer's (check_mesh_indexer).
+    Every output lands in outs (keep_outputs)."""
     import functools
     from repro_torch.serving.backends import AnalyticBackend
     from repro_torch.serving.backends.shard_map import ShardMapExecBackend
@@ -1535,14 +1544,15 @@ def run_mesh_goldens(torch, cfg, index_acc, device="cuda"):
     svcs = {}
 
     def with_indexer(be):
-        svcs[be.fused] = ShardMapIndexerService(mla=cfg, device=device)
+        svcs[be.fused] = ShardMapIndexerService(mla=cfg, device=device,
+                                                devices=devices)
         return sel_build(be, svcs[be.fused])[0]
     cases.append(("selection_scenario", with_indexer, None))
     for name, build, ana_steps in cases:
         engines = {}
         for mode in ("fused", "serial"):
             be = ShardMapExecBackend(cfg, device=device,
-                                     fused=mode == "fused")
+                                     fused=mode == "fused", devices=devices)
             eng = engines[mode] = build(be)
             steps = ana_steps[1] if ana_steps else sel_build()[1]
             for reqs in steps:
@@ -1568,6 +1578,9 @@ def run_mesh_goldens(torch, cfg, index_acc, device="cuda"):
                                       max_oracle_err(eng, reqs, step))
             log_step_totals(f"{name} {mode}", eng.backend)
             logs[mode] += list(eng.backend.stage_log.values())
+            if outs is not None:
+                keep_outputs(outs, f"golden {name} {mode}", eng,
+                             len(steps))
             if eng.selector is not None:
                 check_mesh_indexer(eng, f"{name} {mode}", index_acc)
         modes = 0.0
@@ -1596,47 +1609,183 @@ def run_mesh_goldens(torch, cfg, index_acc, device="cuda"):
     return worst, logs
 
 
-def run_mesh(torch, cfg, device="cuda"):
-    """Phase 4c: the serve world and the selection serve through the mesh
-    backend (fused, --serial-exec, fused at --pipeline-depth 2), the
-    goldens in both modes, and one fused step's streams."""
+def slot_names(devices):
+    return "[" + ", ".join(str(d) for d in devices) + "]"
+
+
+def keep_outputs(outs, label, eng, n_steps):
+    """Every request's merged output (o, m, l) of a mesh run, on the host,
+    keyed (label, step, request)."""
+    for step in range(1, n_steps + 1):
+        for rid, p in eng.outputs_of(step).items():
+            outs[(label, step, rid)] = tuple(t.detach().cpu() for t in p)
+
+
+def outputs_diff(torch, got, want):
+    """The largest |got - want| over two runs' kept outputs, which must
+    cover the same (run, step, request) keys."""
+    if sorted(got) != sorted(want):
+        fail(f"mesh outputs: the runs cover other keys: "
+             f"{sorted(set(got) ^ set(want))[:6]}")
+    return max(float(torch.max(torch.abs(a - b)))
+               for k in got for a, b in zip(got[k], want[k]))
+
+
+def slot_walls(entries, k):
+    """Stage-log entries summed by slot (the requester's instance mod k):
+    (stages, seconds measured: the serial host walls or the fused groups'
+    apportioned device walls, seconds of serial CUDA-event time)."""
+    rows = {s: [0, 0.0, 0.0] for s in range(k)}
+    for e in entries:
+        r = rows[e["instance"] % k]
+        r[0] += 1
+        r[1] += e["measured_s"]
+        r[2] += e.get("device_s") or 0.0
+    return {s: tuple(r) for s, r in rows.items()}
+
+
+def run_mesh(torch, cfg, device="cuda", devices=None, tag="4c"):
+    """Phase 4c (and 4d / 4e over other card slots): the serve world and
+    the selection serve through the mesh backend (fused, --serial-exec,
+    fused at --pipeline-depth 2), the goldens in both modes, and (4c) one
+    fused step's streams. Returns the walls, the worst errors, the
+    concurrency, the index stage, every output (keep_outputs), the stage
+    logs by run and the slot-origin skews by run."""
     from repro_torch.launch import serve
+    from repro_torch.serving.backends.shard_map import peer_flows
     dense, sel = ["--selection-frac", "0"], [
         "--selection", "--selection-frac", "0.5", "--selection-k", "512"]
-    walls, stage = {}, {}
+    walls, stage, outs, logs_by_run, skews = {}, {}, {}, {}, {}
     index_acc = {"pairs": 0, "fused": [], "serial": [], "analytic": []}
     for label, extra in (("fused", dense), ("serial", dense + [
             "--serial-exec"]), ("fused depth 2", dense + [
                 "--pipeline-depth", "2"]), ("selection fused", sel),
             ("selection serial", sel + ["--serial-exec"])):
-        walls[label], eng = run_mesh_serve(torch, serve, extra, device)
+        walls[label], eng = run_mesh_serve(torch, serve, extra, device,
+                                           devices)
+        keep_outputs(outs, f"serve {label}", eng, 5)
+        logs_by_run[label] = [e for es in eng.backend.stage_log.values()
+                              for e in es]
+        skews[label] = list(eng.backend.slot_skew.values())
         stage[label] = stage_rows(eng.backend.stage_log.values())
-        log_step_totals(f"serve {label}", eng.backend)
-        log_stage_rows(f"serve {label}", stage[label], eng.backend.fused)
+        log_step_totals(f"{tag} serve {label}", eng.backend)
+        log_stage_rows(f"{tag} serve {label}", stage[label],
+                       eng.backend.fused)
         if eng.backend.fused:
-            log(f"[mesh] serve {label}: phase_wall_total "
+            log(f"[mesh] {tag} serve {label}: phase_wall_total "
                 + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
                             eng.backend.phase_wall_total.items()))
             stage[label + " phase_wall_total_s"] = dict(
                 eng.backend.phase_wall_total)
-        log(f"[mesh] serve {label}: {walls[label]:.2f} s wall, every step "
-            f"within {ORACLE_ATOL:g} of its oracle")
+        peers = sum(peer_flows(r) for r in eng.measured_reports)
+        flows = sum(len(r.measured.flows) for r in eng.measured_reports)
+        log(f"[mesh] {tag} serve {label}: {walls[label]:.2f} s wall, every "
+            f"step within {ORACLE_ATOL:g} of its oracle; {peers}/{flows} "
+            f"measured flows crossed slots (peer)")
         if eng.selector is not None:
-            check_mesh_indexer(eng, f"serve {label}", index_acc)
-    worst, logs = run_mesh_goldens(torch, cfg, index_acc, device)
+            if eng.selector.mesh.devices != eng.backend.mesh.devices:
+                fail(f"mesh {tag}: the indexer's placement "
+                     f"{eng.selector.mesh.devices} is not the backend's "
+                     f"{eng.backend.mesh.devices}")
+            check_mesh_indexer(eng, f"{tag} serve {label}", index_acc)
+    worst, logs = run_mesh_goldens(torch, cfg, index_acc, device, devices,
+                                   outs)
     for mode in ("fused", "serial"):
         stage[f"goldens {mode}"] = stage_rows(logs[mode])
-        log_stage_rows(f"goldens {mode}", stage[f"goldens {mode}"],
+        log_stage_rows(f"{tag} goldens {mode}", stage[f"goldens {mode}"],
                        mode == "fused")
-    conc = (profile_mesh_step(torch, serve) if device == "cuda"
-            else {"streams": 0})
+    conc = (profile_mesh_step(torch, serve, devices)
+            if device == "cuda" and tag == "4c" else {"streams": 0})
     index = {"pairs": index_acc["pairs"],
              "analytic_us": statistics.median(index_acc["analytic"]) * 1e6}
     for mode in ("serial", "fused"):
         w = index_acc[mode]
         index[mode] = {"n": len(w), "median_us": statistics.median(w) * 1e6,
                        "min_us": min(w) * 1e6, "max_us": max(w) * 1e6}
-    return walls, worst, conc, index
+    return {"walls": walls, "worst": worst, "conc": conc, "index": index,
+            "outs": outs, "logs": logs_by_run, "skews": skews}
+
+
+def report_slots(tag, res, ref, k, smi_line):
+    """4d / 4e against 4c: the slot-origin skew of every step, and each
+    serve run's stage walls summed per slot beside 4c's same dispatch
+    groups (4c's requesters bucketed by instance mod k)."""
+    for label, sk in res["skews"].items():
+        known = [x for x in sk if x is not None]
+        log(f"[mesh] {tag} {label}: slot-origin skew over {len(sk)} steps: "
+            + (f"median {statistics.median(known) * 1e6:.3f} us, max "
+               f"{max(known) * 1e6:.3f} us" if known else
+               "not measured (the slots lie on other cards)")
+            + f"; {smi_line}")
+    for label, entries in res["logs"].items():
+        mine, base = slot_walls(entries, k), slot_walls(ref["logs"][label], k)
+        serial = "serial" in label
+        log(f"[mesh] {tag} {label}: stage walls summed per slot over the run "
+            f"(us, {'host / CUDA event' if serial else 'fused group share'}"
+            f"; {tag} vs 4c's same dispatch groups): " + "; ".join(
+                f"slot {s} ({mine[s][0]} stages) {_us(mine[s][1])}"
+                + (f" / {_us(mine[s][2])}" if serial else "")
+                + f" vs {_us(base[s][1])}"
+                + (f" / {_us(base[s][2])}" if serial else "")
+                for s in range(k)) + f"; {smi_line}")
+
+
+def peer_pulls(torch, cards, smi_line):
+    """Phase 4e's peer copies between cards 0 and 1 of a mesh over the
+    visible cards: a routed row of 1 KiB and a 2048-row V2-Lite chunk
+    (4.7 MB), each timed by CUDA events on the source's stream (where
+    the copy runs) over 200 and 50 pulls, twice: as issued (the host
+    paces the stream) and with both cards' streams held behind a GPU spin
+    that hides the issue (the device's time for a pull, its two-way
+    barrier with the destination's stream included); beside the
+    h100_nvlink4 price (its probe, 1.2 us, + bytes at its link peak, 125
+    GB/s); and whether record_stream takes a stream of another card."""
+    from repro_torch.core.constants import FABRICS
+    from repro_torch.core.instance_mesh import InstanceMesh
+    mesh = InstanceMesh(2, cards[:2])
+    fab = FABRICS["h100_nvlink4"]
+    out = {}
+    for what, shape, iters in (("row", (256,), 200),
+                               ("chunk", (CHUNK, 576), 50)):
+        with mesh.on(0):
+            x = torch.randn(shape, device=mesh.device_of(0))
+        with mesh.on(1):
+            y = torch.empty(shape, device=mesh.device_of(1))
+        for _ in range(5):
+            mesh.pull(x, 0, 1, out=y)
+        mesh.synchronize()
+        times = {}
+        for how in ("issued", "device"):
+            if how == "device":
+                # ~0.5 ms of host issue a pull at most, at ~2e9 cycles/s
+                mesh.begin(spin_cycles=int(2e9 * 5e-4 * iters))
+            t0 = mesh.stamp(0)
+            for _ in range(iters):
+                mesh.pull(x, 0, 1, out=y)
+            t1 = mesh.stamp(0)
+            mesh.synchronize()
+            times[how] = mesh.seconds(t0, t1) / iters * 1e6
+        if not torch.equal(y.cpu(), x.cpu()):
+            fail(f"phase 4e: the peer pull of a {what} changed its bytes")
+        nbytes = x.numel() * x.element_size()
+        model = (fab.t_probe_s + nbytes / fab.link_peak_Bps) * 1e6
+        out[what] = {"bytes": nbytes, "model_us": model, **{
+            f"{how}_us": us for how, us in times.items()}}
+        log(f"[mesh] 4e peer pull {cards[0]} -> {cards[1]} of a {what} "
+            f"({nbytes} B) over {iters}: " + ", ".join(
+                f"{how} {us:.3f} us a pull ({nbytes / us / 1e3:.2f} GB/s, "
+                f"x{us / model:.2f})" for how, us in times.items())
+            + f"; h100_nvlink4 prices it {model:.3f} us; {smi_line}")
+    t = torch.empty(16, device=cards[0])
+    try:
+        t.record_stream(torch.cuda.Stream(device=cards[1]))
+        out["record_stream_across_cards"] = True
+    except RuntimeError as exc:
+        out["record_stream_across_cards"] = f"refused: {exc}"
+    log(f"[mesh] 4e record_stream of a {cards[0]} tensor on a {cards[1]} "
+        f"stream: {out['record_stream_across_cards']} (the mesh never "
+        f"needs it: a pull reads on the source's card)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2911,7 +3060,67 @@ def run_examples(torch, dev, counted, smi_line):
     return res, by
 
 
-def main() -> int:
+def run_mesh_phases(torch, cfg, dev, kind, smi_line, counted, cards_of):
+    """Phases 4c, 4d and 4e, each counted on its own: 4c the mesh on its
+    default placement on one card (one slot; pinned to cuda:0 where more
+    cards are visible), 4d the same over cuda:0 listed 4 times, bit for
+    bit 4c, and 4e over every visible card where there are two or more,
+    bit for bit 4c, with the peer pulls timed. Returns 4c's result and
+    the launches by phase."""
+    # 4c. the multi-instance backend: its default placement on one card
+    # (one slot), pinned to cuda:0 where more cards are visible
+    n_cards = torch.cuda.device_count()
+    mesh_4c, mesh_launches = counted(lambda: run_mesh(
+        torch, cfg, devices=None if n_cards == 1 else [dev]))
+    log(f"[mesh] launches {mesh_launches}")
+    # 4d. the same over four slots folded onto cuda:0: bit for bit 4c
+    t0 = time.perf_counter()
+    mesh_4d, slots_launches = counted(lambda: run_mesh(
+        torch, cfg, devices=[dev] * 4, tag="4d"))
+    d4_diff = outputs_diff(torch, mesh_4d["outs"], mesh_4c["outs"])
+    log(f"[mesh] 4d: cuda:0 listed 4 times: {len(mesh_4d['outs'])} outputs "
+        f"(serve fused / serial / depth 2, selection fused / serial, the "
+        f"goldens in both modes) against 4c's: max|diff| {d4_diff:.3e} "
+        f"(want 0); oracle {mesh_4d['worst']['oracle']:.3e}; launches "
+        f"{slots_launches}; {time.perf_counter() - t0:.1f} s")
+    if d4_diff != 0.0:
+        fail(f"phase 4d: 4 slots on one card differ from 4c by {d4_diff!r}")
+    report_slots("4d", mesh_4d, mesh_4c, 4, smi_line)
+    # 4e. the same over every visible card, where two or more are
+    cards_launches = None
+    if n_cards >= 2:
+        t0 = time.perf_counter()
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        mesh_4e, cards_launches = counted(lambda: run_mesh(
+            torch, cfg, tag="4e"))
+        # the phase's launches by card, before the next count clears them
+        on_cards = {k: dict(sorted(cards_of(k).items()))
+                    for k in MESH_KERNELS}
+        e_diff = outputs_diff(torch, mesh_4e["outs"], mesh_4c["outs"])
+        log(f"[mesh] 4e: {n_cards} cards {slot_names(cards)}: "
+            f"{len(mesh_4e['outs'])} outputs against 4c's: max|diff| "
+            f"{e_diff:.3e} (want 0); oracle {mesh_4e['worst']['oracle']:.3e}"
+            f"; launches {cards_launches}, by card {on_cards}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if e_diff != 0.0:
+            fail(f"phase 4e: {n_cards} cards differ from 4c by {e_diff!r}")
+        off_zero = [k for k, v in on_cards.items()
+                    if not any(c != 0 and n > 0 for c, n in v.items())]
+        if off_zero:
+            fail(f"phase 4e: {off_zero} launched on no card but cuda:0")
+        report_slots("4e", mesh_4e, mesh_4c, n_cards, smi_line)
+        peer_pulls(torch, cards, smi_line)
+    else:
+        log(f"[mesh] 4e did not run: {n_cards} card visible (it needs two "
+            f"or more: the copy between two cards and peer access run only "
+            f"there); 4d ran every other part of the multi-card logic on "
+            f"{kind}")
+    return mesh_4c, {"mesh": mesh_launches, "mesh_4_slots": slots_launches,
+                     **({"mesh_cards": cards_launches} if cards_launches
+                        else {})}
+
+
+def main(mesh_only: bool = False) -> int:
     import torch
     if not torch.cuda.is_available():
         print("[chip_smoke] FAIL: torch.cuda.is_available() is false: this "
@@ -2948,6 +3157,57 @@ def main() -> int:
     for name, (_, ptxas) in took.items():       # registers and spills
         log(f"[build] {name}.cu ptxas -v: " + " | ".join(ptxas))
 
+    # the launch counters: every counter is zeroed just before each phase
+    # of the main path (4-5f) and read just after
+    from repro_torch.kernels.delta_rotate import ops as rot_ops
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
+    from repro_torch.kernels.mla_decode import ops as mla_ops
+    from repro_torch.kernels.softmax_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_select import ops as sel_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    wrappers = {"mla_decode": mla_ops.mla_decode,
+                "softmax_merge": merge_ops.softmax_merge,
+                "delta_rotate": rot_ops.delta_rotate,
+                "sparse_select": sel_ops.sparse_select,
+                "flash_prefill": fp_ops.flash_prefill,
+                "ssd_chunk": ssd_ops.ssd_intra_chunk}
+    # flash_prefill's wrapper counts its two kernels apart
+    by_dtype = fp_ops.flash_prefill.launches_by_dtype
+    fp_cards = fp_ops.flash_prefill.launches_by_card
+    # each kernel's launches by card, summed over every counted phase
+    by_card = {k: {} for k in KERNELS}
+
+    def cards_of(name):
+        if name.startswith("flash_prefill"):
+            return fp_cards["bfloat16" if name.endswith("bf16")
+                            else "float32"]
+        return wrappers[name].launches_by_card
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        for k in by_dtype:
+            by_dtype[k] = 0
+        for name in KERNELS:
+            cards_of(name).clear()
+        result = fn()
+        torch.cuda.synchronize()
+        n = {k: w.launches for k, w in wrappers.items()}
+        n["flash_prefill"] = by_dtype["float32"]
+        n["flash_prefill_bf16"] = by_dtype["bfloat16"]
+        for name, tot in by_card.items():
+            for card, c in cards_of(name).items():
+                tot[card] = tot.get(card, 0) + c
+        return result, n
+
+    if mesh_only:           # phases 4c-4e alone (a run on several cards)
+        from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA as cfg
+        t0 = time.perf_counter()
+        run_mesh_phases(torch, cfg, dev, kind, smi_line, counted, cards_of)
+        log(f"[mesh] phases 4c-4e alone: {time.perf_counter() - t0:.1f} s; "
+            f"launches by card {by_card}; {smi_line}")
+        return 0
+
     # 3. kernels against plain versions
     from repro_torch.configs import deepseek_v2_lite, mamba2_370m, zamba2_7b
     from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA as cfg
@@ -2963,35 +3223,6 @@ def main() -> int:
                                                         torch.bfloat16),
               "ssd_chunk": check_ssd_chunk(torch, dev, mamba2.ssm,
                                            zamba2.ssm)}
-
-    # 4-5. the main path: serve, the selection serve, then the goldens;
-    # every counter is zeroed just before each phase and read just after
-    from repro_torch.kernels.delta_rotate import ops as rot_ops
-    from repro_torch.kernels.flash_prefill import ops as fp_ops
-    from repro_torch.kernels.mla_decode import ops as mla_ops
-    from repro_torch.kernels.softmax_merge import ops as merge_ops
-    from repro_torch.kernels.sparse_select import ops as sel_ops
-    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
-    wrappers = {"mla_decode": mla_ops.mla_decode,
-                "softmax_merge": merge_ops.softmax_merge,
-                "delta_rotate": rot_ops.delta_rotate,
-                "sparse_select": sel_ops.sparse_select,
-                "flash_prefill": fp_ops.flash_prefill,
-                "ssd_chunk": ssd_ops.ssd_intra_chunk}
-    # flash_prefill's wrapper counts its two kernels apart
-    by_dtype = fp_ops.flash_prefill.launches_by_dtype
-
-    def counted(fn):
-        for w in wrappers.values():
-            w.launches = 0
-        for k in by_dtype:
-            by_dtype[k] = 0
-        result = fn()
-        torch.cuda.synchronize()
-        n = {k: w.launches for k, w in wrappers.items()}
-        n["flash_prefill"] = by_dtype["float32"]
-        n["flash_prefill_bf16"] = by_dtype["bfloat16"]
-        return result, n
 
     from repro_torch.launch import serve
 
@@ -3026,10 +3257,11 @@ def main() -> int:
     log(f"[serve] selection: {sel_s:.2f} s wall; {n_selected} selected "
         f"pairs; every step within {ORACLE_ATOL:g} of the selection oracle; "
         f"launches {sel_launches}")
-    # 4c. the multi-instance backend
-    (mesh_walls, mesh_worst, mesh_conc, mesh_index), mesh_launches = \
-        counted(lambda: run_mesh(torch, cfg))
-    log(f"[mesh] launches {mesh_launches}")
+    # 4c-4e. the multi-instance backend
+    mesh_4c, mesh_phases = run_mesh_phases(torch, cfg, dev, kind, smi_line,
+                                           counted, cards_of)
+    mesh_walls, mesh_worst = mesh_4c["walls"], mesh_4c["worst"]
+    mesh_conc, mesh_index = mesh_4c["conc"], mesh_4c["index"]
     log(f"[mesh] index stage, scored on the holder's stream "
         f"(ShardMapIndexerService), median wall a call: "
         + ", ".join(f"{mode} {w['median_us']:.2f} us over {w['n']} calls "
@@ -3107,7 +3339,7 @@ def main() -> int:
     log(f"[examples] phase 5f wall {ex_s:.1f} s; launches by example "
         f"{ex_launches}")
     by_phase = {"serve": serve_launches, "selection_serve": sel_launches,
-                "mesh": mesh_launches,
+                **mesh_phases,
                 "goldens": golden_launches, "model_v2_lite": full_launches,
                 "model_verify": verify_launches,
                 "model_mamba2": mamba_launches,
@@ -3129,9 +3361,8 @@ def main() -> int:
                if serve_launches[k] + golden_launches[k] <= 0]
     if sel_launches["sparse_select"] + golden_launches["sparse_select"] <= 0:
         missing.append("sparse_select")
-    missing += [f"{k} (mesh)" for k in ("mla_decode", "softmax_merge",
-                                        "delta_rotate", "sparse_select")
-                if mesh_launches[k] <= 0]
+    missing += [f"{k} ({ph})" for ph, n in mesh_phases.items()
+                for k in MESH_KERNELS if n[k] <= 0]
     model_phases = (full_launches, verify_launches, mamba_launches,
                     layer_launches)
     missing += [f"{k} (model)" for k in ("flash_prefill",
@@ -3176,6 +3407,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "launches_by_phase": {ph: n[name] for ph, n in by_phase.items()},
+            "launches_by_card": {f"cuda:{c}": v for c, v in
+                                 sorted(by_card[name].items())},
             "max_abs_err": worst, "atol": TOL[name][0], "rtol": TOL[name][1],
             "shape": c["shape"], "ms": c["ms"], "host_ms": c["host_ms"],
             "plain_ms": c["plain_ms"],
@@ -3224,4 +3457,4 @@ if __name__ == "__main__":
         sys.path.insert(0, SRC)
         dist_part_a(torch, *sys.argv[3:4])
         sys.exit(0)
-    sys.exit(main())
+    sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"]))

@@ -6,9 +6,9 @@ commutative with an identity (core/merge.py), so the result equals
 attention over the concatenated shards to float round-off.
 
 The collective transports run over an InstanceMesh (core/instance_mesh.py:
-instances as partitions of one card, one stream each), on per-instance
-shard lists (None: the instance holds nothing), with the reference's three
-schedules:
+instances placed over card slots, one stream each, every move an
+InstanceMesh.pull), on per-instance shard lists (None: the instance holds
+nothing), with the reference's three schedules:
 
 * fanout  : all_gather(q) -> per-holder partial -> all_to_all(partials) ->
             local M-way merge (the scattered-selection regime, §5.4);
@@ -270,7 +270,7 @@ def route_ring(mesh: InstanceMesh, cfg: MLAConfig, q_shards, ckv_shards,
     for i in range(n):
         with mesh.on(i):
             acc.append(Partial.identity(q[i].shape[:-1], cfg.kv_lora_rank,
-                                        device=mesh.device))
+                                        device=mesh.device_of(i)))
     for _ in range(n):
         for i in range(n):
             with mesh.on(i, ckv_shards[i], valid_shards[i]):

@@ -12,8 +12,9 @@ positions, so no rotation is admissible (§3.3).
 fetch_chunk and fetch_scattered_gather are the FETCH primitive between
 instances of an InstanceMesh (core/instance_mesh.py): the holder's rows land
 in the requester's pool rows, written on the requester's stream after
-everything the holder issued. On one card the pull and the splice are one
-delta_rotate launch that reads the holder's rows and writes the requester's.
+everything the holder issued. Within one slot the pull and the splice are
+one delta_rotate launch that reads the holder's rows and writes the
+requester's; between slots the rows are pulled, then spliced in place.
 """
 
 from __future__ import annotations
@@ -62,20 +63,26 @@ def fetch_chunk(mesh: InstanceMesh, local_pool: torch.Tensor,
     """The full FETCH primitive: pull the holder's chunk remote_ckv (S,
     d_qk) into rows [dst_offset, dst_offset + S) of the requester's pool
     local_pool (P, d_qk), splicing it by delta on the way; returns the
-    pool. On one device that is one splice_delta_rotate launch from the
-    holder's rows into the pool's, on the requester's stream; from another
-    device the chunk is copied over first and spliced in place. delta None
-    elides the rotation (a true-prefix re-home, §6.3): a plain copy."""
+    pool. Within one slot that is one splice_delta_rotate launch from the
+    holder's rows into the pool's, on the requester's stream. Between two
+    slots the chunk is pulled into the pool's rows (mesh.pull: a peer copy
+    where the slots are two cards) and spliced there in place, on the
+    requester's card: the same bits, the rotation being elementwise. delta
+    None elides the rotation (a true-prefix re-home, §6.3): a plain
+    copy."""
     rows = local_pool.narrow(-2, dst_offset, remote_ckv.shape[-2])
+    if mesh.slot_of(holder) != mesh.slot_of(requester):
+        mesh.pull(remote_ckv, holder, requester, out=rows)
+        if delta is not None:
+            with mesh.on(requester, local_pool):
+                splice_delta_rotate(rows, delta, cfg, out=rows)
+        return local_pool
     mesh.after(requester, holder)
     with mesh.on(requester, remote_ckv, local_pool):
-        src = remote_ckv
-        if src.device != local_pool.device:
-            src = src.to(local_pool.device, non_blocking=True)
         if delta is None:
-            rows.copy_(src, non_blocking=True)
+            rows.copy_(remote_ckv, non_blocking=True)
         else:
-            splice_delta_rotate(src, delta, cfg, out=rows)
+            splice_delta_rotate(remote_ckv, delta, cfg, out=rows)
     return local_pool
 
 

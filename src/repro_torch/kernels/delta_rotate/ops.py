@@ -17,6 +17,7 @@ kernel's launches through either entry.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -162,6 +163,7 @@ def _launch(src: torch.Tensor, cos, sin, d_c: int, out: torch.Tensor,
                              build.stream_of(src))
         build.check(status, what)
         delta_rotate.launches += 1
+        delta_rotate.launches_by_card[src.device.index] += 1
     return out
 
 
@@ -195,6 +197,7 @@ def delta_rotate(band: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 
 delta_rotate.launches = 0
+delta_rotate.launches_by_card = collections.Counter()
 
 
 def splice_rotate(src: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

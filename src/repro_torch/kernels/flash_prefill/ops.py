@@ -20,6 +20,7 @@ of a block (see the sources for the designs).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -182,8 +183,11 @@ def flash_prefill(q: torch.Tensor, ckv: torch.Tensor, *, d_v: int = 512,
         build.check(status, f"flash_prefill ({DTYPES[q.dtype]})")
         flash_prefill.launches += 1
         flash_prefill.launches_by_dtype[DTYPES[q.dtype]] += 1
+        flash_prefill.launches_by_card[DTYPES[q.dtype]][q.device.index] += 1
     return o
 
 
 flash_prefill.launches = 0
 flash_prefill.launches_by_dtype = {name: 0 for name in DTYPES.values()}
+flash_prefill.launches_by_card = {name: collections.Counter()
+                                  for name in DTYPES.values()}

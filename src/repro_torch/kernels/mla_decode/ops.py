@@ -17,6 +17,7 @@ merge.cuh's combine kernel; partial_buffers serves all three.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -212,7 +213,9 @@ def _launch(q, ckv, lengths, d_v: int, scale: float,
             build.stream_of(q))
         build.check(status, "mla_decode")
         mla_decode.launches += 1
+        mla_decode.launches_by_card[q.device.index] += 1
     return Partial(o=o, m=m, l=l)
 
 
 mla_decode.launches = 0
+mla_decode.launches_by_card = collections.Counter()

@@ -14,6 +14,7 @@ kernel's launches through either entry.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Sequence
 
@@ -75,10 +76,12 @@ def softmax_merge(o: torch.Tensor, m: torch.Tensor,
             oo.data_ptr(), mo.data_ptr(), lo.data_ptr(), build.stream_of(o))
         build.check(status, "softmax_merge")
         softmax_merge.launches += 1
+        softmax_merge.launches_by_card[o.device.index] += 1
     return Partial(o=oo, m=mo, l=lo)
 
 
 softmax_merge.launches = 0
+softmax_merge.launches_by_card = collections.Counter()
 
 
 def softmax_merge_parts(parts: Sequence[Partial]) -> Partial:
@@ -126,4 +129,5 @@ def softmax_merge_parts(parts: Sequence[Partial]) -> Partial:
             lo.data_ptr(), build.stream_of(oo))
         build.check(status, "softmax_merge")
         softmax_merge.launches += 1
+        softmax_merge.launches_by_card[device.index] += 1
     return Partial(o=oo, m=mo, l=lo)

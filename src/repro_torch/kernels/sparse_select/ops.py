@@ -15,6 +15,7 @@ holder's chunk in place.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -165,7 +166,9 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
             build.stream_of(q))
         build.check(status, "sparse_select")
         sparse_select.launches += 1
+        sparse_select.launches_by_card[q.device.index] += 1
     return Partial(o=o, m=m, l=l)
 
 
 sparse_select.launches = 0
+sparse_select.launches_by_card = collections.Counter()

@@ -12,6 +12,7 @@ P <= 64 and N <= 128 (mamba2-370m: 128, 64, 128).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -116,7 +117,9 @@ def ssd_intra_chunk(x, dt, A, B, C, *, hb: int = 4):
             states.data_ptr(), cum.data_ptr(), build.stream_of(x))
         build.check(status, "ssd_intra_chunk")
         ssd_intra_chunk.launches += 1
+        ssd_intra_chunk.launches_by_card[x.device.index] += 1
     return y, states, cum
 
 
 ssd_intra_chunk.launches = 0
+ssd_intra_chunk.launches_by_card = collections.Counter()

@@ -15,10 +15,11 @@ backend:
     PYTHONPATH=src python -m repro_torch.launch.serve --backend exec \
         --device cpu --verify --selection-frac 0
 
-    # the multi-instance backend: each serving instance a partition of the
-    # card with its own stream, transports between them, and a per-step
-    # measured-vs-analytic stage report (--serial-exec: one timed call per
-    # stage instead of the fused, overlapped path)
+    # the multi-instance backend: serving instance i on visible card
+    # i % (cards), with its own stream, transports between them (peer
+    # copies between cards), and a per-step measured-vs-analytic stage
+    # report (--serial-exec: one timed call per stage instead of the
+    # fused, overlapped path); it prints the placement first
     PYTHONPATH=src python -m repro_torch.launch.serve --backend shard_map \
         --exec-geometry v2-lite --verify --selection-frac 0 \
         --intra-fabric h100_nvlink4 --cross-fabric h100_ibgda
@@ -169,7 +170,10 @@ def exec_geometry(args):
     return TINY_MLA
 
 
-def build_backend(args):
+def build_backend(args, devices=None):
+    """The exec backend of --backend; the shard_map backend's mesh over
+    `devices` (card slots; None: --device, where cuda is every visible
+    card once)."""
     if args.backend == "exec":
         from repro_torch.serving.backends.torch_exec import TorchExecBackend
         return TorchExecBackend(exec_geometry(args), device=args.device)
@@ -177,30 +181,35 @@ def build_backend(args):
         from repro_torch.serving.backends.shard_map import \
             ShardMapExecBackend
         return ShardMapExecBackend(exec_geometry(args), device=args.device,
-                                   fused=not args.serial_exec)
+                                   fused=not args.serial_exec,
+                                   devices=devices)
     return None
 
 
-def build_selector(args):
+def build_selector(args, devices=None):
     """The engine's selection seam: live indexer (--selection, on the exec
-    geometry and device), recorded trace (--selection-trace, numpy-only),
-    or None (selection requests are priced but executed dense — the engine
-    warns once and counts them)."""
+    geometry and device; under --backend shard_map on the backend's
+    placement), recorded trace (--selection-trace, numpy-only), or None
+    (selection requests are priced but executed dense — the engine warns
+    once and counts them)."""
     if args.selection:
         from repro_torch.serving.selection import (IndexerService,
                                                    SelectionConfig,
                                                    ShardMapIndexerService)
-        svc = (ShardMapIndexerService if args.backend == "shard_map"
-               else IndexerService)
-        return svc(SelectionConfig(block_tokens=args.block_tokens),
-                   mla=exec_geometry(args), device=args.device)
+        sel_cfg = SelectionConfig(block_tokens=args.block_tokens)
+        if args.backend == "shard_map":
+            return ShardMapIndexerService(sel_cfg, mla=exec_geometry(args),
+                                          device=args.device,
+                                          devices=devices)
+        return IndexerService(sel_cfg, mla=exec_geometry(args),
+                              device=args.device)
     if args.selection_trace:
         from repro_torch.serving.selection import ReplaySelector
         return ReplaySelector(args.selection_trace)
     return None
 
 
-def build_engine(args) -> ServingEngine:
+def build_engine(args, devices=None) -> ServingEngine:
     if args.fabric_table:
         register_fabrics(Fabric.load_table(args.fabric_table))
     return ServingEngine(
@@ -209,7 +218,8 @@ def build_engine(args) -> ServingEngine:
                          cross_pod_fabric=args.cross_fabric,
                          pipeline_depth=args.pipeline_depth),
         instances_per_pod=max(1, args.instances // args.pods),
-        backend=build_backend(args), selector=build_selector(args),
+        backend=build_backend(args, devices),
+        selector=build_selector(args, devices),
         obs=build_obs(args))
 
 
@@ -244,9 +254,11 @@ def build_trace(args, eng: ServingEngine, replay=None):
     return materialize_trace(gen)
 
 
-def main(argv=None) -> ServingEngine:
+def main(argv=None, devices=None) -> ServingEngine:
     """Run the CLI; returns the engine (its stats, plans and outputs) for
-    callers that drive it in-process."""
+    callers that drive it in-process. devices (in-process callers only)
+    lists the shard_map mesh's card slots, one card as often as it should
+    hold a slot; by default --device cuda spans every visible card once."""
     args = build_parser().parse_args(argv)
     if args.verify and args.backend not in ("exec", "shard_map"):
         raise SystemExit("--verify checks exec outputs against the §3.3 "
@@ -271,8 +283,14 @@ def main(argv=None) -> ServingEngine:
         sel_meta, _ = load_selection_trace(args.selection_trace)
         apply_trace_meta(args, sel_meta, keys=SELECTION_META_ARGS,
                          source="--selection-trace")
-    eng = build_engine(args)
+    eng = build_engine(args, devices)
     steps = build_trace(args, eng, replay)
+    if args.backend == "shard_map":
+        from repro_torch.core.instance_mesh import (describe_placement,
+                                                    placement)
+        print("[serve] " + describe_placement(
+            args.instances,
+            placement(args.device if devices is None else devices)))
 
     # reporting trails accounting: at --pipeline-depth >= 2 a scheduled
     # step may still be in flight when the loop moves on
@@ -298,6 +316,12 @@ def main(argv=None) -> ServingEngine:
                 # the shard_map backend's measured-vs-analytic loop (§7)
                 print("\n".join("[serve]   " + ln
                                 for ln in report.summary().splitlines()))
+                if args.backend == "shard_map":
+                    from repro_torch.serving.backends.shard_map import \
+                        peer_flows
+                    print(f"[serve]   peer flows {peer_flows(report)}/"
+                          f"{len(report.measured.flows)} (transfers "
+                          f"between card slots)")
             reported[0] += 1
 
     depth = max(1, args.pipeline_depth)

@@ -1,12 +1,13 @@
-"""ShardMapExecBackend: run the plan over an instance mesh on the card.
+"""ShardMapExecBackend: run the plan over an instance mesh on the cards.
 
 The JAX package partitions its chunk store across a mesh axis named
 "instance", one device per serving instance, and executes every transport
-the planner decided as a real collective inside shard_map. Here each
-serving instance is a partition of one card with its own CUDA stream
-(core/instance_mesh.py), and every transport is a copy into a buffer the
-destination owns, issued on the destination's stream after an event on the
-source's:
+the planner decided as a real collective inside shard_map. Here serving
+instance i lives on card slot i % k of the mesh's placement (every visible
+card by default; core/instance_mesh.py) with its own CUDA stream, and
+every transport is a copy into a buffer the destination owns on its card
+(InstanceMesh.pull: on one card issued on the destination's stream after
+an event on the source's, between two cards a peer copy):
 
 * ROUTE  — the staged core.routing decomposition: pairwise_ship /
   pairwise_return ppermutes when the dispatch group shares one home,
@@ -22,8 +23,17 @@ source's:
 
 Resident pairs attend on the instance's own stream, and every partial of
 a request lands on its home instance, where the request's partials merge
-in one softmax_merge launch (TorchExecBackend._merge). Outputs reproduce
-the single-instance oracles to float round-off (§3.3).
+in one softmax_merge launch (TorchExecBackend._merge); the merged output
+then lands on the backend's device, as the single-instance backend's do.
+Outputs reproduce the single-instance oracles to float round-off (§3.3).
+
+The store's arrays and the queries are made on the backend's device (the
+first card). Before a step's timed window opens (mesh.begin), _prepare
+puts what each instance reads on its card: the committed copy of a chunk,
+pulled once per (chunk, instance) and pooled, the queries, and a LOCAL
+re-prefill's array. Where the instance's card is the backend's own, each
+is the array itself, so a one-slot mesh runs exactly as one card always
+did.
 
 Each wire / compute stage is timed and the measured durations are rebound
 to the SAME flow structure the cost model priced; timeline.
@@ -41,15 +51,21 @@ Two execution modes:
   from a CUDA event at its first op to one at its last — device stamps,
   where the reference took host stamps around JAX's asynchronous dispatch
   — net of queueing behind groups that share a (link, fabric) wire or an
-  SM, and is apportioned over the record's planned stage ratios.
+  SM, and is apportioned over the record's planned stage ratios. Each
+  stamp is timed from the origin of its own slot (Origins.since); a ROUTE
+  group that starts on the holder and stops on the requester of another
+  slot adds the measured offset between the two origins where the slots
+  share a card, and none between two cards (the origins follow one
+  barrier; their skew there is not measured, and the wall is off by it).
 * ``fused=False`` — one timed call per stage: after a warm run per
   (stage, shape) key (the kernels build at first use), the host wall from
   issue to the end of a synchronize of the stage's stream, the reference's
   block_until_ready wall. On the card the stage then runs once more with
-  the instances' streams held behind a GPU spin that hides its issue, and
-  CUDA events from the spin's end to the stage's last op give its device
-  time, kept beside the host wall (stage_log). The A/B kill switch
-  and the serial baseline.
+  the instances' streams held behind one GPU spin per card that hides its
+  issue, and CUDA events from each slot's gate (the spin's end) to that
+  slot's last op give the stage's device time, the longest over the
+  slots, kept beside the host wall (stage_log). The A/B kill switch and
+  the serial baseline.
 
 On the CPU the mesh has no streams: everything runs in order, the kernels
 take their plain versions, and the stamps are the host clock.
@@ -57,6 +73,7 @@ take their plain versions, and the stamps are the host clock.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from collections import defaultdict
@@ -67,7 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.chunk_store import ChunkStore
-from repro_torch.core.instance_mesh import AXIS, InstanceMesh
+from repro_torch.core.instance_mesh import AXIS, InstanceMesh, Origins
 from repro_torch.core.merge import Partial
 from repro_torch.core.routing import (check_route_shards, fanout_exchange,
                                       fanout_gather, merge_on,
@@ -92,6 +109,21 @@ if TYPE_CHECKING:                                    # pragma: no cover
 STAGE_LOG_STEPS = 64
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshFlow(TL.Flow):
+    """A measured flow of the mesh (MeasuredReport.measured.flows), with
+    where its transfers ran: "same slot" (every instance it moved data
+    between sits on one card slot) or "peer" (they cross slots: cards,
+    where the slots are distinct cards)."""
+    placement: str = "same slot"
+
+
+def peer_flows(report: TL.MeasuredReport) -> int:
+    """The measured flows of a step whose transfers crossed card slots."""
+    return sum(getattr(f, "placement", "") == "peer"
+               for f in report.measured.flows)
+
+
 def _sig(*xs) -> Tuple:
     """The shape signature of a stage's inputs, for its warm-run key."""
     return tuple(tuple(x.shape) if isinstance(x, torch.Tensor) else x
@@ -108,9 +140,12 @@ class ShardMapExecBackend(TorchExecBackend):
 
     def __init__(self, cfg: MLAConfig = TINY_MLA, dtype=torch.float32,
                  device="cuda", query_source: Optional[QuerySource] = None,
-                 fused: bool = True):
+                 fused: bool = True, devices=None):
         super().__init__(cfg, dtype, device, query_source)
         self.fused = fused
+        # the mesh's card slots (InstanceMesh); None: from `device` ("cuda"
+        # = every visible card once, "cpu" = one CPU slot)
+        self.devices = device if devices is None else devices
         self.mesh: Optional[InstanceMesh] = None
         self._pool: Dict[Tuple[str, int], torch.Tensor] = {}
         self._warm: set = set()
@@ -128,19 +163,23 @@ class ShardMapExecBackend(TorchExecBackend):
         # dispatch / barrier / merge): four host-clock probes per step
         self.phase_wall: Dict[str, float] = {}
         self.phase_wall_total: Dict[str, float] = {}
+        # per step (the newest STAGE_LOG_STEPS): the spread of the slots'
+        # origins, seconds (Origins.skew: None where not measured)
+        self.slot_skew: Dict[int, Optional[float]] = {}
 
     # -- mesh binding -------------------------------------------------------
 
     def _bind(self, engine: "ServingEngine") -> None:
         ni = len(engine.instances)
         if self.mesh is None or self.mesh.n != ni:
-            self.mesh = InstanceMesh(ni, self.device)
+            self.mesh = InstanceMesh(ni, self.devices)
             self._warm.clear()
             self._pool.clear()
             self._tiny = []
             for i in range(ni):
                 with self.mesh.on(i):
-                    self._tiny.append(torch.zeros(1, device=self.device))
+                    self._tiny.append(torch.zeros(
+                        1, device=self.mesh.device_of(i)))
         store = engine.store
         if self._listening_store is not store:
             # bounded committed-copy cache: when the engine retires a
@@ -156,29 +195,68 @@ class ShardMapExecBackend(TorchExecBackend):
 
     def _committed_copy(self, store: ChunkStore, chunk_id: str,
                         inst: int) -> torch.Tensor:
-        """The copy instance `inst` attends. Cached per (chunk, instance):
-        chunk bytes are canonical under delta-0 replication, so a cached
-        copy can never go stale in content — only in shape, which re-keys.
-        On one card the store's array already lies on the mesh's device
-        and is pooled as it is."""
+        """The copy instance `inst` attends, on its card. Cached per (chunk,
+        instance): chunk bytes are canonical under delta-0 replication, so
+        a cached copy can never go stale in content — only in shape, which
+        re-keys. The store's array on another card is copied over once
+        (in _prepare, before the step's window opens); on the store's own
+        card it is pooled as it is."""
         arr = self._array_on(store, chunk_id, inst)
         key = (chunk_id, inst)
         buf = self._pool.get(key)
         if buf is None or buf.shape != arr.shape:
-            buf = self._pool[key] = arr
+            buf = self._pool[key] = self._to_card(arr, inst)
         return buf
+
+    def _to_card(self, t: torch.Tensor, inst: int) -> torch.Tensor:
+        """t on instance inst's card: t itself where it lies there, else a
+        copy, issued on the current streams (before mesh.begin, whose
+        barrier the instances wait behind)."""
+        dev = self.mesh.device_of(inst)
+        return t if t.device == dev else t.to(dev, non_blocking=True)
 
     # -- shared pieces ------------------------------------------------------
 
-    def _prepare(self, engine: "ServingEngine", plan: StepPlan) -> None:
-        """Make every query and canonical chunk array the step reads on the
-        current stream, before the instances wait for it (mesh.begin)."""
+    def _prepare(self, engine: "ServingEngine", plan: StepPlan) -> Dict:
+        """Make every query and chunk array the step reads on the current
+        streams, before the instances wait for them (mesh.begin), each on
+        the card of the instance that reads it: the committed copies of
+        resident pairs, ROUTE holders and FETCH sources, each request's
+        queries where they are attended or stacked, and a LOCAL re-prefill's
+        array on each requester's card. Returns the step's staged queries,
+        keyed ("q", req_id, instance), and LOCAL arrays, ("arr", chunk_id,
+        instance)."""
+        store = engine.store
+        reqs = {rq.req_id: rq for rq in plan.requests}
         for rq in plan.requests:
             self.query_of(rq, plan.step)
         for cid in {rp.chunk_id for rp in plan.resident_pairs} | {
                 rec.chunk_id for rec in plan.records
                 if not rec.backup and rec.req_ids}:
-            self.ensure_chunk_data(engine.store, cid)
+            self.ensure_chunk_data(store, cid)
+        q_at, local_at = set(), set()
+        for rp in plan.resident_pairs:
+            self._committed_copy(store, rp.chunk_id, rp.instance)
+            q_at.add((rp.req_id, rp.instance))
+        for rec in plan.records:
+            if rec.backup or not rec.req_ids:
+                continue
+            homes = {(rid, reqs[rid].home) for rid in rec.req_ids}
+            if rec.primitive == "route":
+                self._committed_copy(store, rec.chunk_id, rec.holder)
+                q_at |= homes
+            elif rec.primitive in ("fetch", "fetch_replica"):
+                self._committed_copy(store, rec.chunk_id, fetch_source(rec))
+                dst = rec.home if rec.home >= 0 else rec.holder
+                q_at |= homes | {(rid, dst) for rid in rec.req_ids}
+            else:
+                q_at |= homes
+                local_at |= {(rec.chunk_id, h) for _, h in homes}
+        staged = {("q", rid, i): self._to_card(
+            self.query_of(reqs[rid], plan.step), i) for rid, i in q_at}
+        staged.update({("arr", cid, i): self._to_card(
+            self.ensure_chunk_data(store, cid), i) for cid, i in local_at})
+        return staged
 
     def _partial(self, inst: int, q: torch.Tensor, arr: torch.Tensor,
                  sel, chunk_id: str) -> Partial:
@@ -215,6 +293,25 @@ class ShardMapExecBackend(TorchExecBackend):
                 out[rid] = self._merge(ps)
         return out
 
+    def _landed(self, outputs: Dict[int, Partial]) -> Dict[int, Partial]:
+        """The merged outputs on the backend's device, after mesh.join (the
+        current streams have waited for the instances). One on another
+        card is copied over on that card's current stream, which its
+        memory is recorded on first; the rest are returned as they are."""
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        out = {}
+        for rid, p in outputs.items():
+            if p.o.device == dev:
+                out[rid] = p
+                continue
+            for t in p:
+                t.record_stream(torch.cuda.current_stream(t.device))
+            out[rid] = Partial(*(t.to(self.device, non_blocking=True)
+                                 for t in p))
+        return out
+
     def _resident(self, store, plan, q_of, parts) -> None:
         """Resident accesses attend the instance's own copy on its stream
         (no transport planned, so no measured flow either)."""
@@ -222,13 +319,16 @@ class ShardMapExecBackend(TorchExecBackend):
         for rp in plan.resident_pairs:
             arr = self._committed_copy(store, rp.chunk_id, rp.instance)
             parts[rp.req_id].append(self._partial(
-                rp.instance, q_of(rp.req_id), arr, sels.get(rp.req_id),
-                rp.chunk_id))
+                rp.instance, q_of(rp.req_id, rp.instance), arr,
+                sels.get(rp.req_id), rp.chunk_id))
 
-    def _keep_log(self, step: int, log: List[dict]) -> None:
+    def _keep_log(self, step: int, log: List[dict],
+                  origins: Origins) -> None:
         self.stage_log[step] = log
+        self.slot_skew[step] = origins.skew()
         while len(self.stage_log) > STAGE_LOG_STEPS:
             del self.stage_log[next(iter(self.stage_log))]
+            del self.slot_skew[next(iter(self.slot_skew))]
 
     @staticmethod
     def _label(rec, i: int) -> str:
@@ -249,9 +349,13 @@ class ShardMapExecBackend(TorchExecBackend):
     def _log(self, rec, i: int, plan: StepPlan, meas: Dict[str, float],
              **by_stage: Dict[str, Optional[float]]) -> List[dict]:
         """The record's stages for the stage log: each with its analytic
-        duration, the measured one, and any other times by stage."""
+        duration, the measured one, and any other times by stage, beside
+        the record's requester instance and its placement (same slot or
+        peer)."""
         base = {"record": self._label(rec, i), "primitive": rec.primitive,
-                "kind": self._kind(rec, plan)}
+                "kind": self._kind(rec, plan),
+                "instance": rec.home if rec.home >= 0 else rec.holder,
+                "placement": self._placement(rec, plan)}
         return [dict(base, stage=name, analytic_s=dur, measured_s=meas[name],
                      **{k: v.get(name) for k, v in by_stage.items()})
                 for name, dur in rec.stages]
@@ -285,6 +389,18 @@ class ShardMapExecBackend(TorchExecBackend):
             return ticket.execution
         return self._await_overlapped(engine, ticket.plan, ticket.state)
 
+    def _placement(self, rec, plan: StepPlan) -> str:
+        """"peer" where the record moves data between instances of two
+        card slots (holder or FETCH source, requesters, homes), else "same
+        slot"."""
+        homes = {rq.home for rq in plan.requests if rq.req_id in rec.req_ids}
+        ends = homes | {rec.holder, fetch_source(rec)} | (
+            {rec.home} if rec.home >= 0 else set())
+        if rec.primitive == "local":
+            ends = homes
+        slots = {self.mesh.slot_of(i) for i in ends}
+        return "peer" if len(slots) > 1 else "same slot"
+
     def _report(self, plan: StepPlan, analytic, measured_flows,
                 t_wall0: float, mode: str) -> TL.MeasuredReport:
         return TL.measured_vs_analytic(
@@ -307,7 +423,8 @@ class ShardMapExecBackend(TorchExecBackend):
                   f"counted on MeasuredReport.stage_fills (warn-once)",
                   file=sys.stderr)
 
-    def _measured_flow(self, rec, i: int, meas: Dict[str, float]) -> TL.Flow:
+    def _measured_flow(self, rec, i: int, meas: Dict[str, float],
+                       plan: StepPlan) -> TL.Flow:
         """Rebind the record's planned stage chain to measured durations:
         same key, same stage names/order, same resource binding as
         plan.build_timeline — so the measured schedule is comparable
@@ -320,11 +437,13 @@ class ShardMapExecBackend(TorchExecBackend):
         link_res = (TL.link(rec.link_instance, rec.fabric_idx)
                     if rec.link_instance >= 0 else None)
         requester = rec.home if rec.home >= 0 else rec.holder
-        return TL.transport_flow(
+        flow = TL.transport_flow(
             self._label(rec, i), stages,
             link_res=link_res, holder_sm=TL.sm(rec.holder),
             requester_sm=TL.sm(requester), primitive=rec.primitive,
             chunk_id=rec.chunk_id)
+        return MeshFlow(flow.key, flow.stages, flow.primitive, flow.chunk_id,
+                        self._placement(rec, plan))
 
     # =======================================================================
     # Serial: one timed call per stage.
@@ -355,20 +474,18 @@ class ShardMapExecBackend(TorchExecBackend):
     def _device_run(self, fn: Callable[[], Any], ends: Sequence[int],
                     issued: float) -> Tuple[Any, float]:
         """fn's output and device time: fn issued with every instance's
-        stream held behind one GPU spin on the current stream, long enough
-        to hide the issue (twice the host's issue time at ~2e9 cycles a
-        second), timed from a CUDA event at the spin's end (the gate every
-        instance waits for) to the last event on the streams `ends` after
-        the stage."""
+        stream held behind one GPU spin on each card's current stream,
+        long enough to hide the issue (twice the host's issue time at ~2e9
+        cycles a second; mesh.begin), each slot timed from its gate (a
+        CUDA event at its card's spin's end, which every instance waits
+        for) to its own last event on the streams `ends` after the stage;
+        the stage's device time is the longest."""
         mesh = self.mesh
-        torch.cuda._sleep(int(2 * 2e9 * issued) + 1_000_000)
-        gate = mesh.stamp()
-        for i in range(mesh.n):
-            mesh.wait(i, gate)
+        gates = mesh.begin(spin_cycles=int(2 * 2e9 * issued) + 1_000_000)
         out = fn()
         stops = [mesh.stamp(i) for i in ends]
         mesh.synchronize()
-        return out, max(mesh.seconds(gate, e) for e in stops)
+        return out, max(mesh.seconds(gates.stamps[e.slot], e) for e in stops)
 
     def _execute_serial(self, engine: "ServingEngine", plan: StepPlan,
                         t_wall0: float) -> StepExecution:
@@ -377,11 +494,15 @@ class ShardMapExecBackend(TorchExecBackend):
         reqs = {rq.req_id: rq for rq in plan.requests}
         sels = plan.selections
 
-        def q_of(rid: int) -> torch.Tensor:
-            return self.query_of(reqs[rid], plan.step)
+        staged = self._prepare(engine, plan)
 
-        self._prepare(engine, plan)
-        mesh.begin()
+        def q_of(rid: int, inst: Optional[int] = None) -> torch.Tensor:
+            """The request's queries on instance inst's card (its home's
+            when None), as _prepare staged them."""
+            return staged[("q", rid, reqs[rid].home if inst is None
+                           else inst)]
+
+        origins = mesh.begin()
         parts: Dict[int, List[Partial]] = defaultdict(list)
         self._resident(store, plan, q_of, parts)
 
@@ -403,21 +524,23 @@ class ShardMapExecBackend(TorchExecBackend):
                     meas = self._exec_fetch_mesh(store, rec, q_of, parts,
                                                  reqs)
             else:
-                meas = self._exec_local_mesh(store, rec, q_of, parts, sels,
-                                             reqs)
+                meas = self._exec_local_mesh(rec, q_of, parts, sels, reqs,
+                                             staged)
             if rec.stages and rec.stages[0][0] == "index":
                 # the indexer round trip ran at PLAN time (the selector's
                 # scoring collective); its measured wall lands here
                 meas.setdefault("index", float(sel_times.get(
                     (plan.step, rec.req_ids[0], rec.chunk_id), 0.0)))
             if rec.stages:
-                measured_flows.append(self._measured_flow(rec, i, meas))
+                measured_flows.append(self._measured_flow(rec, i, meas,
+                                                          plan))
                 log += self._log(rec, i, plan, meas, device_s=self._dev)
 
         outputs = self._merge_requests(parts, reqs)
         mesh.synchronize()
         mesh.join()
-        self._keep_log(plan.step, log)
+        outputs = self._landed(outputs)
+        self._keep_log(plan.step, log, origins)
         analytic = analytic_timeline(plan)
         report = self._report(plan, analytic, measured_flows, t_wall0,
                               "serial")
@@ -569,7 +692,8 @@ class ShardMapExecBackend(TorchExecBackend):
         dst = rec.home if rec.home >= 0 else rec.holder
         ckv = self._committed_copy(store, rec.chunk_id, src)
         with mesh.on(dst):
-            pool = torch.empty(ckv.shape, dtype=ckv.dtype, device=ckv.device)
+            pool = torch.empty(ckv.shape, dtype=ckv.dtype,
+                               device=mesh.device_of(dst))
         _, meas["pull"] = self._staged(
             "pull", ("fetch-pull",) + _sig(ckv),
             lambda: fetch_chunk(mesh, pool, ckv, None, 0, self.cfg, src,
@@ -583,7 +707,7 @@ class ShardMapExecBackend(TorchExecBackend):
             "splice", ("splice",) + _sig(ckv), splice, [dst])
         self._persist(store, rec, moved)
         for rid in rec.req_ids:
-            p = self._partial(dst, q_of(rid), moved, None, rec.chunk_id)
+            p = self._partial(dst, q_of(rid, dst), moved, None, rec.chunk_id)
             parts[rid].append(self._ride(p, dst, reqs[rid].home))
         return meas
 
@@ -616,7 +740,7 @@ class ShardMapExecBackend(TorchExecBackend):
     def _identity_at(self, inst: int, q: torch.Tensor) -> Partial:
         with self.mesh.on(inst):
             return Partial.identity(q.shape[:-1], self.cfg.kv_lora_rank,
-                                    device=self.mesh.device)
+                                    device=self.mesh.device_of(inst))
 
     def _exec_fetch_selected_mesh(self, store, rec, q_of, parts, sel,
                                   reqs) -> Dict[str, float]:
@@ -634,24 +758,25 @@ class ShardMapExecBackend(TorchExecBackend):
         ix = mesh.put(idx, src)
         with mesh.on(dst):
             pool = torch.empty((int(idx.size), ckv.shape[1]),
-                               dtype=ckv.dtype, device=ckv.device)
+                               dtype=ckv.dtype, device=mesh.device_of(dst))
         gathered, dt = self._staged(
             "gather", ("fetch-gather",) + _sig(pool, ckv),
             lambda: fetch_scattered_gather(mesh, pool, ckv, ix, 0, self.cfg,
                                            src, dst), [dst])
-        p = self._partial(dst, q_of(rid), gathered, None, rec.chunk_id)
+        p = self._partial(dst, q_of(rid, dst), gathered, None, rec.chunk_id)
         parts[rid].append(self._ride(p, dst, home))
         return {"gather": dt}
 
     # -- LOCAL --------------------------------------------------------------
 
-    def _exec_local_mesh(self, store, rec, q_of, parts, sels,
-                         reqs) -> Dict[str, float]:
-        """Re-prefill on each requester's own instance (no wire)."""
-        arr = self.ensure_chunk_data(store, rec.chunk_id)
+    def _exec_local_mesh(self, rec, q_of, parts, sels, reqs,
+                         staged) -> Dict[str, float]:
+        """Re-prefill on each requester's own instance (no wire), over the
+        chunk's array on its card."""
         total = 0.0
         for rid in rec.req_ids:
             inst = reqs[rid].home
+            arr = staged[("arr", rec.chunk_id, inst)]
             q, sel = q_of(rid), sels.get(rid)
             out, dt = self._staged(
                 "prefill", ("prefill", sel is None) + _sig(q, arr),
@@ -722,14 +847,18 @@ class ShardMapExecBackend(TorchExecBackend):
         reqs = {rq.req_id: rq for rq in plan.requests}
         sels = plan.selections
 
-        def q_of(rid: int) -> torch.Tensor:
-            return self.query_of(reqs[rid], plan.step)
-
         # -- STACK: every group's inputs, built on the instances they
         # belong to -------------------------------------------------------
         t0 = time.perf_counter()
-        self._prepare(engine, plan)
-        origin = mesh.begin()
+        staged = self._prepare(engine, plan)
+
+        def q_of(rid: int, inst: Optional[int] = None) -> torch.Tensor:
+            """The request's queries on instance inst's card (its home's
+            when None), as _prepare staged them."""
+            return staged[("q", rid, reqs[rid].home if inst is None
+                           else inst)]
+
+        origins = mesh.begin()
         preps = []
         for i, rec in enumerate(plan.records):
             if rec.backup or not rec.req_ids:
@@ -743,7 +872,7 @@ class ShardMapExecBackend(TorchExecBackend):
                 else:
                     prep = self._prep_fetch(store, rec, q_of, reqs)
             else:
-                prep = self._prep_local(store, rec, q_of, sels, reqs)
+                prep = self._prep_local(rec, q_of, sels, reqs, staged)
             preps.append((i, rec, prep))
         t_stack = time.perf_counter() - t0
 
@@ -758,7 +887,7 @@ class ShardMapExecBackend(TorchExecBackend):
             starts, out, stops = issue()
             tasks.append((i, rec, out, post, starts, stops))
         t_dispatch = time.perf_counter() - t0
-        return {"parts": parts, "tasks": tasks, "origin": origin,
+        return {"parts": parts, "tasks": tasks, "origins": origins,
                 "reqs": reqs, "t_wall0": t_wall0, "t_stack": t_stack,
                 "t_dispatch": t_dispatch}
 
@@ -770,7 +899,8 @@ class ShardMapExecBackend(TorchExecBackend):
         planned stage ratios; the posts (slice, persist), then each
         request's merge on its home instance."""
         mesh = self.mesh
-        parts, tasks, origin = state["parts"], state["tasks"], state["origin"]
+        parts, tasks = state["parts"], state["tasks"]
+        origins: Origins = state["origins"]
         # fills only happen here, and the engine drains tickets FIFO, so
         # resetting keeps _report per-step with several submits in flight
         self._fill_count = 0
@@ -786,8 +916,10 @@ class ShardMapExecBackend(TorchExecBackend):
         log: List[dict] = []
         last_done: Dict[Any, float] = {}
         for i, rec, out, post, starts, stops in tasks:
-            t_launch = min(mesh.seconds(origin, s) for s in starts)
-            t_done = max(mesh.seconds(origin, s) for s in stops)
+            # each stamp from its own slot's origin (Origins.since): a ROUTE
+            # group starts on the holder's slot and stops on the requesters'
+            t_launch = min(origins.since(s) for s in starts)
+            t_done = max(origins.since(s) for s in stops)
             resources = self._record_resources(rec)
             t_ready = max([t_launch]
                           + [last_done.get(r, 0.0) for r in resources])
@@ -796,13 +928,15 @@ class ShardMapExecBackend(TorchExecBackend):
                 last_done[r] = max(last_done.get(r, 0.0), t_done)
             if rec.stages:
                 meas = self._apportion(rec, wall, sel_times, plan.step)
-                measured_flows.append(self._measured_flow(rec, i, meas))
+                measured_flows.append(self._measured_flow(rec, i, meas,
+                                                          plan))
                 log += [dict(e, group_s=wall)
                         for e in self._log(rec, i, plan, meas)]
             post(out, parts)
         outputs = self._merge_requests(parts, state["reqs"])
         mesh.join()
-        self._keep_log(plan.step, log)
+        outputs = self._landed(outputs)
+        self._keep_log(plan.step, log, origins)
         analytic = analytic_timeline(plan)
         report = self._report(plan, analytic, measured_flows,
                               state["t_wall0"], "fused")
@@ -885,17 +1019,20 @@ class ShardMapExecBackend(TorchExecBackend):
         dst = rec.home if rec.home >= 0 else rec.holder
         ckv = self._committed_copy(store, rec.chunk_id, src)
         with mesh.on(dst):
-            pool = torch.empty(ckv.shape, dtype=ckv.dtype, device=ckv.device)
+            pool = torch.empty(ckv.shape, dtype=ckv.dtype,
+                               device=mesh.device_of(dst))
 
         def issue():
             mesh.after(dst, src)
             starts = [mesh.stamp(dst)]
             # the pull and the delta-0 splice: one delta_rotate launch from
-            # the holder's rows into the requester's pool rows
+            # the holder's rows into the requester's pool rows (within one
+            # slot; between slots the pull, then the splice in place)
             moved = fetch_chunk(mesh, pool, ckv, 0, 0, self.cfg, src, dst)
             attends, stops = [], [None]
             for rid in rec.req_ids:
-                p = self._partial(dst, q_of(rid), moved, None, rec.chunk_id)
+                p = self._partial(dst, q_of(rid, dst), moved, None,
+                                  rec.chunk_id)
                 home = reqs[rid].home
                 if home != dst:
                     # the partial (not the cache) rides home, so every
@@ -928,29 +1065,30 @@ class ShardMapExecBackend(TorchExecBackend):
         ix = mesh.put(idx, src)
         with mesh.on(dst):
             pool = torch.empty((int(idx.size), ckv.shape[1]),
-                               dtype=ckv.dtype, device=ckv.device)
+                               dtype=ckv.dtype, device=mesh.device_of(dst))
 
         def issue():
             starts = [mesh.stamp(src)]
             gathered = fetch_scattered_gather(mesh, pool, ckv, ix, 0,
                                               self.cfg, src, dst)
-            p = self._ride(self._partial(dst, q_of(rid), gathered, None,
+            p = self._ride(self._partial(dst, q_of(rid, dst), gathered, None,
                                          rec.chunk_id), dst, home)
             return starts, p, [mesh.stamp(home)]
         return (("fetch-gather",) + _sig(pool, ckv), issue,
                 lambda p, parts: parts[rid].append(p))
 
-    def _prep_local(self, store, rec, q_of, sels, reqs):
+    def _prep_local(self, rec, q_of, sels, reqs, staged):
         mesh = self.mesh
-        arr = self.ensure_chunk_data(store, rec.chunk_id)
         items = [(rid, reqs[rid].home, q_of(rid), sels.get(rid))
                  for rid in rec.req_ids]
+        arrs = {inst: staged[("arr", rec.chunk_id, inst)]
+                for _, inst, _, _ in items}
 
         def issue():
             starts, outs, stops = [], [], []
             for rid, inst, q, sel in items:
                 starts.append(mesh.stamp(inst))
-                outs.append((rid, self._partial(inst, q, arr, sel,
+                outs.append((rid, self._partial(inst, q, arrs[inst], sel,
                                                 rec.chunk_id)))
                 stops.append(mesh.stamp(inst))
             return starts, outs, stops
@@ -959,5 +1097,6 @@ class ShardMapExecBackend(TorchExecBackend):
             for rid, p in outs:
                 parts[rid].append(p)
         key = ("prefill",) + tuple((sel is None,) + _sig(q)
-                                   for _, _, q, sel in items) + _sig(arr)
+                                   for _, _, q, sel in items) \
+            + _sig(next(iter(arrs.values())))
         return key, issue, post

@@ -127,7 +127,10 @@ def oracle_partial(cfg: MLAConfig, store: ChunkStore, rq: Request, step: int,
     generated one)."""
     if q is None:
         q = query_for(cfg, rq, step, dtype, device)
-    cat = torch.cat([store.lookup(c).data for c in rq.chunk_ids], dim=0)
+    # canonical arrays lie on the backend's device, or, after a dead
+    # holder's replica was promoted on a mesh, on that replica's card
+    cat = torch.cat([store.lookup(c).data.to(q.device)
+                     for c in rq.chunk_ids], dim=0)
     return absorbed_partial_ref(cfg, q, cat)
 
 
@@ -145,7 +148,10 @@ def selection_oracle_partial(cfg: MLAConfig, store: ChunkStore, rq: Request,
     the shards."""
     if q is None:
         q = query_for(cfg, rq, step, dtype, device)
-    cat = torch.cat([store.lookup(c).data for c in rq.chunk_ids], dim=0)
+    # canonical arrays lie on the backend's device, or, after a dead
+    # holder's replica was promoted on a mesh, on that replica's card
+    cat = torch.cat([store.lookup(c).data.to(q.device)
+                     for c in rq.chunk_ids], dim=0)
     gmask = np.concatenate([np.asarray(sel.masks[c]) for c in rq.chunk_ids])
     return absorbed_partial_ref(cfg, q, cat,
                                 torch.as_tensor(gmask, device=cat.device))

@@ -288,17 +288,23 @@ class ShardMapIndexerService(IndexerService):
 
     The mesh has its own streams (one per instance, made on first use),
     so a scoring round at plan time never queues behind a step the exec
-    backend still has in flight. Each call's wall (query put, gather,
-    product, pool, copy back) accumulates in measured_index_s keyed (step,
-    req_id, chunk_id); the mesh exec backend folds it into the dispatch's
-    measured "index" stage."""
+    backend still has in flight, and the exec backend's placement: built
+    from the same `devices` (default: from `device`, as the backend's),
+    instance i on card slot i % k. The keys sit on the holder's card, the
+    query is put on the home's and gathered to the holder's. Each call's
+    wall (query put, gather, product, pool, copy back) accumulates in
+    measured_index_s keyed (step, req_id, chunk_id); the mesh exec backend
+    folds it into the dispatch's measured "index" stage."""
 
     name = "indexer-shard_map"
 
     def __init__(self, cfg: SelectionConfig = SelectionConfig(),
                  mla: MLAConfig = TINY_MLA, dtype=torch.float32,
-                 device="cuda", query_source: Optional[QuerySource] = None):
+                 device="cuda", query_source: Optional[QuerySource] = None,
+                 devices=None):
         super().__init__(cfg, mla, dtype, device, query_source)
+        # the mesh's card slots, the exec backend's (ShardMapExecBackend)
+        self.devices = device if devices is None else devices
         self.measured_index_s: Dict[Tuple[int, int, str], float] = {}
         self.mesh: Optional[InstanceMesh] = None
         # the holders' resident keys, (S, d_index) f32, by (chunk, holder)
@@ -308,7 +314,7 @@ class ShardMapIndexerService(IndexerService):
                       chunk_id: str, step: int) -> np.ndarray:
         keys = self.ensure_index_keys(store, chunk_id)
         if self.mesh is None or self.mesh.n != store.n_instances:
-            self.mesh = InstanceMesh(store.n_instances, self.device)
+            self.mesh = InstanceMesh(store.n_instances, self.devices)
             self.device_keys.clear()
         mesh = self.mesh
         holder, home = store.lookup(chunk_id).holder, rq.home
