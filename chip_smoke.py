@@ -115,7 +115,10 @@ package. Phases, each fatal on failure:
    Zamba2): prefill S - 1 tokens into exactly S slots, decode token S - 1,
    its logits against forward's last position, 1e-4 GQA and 1e-3 hybrid;
 5e. distribution — (a) the sharded train step on a world-1 NCCL group
-   against the unsharded one, (b) the 236B production-mesh dry run;
+   against the unsharded one, (b) the 236B production-mesh dry run and,
+   beside it, each in a subprocess of its own at full depth, qwen3-32b
+   train_4k on (16, 16) and zamba2-7b long_500k on (2, 16, 16), every
+   record printed and ok;
 5f. examples — repro_torch.examples in-process through run():
    quickstart (route+merge and the mla_decode kernel within 1e-5),
    serve_routed, agentic_fanout (routed fork decode within 1e-5),
@@ -2652,6 +2655,14 @@ DIST_LOSS_RTOL, DIST_PARAM_RTOL = 1e-5, 1e-4
 CM_TOL = 2e-5                                  # the collective matmul
 DIST_TIMEOUT = {"a": 300, "b": 900}            # seconds, each subprocess
 DRYRUN_ARCH = "deepseek-v2-236b"
+# (b)'s further cells, each `python -m repro_torch.launch.dryrun` in a
+# subprocess of its own, at full depth, run beside the 236B one: GQA heads
+# that do not divide the 16-wide model axis (qwen3-32b's 8 KV heads) in a
+# train step, and the Mamba2 recurrence over a state whose 112 heads do
+# not divide the 32-wide (pod x data) axis
+DRYRUN_CELLS = (("qwen3-32b", "train_4k", False),
+                ("zamba2-7b", "long_500k", True))
+DRYRUN_CELL_TIMEOUT = 600                      # seconds, each cell
 
 
 def _free_port() -> int:
@@ -2885,28 +2896,87 @@ def run_distribution(torch, smi_line):
     if any(r["launches"].values()):
         fail(f"(5e) (a) the train steps launched kernels: {r['launches']}")
 
-    rec_path = os.path.join(ROOT, "build", "dryrun_torch",
-                            "deepseek_v2_236b__train_4k__pod1.json")
+    rec_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    rec_path = os.path.join(rec_dir, "deepseek_v2_236b__train_4k__pod1.json")
+    cells = []                      # (name, argv, Popen, start) of the cells
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        name = (f"{arch.replace('-', '_')}__{shape}__"
+                f"{'pod2' if multi_pod else 'pod1'}")
+        if os.path.exists(os.path.join(rec_dir, f"{name}.json")):
+            os.remove(os.path.join(rec_dir, f"{name}.json"))
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--force"] + \
+            (["--multi-pod"] if multi_pod else [])
+        log(f"[dist] (b) {' '.join(argv[1:])}: at full depth over a fake "
+            f"group, on meta tensors, beside the {DRYRUN_ARCH} run")
+        cells.append((name, argv, subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+                               os.environ.get("PYTHONPATH", ""))),
+            time.perf_counter()))
     if os.path.exists(rec_path):
         os.remove(rec_path)
     argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
             DRYRUN_ARCH]
     log(f"[dist] (b) {' '.join(argv[1:])} (no --smoke): the full config's "
         "train_4k on the (16, 16) mesh over a fake group, on meta tensors")
-    _, b_wall = run_subprocess_part("b", argv)
-    with open(rec_path) as fh:
-        rec = json.load(fh)
-    if not rec.get("ok"):
-        fail(f"(5e) (b) the dry run's record is not ok: {rec.get('error')}")
+    try:
+        _, b_wall = run_subprocess_part("b", argv)
+        with open(rec_path) as fh:
+            rec = json.load(fh)
+        if not rec.get("ok"):
+            fail(f"(5e) (b) the dry run's record is not ok: "
+                 f"{rec.get('error')}")
+        log_dry_record(rec, b_wall, smi_line)
+        extra = {name: wait_dry_cell(name, argv, proc, t0, rec_dir,
+                                     smi_line)
+                 for name, argv, proc, t0 in cells}
+    finally:                        # no cell outlives a failure
+        for *_, proc, _ in cells:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"a_s": a_wall, "b_s": b_wall, "record": rec,
+            "cells": extra}, r["launches"]
+
+
+def wait_dry_cell(name, argv, proc, t0, rec_dir, smi_line):
+    """Wait for one of (b)'s further dry-run cells (within
+    DRYRUN_CELL_TIMEOUT of its start), print its record, fail unless it
+    is ok."""
+    try:
+        out, err = proc.communicate(timeout=max(
+            1.0, DRYRUN_CELL_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        fail(f"(5e) (b) {name} did not end within {DRYRUN_CELL_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    sys.stdout.write(out)
+    path = os.path.join(rec_dir, f"{name}.json")
+    cell = {}
+    if os.path.exists(path):
+        with open(path) as fh:
+            cell = json.load(fh)
+    if proc.returncode != 0 or not cell.get("ok"):
+        fail(f"(5e) (b) {' '.join(argv[1:])} is not ok (exit "
+             f"{proc.returncode}): {cell.get('error')} "
+             f"{err.strip()[-2000:]}")
+    log_dry_record(cell, wall, smi_line)
+    return {"wall_s": wall, "ok": cell["ok"], "fits": cell["memory"]["fits"],
+            "dominant": cell["roofline"]["dominant"]}
+
+
+def log_dry_record(rec, wall, smi_line):
+    """One dry-run record of phase 5e (b) on a line of its own."""
     mem, col, roof = rec["memory"], rec["collectives"], rec["roofline"]
     gib = lambda b: b / 2**30
     log(f"[dist] (b) {rec['arch']} {rec['shape']} on {rec['mesh']} "
         f"({rec['n_devices']} devices, {rec['n_params']} parameters, "
         f"{rec['n_layers']} layers, depth cut {rec['depth_cut']}, n_micro "
-        f"{rec['n_micro']}, ops {rec['ops'].split(' ')[0]}): per device "
-        f"argument bytes {mem['argument_bytes']} ({gib(mem['argument_bytes']):.2f}"
-        f" GiB), peak temporary {mem['peak_temp_bytes']} "
-        f"({gib(mem['peak_temp_bytes']):.2f} GiB), together "
+        f"{rec.get('n_micro', 1)}, ops {rec['ops'].split(' ')[0]}): per "
+        f"device argument bytes {mem['argument_bytes']} "
+        f"({gib(mem['argument_bytes']):.2f} GiB), peak temporary "
+        f"{mem['peak_temp_bytes']} ({gib(mem['peak_temp_bytes']):.2f} GiB), "
+        f"together "
         f"{gib(mem['device_bytes']):.2f} GiB against "
         f"{gib(mem['hbm_bytes']):.0f} GiB (fits {mem['fits']}); FLOPs "
         f"{rec['flops']:.6e}; traffic bytes {rec['traffic_bytes']:.6e}; "
@@ -2916,10 +2986,9 @@ def run_distribution(torch, smi_line):
         f"{roof['memory_s']:.4f} s, collective {roof['collective_s']:.4f} s "
         f"({roof['rates']['collective_fabric']} at "
         f"{roof['rates']['collective_Bps']:.3g} B/s), dominant "
-        f"{roof['dominant']}; dry-run wall {b_wall:.1f} s on the host "
+        f"{roof['dominant']}; dry-run wall {wall:.1f} s on the host "
         f"(build {rec['t_build_s']} s, analyse {rec['t_analyse_s']} s); "
-        f"{smi_line}")
-    return {"a_s": a_wall, "b_s": b_wall, "record": rec}, r["launches"]
+        f"ok {rec['ok']}; {smi_line}")
 
 
 # ---------------------------------------------------------------------------
@@ -3437,7 +3506,10 @@ def main(mesh_only: bool = False) -> int:
         f"{fam_res['d']['zamba2-7b']:.3e} hybrid), distribution phase "
         f"{dist_s:.1f} s ((a) {dist_res['a_s']:.1f} s, (b) the "
         f"{DRYRUN_ARCH} dry run {dist_res['b_s']:.1f} s, dominant "
-        f"{dist_res['record']['roofline']['dominant']}), examples phase "
+        f"{dist_res['record']['roofline']['dominant']}; "
+        + ", ".join(f"{k} ok in {v['wall_s']:.1f} s"
+                    for k, v in dist_res["cells"].items())
+        + "), examples phase "
         f"{ex_s:.1f} s (train_mla_100m --full "
         f"{ex_res['train']['step_s'] * 1e3:.1f} ms a step, "
         f"{100 * ex_res['train']['busy_share']:.1f}% busy), mesh index "

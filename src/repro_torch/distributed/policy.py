@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.sharding import dp_entry, placements
+from repro_torch.distributed.sharding import dp_entry, fit_spec, placements
 
 _POLICY: contextvars.ContextVar = contextvars.ContextVar("policy",
                                                          default=None)
@@ -56,7 +56,27 @@ class ShardingPolicy:
         spec = self.specs.get(kind)
         if spec is None or not isinstance(x, DTensor):
             return x
+        if len(spec) > 2:
+            # the sequence-parallel split only where the sequence divides
+            # it: Whisper's 1500 encoder frames on a 16-wide model axis
+            # stay whole (GSPMD pads them; an uneven shard gathers, under
+            # torch 2.11, into a local tensor its products cannot view)
+            spec = spec[:1] + (fit_spec(spec[1:2], x.shape[1:2], self.mesh)
+                               or (None,)) + spec[2:]
         return _Constrain.apply(x, self.mesh, placements(spec, self.mesh))
+
+    def for_batch(self, rows: int) -> "ShardingPolicy":
+        """This policy for a batch of `rows`: a spec whose batch entry's
+        mesh axes the rows do not divide keeps the batch whole (a
+        microbatch of 16 rows on a 32-wide data axis; sharding.fit_spec),
+        every other entry as it is. Itself where every batch entry
+        divides."""
+        specs = {k: spec and (fit_spec(spec[:1], (rows,), self.mesh)
+                              or (None,)) + spec[1:]
+                 for k, spec in self.specs.items()}
+        if specs == self.specs:
+            return self
+        return ShardingPolicy(self.mesh, specs)
 
 
 def sp_policy(mesh, seq_shard: bool = True) -> ShardingPolicy:

@@ -238,12 +238,15 @@ def local_inputs(mesh, pairs) -> list:
     return out
 
 
-def local_heads(fn, args: Sequence, heads: Sequence[Optional[int]]):
+def local_heads(fn, args: Sequence, heads: Sequence[Optional[int]],
+                out_heads=2):
     """fn(*args) for an attention core whose args are (B, ...) tensors,
     arg i with its head dim heads[i] (None: no head dim), and whose result
-    is (B, S, H, ...). On DTensors it runs on local tensors: the batch
-    over the data dims and the heads over `model`, each where it divides
-    (else that dim repeats the block); the result a DTensor laid out so.
+    is (B, S, H, ...) (out_heads: the result's head dim; a tuple of them
+    for a block that returns a tuple, one per result). On DTensors it runs
+    on local tensors: the batch over the data dims and the heads over
+    `model`, each where it divides (else that dim repeats the block); each
+    result a DTensor laid out so.
     The attention of one (batch row, head) needs no other, so the block
     has no collective. DTensor would otherwise fold the sharded batch and
     head dims into one strided batch dim, which torch 2.11's DTensor
@@ -270,13 +273,78 @@ def local_heads(fn, args: Sequence, heads: Sequence[Optional[int]]):
     local = local_inputs(mesh, [(a, spec(a.ndim, h))
                                 for a, h in zip(args, heads)])
     out = fn(*local)
-    return DTensor.from_local(out, mesh, placements(spec(out.ndim, 2), mesh),
-                              run_check=False)
+    wrap = lambda t, h: DTensor.from_local(
+        t, mesh, placements(spec(t.ndim, h), mesh), run_check=False)
+    if isinstance(out_heads, tuple):
+        return tuple(wrap(t, h) for t, h in zip(out, out_heads))
+    return wrap(out, out_heads)
 
 
 def is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
+
+
+def local_product(fn, x, w):
+    """fn(x, w) for a (B, ...) activation x and a weight w whose heads the
+    divisibility fallback replicated (40 or 8 heads on a 16-wide model
+    axis), on local tensors: x's batch over the data dims where it divides,
+    w gathered whole; the result a DTensor laid out as x's batch, whole on
+    every other dim (the heads repeat on `model`, as the weight's do).
+    DTensor's own product splits the flat H * D dim over `model`, in the
+    forward or in the gradient of w, and then refuses the view to (H, D)
+    that would split a shard unevenly (GSPMD pads it instead)."""
+    from torch.distributed.tensor import DTensor
+    mesh = w.device_mesh
+    dp = _fsdp_axes(mesh)
+    spec = (dp_entry(mesh) if dp and x.shape[0] % _axis_size(mesh, dp) == 0
+            else None,)
+    xl, wl = local_inputs(mesh, [(x, spec), (w, ())])
+    return DTensor.from_local(fn(xl, wl), mesh, placements(spec, mesh),
+                              run_check=False)
+
+
+def divides_model(w, n: int) -> bool:
+    """False for a DTensor w on a mesh whose `model` axis does not divide
+    n (w's heads or vocab kept whole there by the fallback); else True."""
+    if not is_dtensor(w):
+        return True
+    return n % axis_sizes(w.device_mesh).get("model", 1) == 0
+
+
+class _OwnLayoutGrad(torch.autograd.Function):
+    """The identity on a DTensor, its gradient brought to the DTensor's own
+    placements (a partial sum reduced)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_on_own_layout(t):
+    """t, whose gradient comes back on t's own placements: a parameter
+    used twice (the tied embedding table, its rows looked up on local
+    tensors and its transpose in the head's product) then gets two
+    gradients in one layout, which torch 2.11's DTensor needs to add them
+    (it cannot take the head's shard to the lookup's partial sum)."""
+    return _OwnLayoutGrad.apply(t)
+
+
+def fit_spec(spec: Spec, shape: Sequence[int], mesh) -> Spec:
+    """spec with every entry whose mesh axes do not divide its dim dropped
+    (None), the divisibility fallback of spec_for applied to an
+    activation's spec (a microbatch of 16 rows on a 32-wide data axis)."""
+    out = [e if e is None or shape[d] % _axis_size(
+        mesh, e if isinstance(e, tuple) else (e,)) == 0 else None
+        for d, e in enumerate(spec)]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
 
 
 def vocab_parallel_embedding(table, tokens):

@@ -20,16 +20,22 @@ ctypes kernel either, so the dry run computes with the model's PLAIN ops
 Usage:
     python -m repro_torch.launch.dryrun --arch deepseek-v2-236b \\
         --shape train_4k
-    python -m repro_torch.launch.dryrun --all [--multi-pod] [--force]
+    # every cell on both meshes (66), each in a subprocess of its own with
+    # a timeout, 3 at a time, then the records as a table, a row a cell
+    # (without --force: the records already under --out, as a table)
+    python -m repro_torch.launch.dryrun --all --both-meshes [--force]
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
 import pathlib
+import subprocess
+import sys
 import time
 import traceback
 
@@ -47,8 +53,8 @@ from repro_torch.launch.mesh import flatten_dp, make_production_mesh
 from repro_torch.models import model as MD
 from repro_torch.models.module import trainable
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
-from repro_torch.train.step import (TrainConfig, _pinner, accumulate,
-                                    loss_and_grads)
+from repro_torch.train.step import (TrainConfig, _microbatches, _pinner,
+                                    accumulate, loss_and_grads)
 
 RESULTS_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "dryrun_torch"
@@ -60,6 +66,11 @@ H100_PEAK_BF16 = 989e12
 H100_HBM_BW = 3.35e12
 H100_HBM_BYTES = 80 * 2**30
 COLLECTIVE_FABRIC = "h100_nvlink4"
+
+# main, for more than one cell: each in a subprocess of its own (one fake
+# group each), this many at once, each within this many seconds
+CELL_JOBS = 3
+CELL_TIMEOUT_S = 1500
 
 # per-arch grad-accumulation microbatches for train_4k (the reference's)
 N_MICRO = {
@@ -191,9 +202,10 @@ def build_step(arch: str, shape_name: str, mesh, sp_residual: bool = True,
         ocfg = _opt_cfg(arch)
         shard_params(trainable(params), p_shard)
         opt_state = adamw_init(params, ocfg)
-        mb_shape = dataclasses.replace(shape,
-                                       global_batch=shape.global_batch // n)
-        specs = IS.train_batch_specs(cfg, mb_shape)
+        # the whole global batch on the data axes, as the reference places
+        # it; microbatch 0 (each has its shapes and layouts) as the step
+        # splits it
+        specs = IS.train_batch_specs(cfg, shape)
         batch = _place(specs, IS.train_batch_shardings(specs, run_mesh))
         leaves = list(params.parameters())
         if n == 1:
@@ -203,12 +215,13 @@ def build_step(arch: str, shape_name: str, mesh, sp_residual: bool = True,
                 grads[:] = loss_and_grads(params, cfg, batch, tcfg,
                                           p_shard)[1]
         else:
+            mb = _microbatches(batch, n)[0]
             grads = _pinner(params, p_shard)(
                 [torch.zeros_like(p, dtype=tcfg.accum_dtype)
                  for p in leaves])
 
             def micro():
-                accumulate(params, cfg, batch, grads, tcfg, p_shard)
+                accumulate(params, cfg, mb, grads, tcfg, p_shard)
 
         def update():
             adamw_update(params, grads, opt_state, ocfg)
@@ -325,6 +338,70 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     return rec
 
 
+def _cell_argv(a: str, s: str, mp: bool, args) -> list:
+    """The command line that runs one cell of main's in a subprocess."""
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+            "--shape", s, "--out", args.out, "--tag", args.tag,
+            "--n-micro", str(args.n_micro), "--layers", str(args.layers)]
+    flags = {"--multi-pod": mp, "--force": args.force,
+             "--no-sp": args.no_sp, "--no-expert-fsdp": args.no_expert_fsdp,
+             "--no-remat": args.no_remat}
+    return argv + [f for f, on in flags.items() if on]
+
+
+def _run_in_subprocess(a: str, s: str, mp: bool, args) -> dict:
+    """One cell in a process of its own within CELL_TIMEOUT_S; a cell that
+    does not end in it is recorded as failed."""
+    name = (f"{ALIASES.get(a, a)}__{s}__{'pod2' if mp else 'pod1'}"
+            f"{f'__L{args.layers}' if args.layers else ''}{args.tag}")
+    out_path = pathlib.Path(args.out) / f"{name}.json"
+    try:
+        res = subprocess.run(_cell_argv(a, s, mp, args), capture_output=True,
+                             text=True, timeout=CELL_TIMEOUT_S)
+        said = [ln for ln in res.stdout.splitlines()
+                if ln.startswith(f"[dryrun] {name}:")]
+        print(said[-1] if said else f"[dryrun] {name}: exit "
+              f"{res.returncode}", flush=True)
+    except subprocess.TimeoutExpired:
+        rec = {"arch": ALIASES.get(a, a), "shape": s,
+               "mesh": "pod2" if mp else "pod1", "ok": False,
+               "error": f"no end within {CELL_TIMEOUT_S} s"}
+        out_path.write_text(json.dumps(rec, indent=1))
+        print(f"[dryrun] {name}: FAIL ({rec['error']})", flush=True)
+    return json.loads(out_path.read_text()) if out_path.exists() else \
+        {"ok": False}
+
+
+def table(cells, meshes, out_dir) -> str:
+    """The records of cells x meshes under out_dir as a markdown table, a
+    row a cell, each column "16x16 / 2x16x16" where both meshes ran: ok,
+    per device argument and peak temporary GiB, whether they fit in 80
+    GiB, the dominant roofline term, build + analyse wall."""
+    def cols(rec):
+        if not rec.get("ok"):
+            return ["no" if rec else "not run"] + [""] * 5
+        mem = rec["memory"]
+        return ["ok", f"{mem['argument_bytes'] / 2**30:.2f}",
+                f"{mem['peak_temp_bytes'] / 2**30:.2f}",
+                "yes" if mem["fits"] else "no",
+                rec["roofline"]["dominant"].replace("_s", ""),
+                f"{rec['t_build_s'] + rec['t_analyse_s']:.1f}"]
+
+    head = ["arch", "shape", "ok", "argument GiB", "peak GiB", "fits",
+            "dominant", "build + analyse s"]
+    rows = ["| " + " | ".join(head) + " |", "|" + " --- |" * len(head)]
+    for a, s in cells:
+        per = []
+        for mp in meshes:
+            path = pathlib.Path(out_dir) / \
+                f"{ALIASES.get(a, a)}__{s}__{'pod2' if mp else 'pod1'}.json"
+            per.append(cols(json.loads(path.read_text())
+                            if path.exists() else {}))
+        rows.append(f"| {ALIASES.get(a, a)} | {s} | " + " | ".join(
+            " / ".join(c) for c in zip(*per)) + " |")
+    return "\n".join(rows)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="repro_torch.launch.dryrun")
     ap.add_argument("--arch")
@@ -354,15 +431,23 @@ def main(argv=None):
     else:
         ap.error("--arch and --shape, or --all")
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    n_fail = 0
-    for a, s in cells:
-        for mp in meshes:
-            rec = run_cell(a, s, mp, pathlib.Path(args.out),
-                           force=args.force, sp_residual=not args.no_sp,
-                           tag=args.tag, n_micro=args.n_micro,
-                           no_expert_fsdp=args.no_expert_fsdp,
-                           no_remat=args.no_remat, n_layers=args.layers)
-            n_fail += 0 if rec.get("ok") else 1
+    pairs = [(a, s, mp) for a, s in cells for mp in meshes]
+    if len(pairs) == 1:
+        recs = [run_cell(*pairs[0], pathlib.Path(args.out), force=args.force,
+                         sp_residual=not args.no_sp, tag=args.tag,
+                         n_micro=args.n_micro,
+                         no_expert_fsdp=args.no_expert_fsdp,
+                         no_remat=args.no_remat, n_layers=args.layers)]
+    else:
+        pathlib.Path(args.out).mkdir(parents=True, exist_ok=True)
+        with concurrent.futures.ThreadPoolExecutor(CELL_JOBS) as pool:
+            recs = list(pool.map(
+                lambda c: _run_in_subprocess(*c, args), pairs))
+        if not (args.layers or args.tag):
+            print(table(cells, meshes, args.out), flush=True)
+    n_fail = sum(0 if rec.get("ok") else 1 for rec in recs)
+    print(f"[dryrun] {len(recs) - n_fail} of {len(recs)} cells ok",
+          flush=True)
     if n_fail:
         raise SystemExit(f"{n_fail} cells failed")
 

@@ -16,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import (is_dtensor,
+from repro_torch.distributed.sharding import (divides_model,
+                                              grad_on_own_layout, is_dtensor,
+                                              local_product,
                                               vocab_parallel_embedding)
 from repro_torch.models.module import ones, param, zeros
 
@@ -84,15 +86,24 @@ def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., M) through a head projection w (M, H, D) -> (..., H, D): one
     product over (M, H * D), the einsum "...m,mhd->...hd". Written with the
     head dim outermost in every flattened pair, so a DTensor sharded over
-    the heads keeps its layout through the views."""
-    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+    the heads keeps its layout through the views. Where the heads do not
+    divide the model axis (the weight whole there), it runs on local
+    tensors (sharding.local_product): the output's batch over the data
+    axes, its heads whole on every rank of `model`."""
+    def fn(x, w):
+        return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+    return fn(x, w) if divides_model(w, w.shape[1]) else \
+        local_product(fn, x, w)
 
 
 def merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """o (..., H, D) through an output projection w (H, D, M) -> (..., M):
     one product over (H * D, M), the einsum "...hd,hdm->...m" (see
-    project_heads)."""
-    return o.flatten(-2) @ w.flatten(0, 1)
+    project_heads, also for heads that do not divide the model axis)."""
+    def fn(o, w):
+        return o.flatten(-2) @ w.flatten(0, 1)
+    return fn(o, w) if divides_model(w, w.shape[0]) else \
+        local_product(fn, o, w)
 
 
 def init_mlp(gen, d_model: int, d_ff: int, kind: str = "swiglu", *, dtype,
@@ -145,9 +156,15 @@ def embed(p, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
     """Tied head: the table is unit-scale for the input lookup, so the head
-    side is scaled 1/sqrt(d) to keep initial logits O(1)."""
+    side is scaled 1/sqrt(d) to keep initial logits O(1). A DTensor table
+    whose vocab the model axis does not divide (kept whole there) takes
+    its gradient here on its own placements, as the lookup's comes
+    (sharding.grad_on_own_layout)."""
     d = x.shape[-1]
-    return (x @ p["table"].T) * (1.0 / np.sqrt(d))
+    table = p["table"]
+    if not divides_model(table, table.shape[0]):
+        table = grad_on_own_layout(table)
+    return (x @ table.T) * (1.0 / np.sqrt(d))
 
 
 # ---------------------------------------------------------------------------

@@ -432,8 +432,25 @@ def _hybrid(params, cfg: ModelConfig, form: _Form, x, positions,
     rem = None
     if "rem" in params:
         x, rem = _mamba_stack(params["rem"], cfg, form, x, with_caches)
-    return x, ({"groups": _stacked(groups), "rem": rem} if with_caches
-               else {})
+    if not with_caches:
+        return x, {}
+    return x, {"groups": _stacked(groups) if groups
+               else _no_groups(cfg, x), "rem": rem}
+
+
+def _no_groups(cfg: ModelConfig, x):
+    """The group caches of a hybrid shallower than one group, as the
+    reference's scan over zero groups returns them: ((h (0, group, B, H, P,
+    N) in f32, conv (0, group, B, d_conv - 1, C)), (k, v) (0, B, S, Hkv,
+    hd)), the conv tail and K/V in x's dtype."""
+    s, a = cfg.ssm, cfg.attn_cfg
+    lead = (0, cfg.hybrid_group, x.shape[0])
+    mk = lambda shape, dt=x.dtype: torch.zeros(shape, dtype=dt,
+                                               device=x.device)
+    kv = (0,) + tuple(x.shape[:2]) + (a.n_kv_heads, a.hd)
+    return ((mk(lead + (s.n_heads, s.head_dim, s.d_state), torch.float32),
+             mk(lead + (s.d_conv - 1, s.d_inner + 2 * s.d_state))),
+            (mk(kv), mk(kv)))
 
 
 def _audio(params, cfg: ModelConfig, form: _Form, batch, with_caches: bool):

@@ -23,6 +23,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor, local_heads
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk
 from repro_torch.models import layers as L
 from repro_torch.models.module import ones, param, tag, zeros
@@ -104,7 +105,19 @@ def ssd_intra_chunk_train(x, dt, A, B, C):
 
     The exponent is masked to -inf above the diagonal BEFORE exp: those
     entries are positive and overflow, and a mask applied after exp would
-    leak NaN into the gradient."""
+    leak NaN into the gradient. On DTensors it runs on local tensors
+    (sharding.local_heads: the batch over the data axes, the heads over
+    `model`): each (batch row, head) needs no other, and torch 2.11's
+    DTensor refuses the einsums' fold of a sharded batch and sharded heads
+    into one dim in backward."""
+    return local_heads(_intra_train, [x, dt, A[None].expand(x.shape[0], -1),
+                                      B, C], (3, 3, 1, None, None),
+                       out_heads=(3, 2, 3))
+
+
+def _intra_train(x, dt, A, B, C):
+    """ssd_intra_chunk_train's body; A (b, H), every row the decay."""
+    A = A[0]
     Q = x.shape[2]
     cum = torch.cumsum(dt * A[None, None, None], dim=2)      # (b,nc,Q,h)
     expo = cum[:, :, :, None] - cum[:, :, None]              # (b,nc,Q,Q,h)
@@ -199,10 +212,21 @@ def mamba2_decode(p, cfg: Mamba2Config, x, state):
     dt = F.softplus(dt.to(f32) + p["dt_bias"])                   # (B,1,H)
     A = -torch.exp(p["a_log"])
     a_t = torch.exp(dt[:, 0] * A[None])                          # (B, H)
-    upd = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], B[:, 0].to(f32),
-                       xs[:, 0].to(f32))
-    h_new = h_prev * a_t[:, :, None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", C[:, 0].to(f32), h_new)
+
+    def step(h_prev, a_t, dt, B, C, xs):
+        upd = torch.einsum("bh,bn,bhp->bhpn", dt, B, xs)
+        h_new = h_prev * a_t[:, :, None, None] + upd
+        return torch.einsum("bn,bhpn->bhp", C, h_new), h_new
+
+    # each head's update needs no other head: on a mesh the recurrence runs
+    # on local tensors (the batch over the data dims and the heads over
+    # `model`, where they divide), and the state goes back to the layout
+    # it came in on, so the next step reads the same shards
+    y, h_new = local_heads(step, [h_prev, a_t, dt[:, 0], B[:, 0].to(f32),
+                                  C[:, 0].to(f32), xs[:, 0].to(f32)],
+                           (1, 1, 1, None, None, 1), out_heads=(1, 1))
+    if is_dtensor(h_prev):
+        h_new = h_new.redistribute(h_prev.device_mesh, h_prev.placements)
     y = y + p["d_skip"][None, :, None] * xs[:, 0].to(f32)
     y = y.reshape(x.shape[0], 1, di).to(x.dtype)
     y = L.rmsnorm(p["norm"]["scale"], y * F.silu(z))

@@ -20,10 +20,12 @@ dim the MoE experts split over (None: "model").
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed import policy as POL
 from repro_torch.models import model as MD
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
@@ -39,7 +41,10 @@ def _microbatches(batch, n: int):
     """The n contiguous slices of every batch entry along its leading axis.
     A DTensor entry is gathered once, sliced, and each slice split again to
     the entry's own placements (a local chunk, no transfer): microbatch i
-    holds the same rows as it does unsharded."""
+    holds the same rows as it does unsharded. Where a slice's rows do not
+    divide the mesh dims that split the batch (16 rows on a 32-wide data
+    axis), the slice is whole on those dims instead (replicated, where
+    GSPMD would pad it)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     def slices(v):
@@ -48,9 +53,13 @@ def _microbatches(batch, n: int):
             return list(v.reshape((n, m) + v.shape[1:]))
         mesh, rep = v.device_mesh, [Replicate()] * v.device_mesh.ndim
         full = v.redistribute(mesh, rep).to_local()
+        split = [i for i, p in enumerate(v.placements) if p.is_shard(0)]
+        pl = [Replicate() if i in split and m % math.prod(
+            mesh.size(j) for j in split) else p
+            for i, p in enumerate(v.placements)]
         return [DTensor.from_local(full[i * m:(i + 1) * m], mesh, rep,
                                    run_check=False)
-                .redistribute(mesh, v.placements) for i in range(n)]
+                .redistribute(mesh, pl) for i in range(n)]
 
     split = {k: slices(v) for k, v in batch.items()}
     return [{k: s[i] for k, s in split.items()} for i in range(n)]
@@ -70,14 +79,34 @@ def _pinner(params, param_shardings):
     return pin
 
 
+def _loss(params, cfg: MD.ModelConfig, batch, tcfg: TrainConfig):
+    """loss_fn of batch, under the caller's sharding policy as it applies
+    to the batch's rows (policy.ShardingPolicy.for_batch: a microbatch of
+    fewer rows than the data axes keeps its batch whole, as _microbatches
+    lays it out)."""
+    pol = POL.current()
+    if pol is None:
+        return MD.loss_fn(params, cfg, batch, ep_axis=tcfg.ep_axis)
+    with POL.use_policy(pol.for_batch(batch["tokens"].shape[0])):
+        return MD.loss_fn(params, cfg, batch, ep_axis=tcfg.ep_axis)
+
+
+def _grads(loss, leaves) -> list:
+    """The gradient of loss for each leaf; a leaf that the loss does not
+    reach gets zeros of its shape and placements, as jax.grad returns for
+    it (the hybrid's shared block in a model shallower than one group)."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
+
+
 def accumulate(params, cfg: MD.ModelConfig, mb, acc: list,
                tcfg: TrainConfig = TrainConfig(), param_shardings=None):
     """One microbatch: its loss (detached) and its gradients, pinned and
     added into the accumulators acc (in parameters() order)."""
     leaves = list(params.parameters())
-    loss = MD.loss_fn(params, cfg, mb, ep_axis=tcfg.ep_axis)
-    grads = _pinner(params, param_shardings)(
-        torch.autograd.grad(loss, leaves))
+    loss = _loss(params, cfg, mb, tcfg)
+    grads = _pinner(params, param_shardings)(_grads(loss, leaves))
     for a, g in zip(acc, grads):
         a.add_(g)
     return loss.detach()
@@ -93,8 +122,8 @@ def loss_and_grads(params, cfg: MD.ModelConfig, batch,
     pin = _pinner(params, param_shardings)
     n = tcfg.n_micro
     if n == 1:
-        loss = MD.loss_fn(params, cfg, batch, ep_axis=tcfg.ep_axis)
-        return loss.detach(), pin(torch.autograd.grad(loss, leaves))
+        loss = _loss(params, cfg, batch, tcfg)
+        return loss.detach(), pin(_grads(loss, leaves))
     acc = pin([torch.zeros_like(p, dtype=tcfg.accum_dtype) for p in leaves])
     losses = [accumulate(params, cfg, mb, acc, tcfg, param_shardings)
               for mb in _microbatches(batch, n)]

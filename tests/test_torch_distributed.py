@@ -28,6 +28,34 @@ mesh4 (4 ranks, a (2, 2) ("data", "model") mesh):
   microbatches of the same rows. Losses at rtol 1e-5, the first step's
   gradients within 1e-5 x their max, every parameter within 1e-4 x its
   max after the three steps, every MoE route equal.
+
+uneven4 (4 ranks, the same (2, 2) mesh), the sharded path where a dim does
+not divide its mesh axis:
+* three sharded train steps (param_shardings, sp_policy) of the Qwen3
+  smoke config (qk-norm) with 9 query and 3 KV heads (head_dim 16), which
+  do not divide the model axis of 2 while H * hd does, against the same
+  steps unsharded: at n_micro 2 (4 rows a microbatch) and at n_micro 4 (1
+  row a microbatch, fewer rows than the data axis). The same limits as
+  mesh4's: losses at rtol 1e-5, the first step's gradients within 1e-5 x
+  their max, every parameter within 1e-4 x its max after the three steps.
+  In f64: in f32 one element of the first layer's q has a first-step
+  gradient of 3.4e-9 (its f64 value), inside f32's rounding of the sum,
+  and AdamW (eps 1e-8) turns that rounding into steps of 0.1-0.3 lr of
+  either sign, 1.7e-4 of the leaf's max after three steps whatever the
+  layout. For the same reason not Qwen2.5's QKV biases in f32: zero at
+  init, the unsharded step against itself at n_micro 1 and 2 already
+  differs by 1.5e-4 of the key bias's max. The same for the Mamba2 smoke
+  config with a vocab of 255, which the model axis does not divide (the
+  tied table's lookup and head gradients), its SSD train form on local
+  tensors (its products in f32 whatever the parameters' dtype);
+* mamba2_decode on a state laid out as decode_state_shardings lays out a
+  decode state (batch 1: the batch whole, the heads over model where they
+  divide), with 5 heads (they do not divide) and 4, and at batch 2 (the
+  batch over data) with 5, and on a (4, 1) mesh with 6 heads (over the
+  1-wide model axis, not dividing the 4-wide data axis: the form of the
+  multi-pod zamba2-7b long_500k fault), against the plain call: the
+  output and the new state within 1e-6 x max(1, their max), the state
+  returned on the layout it came in on.
 """
 
 import os
@@ -40,7 +68,7 @@ import pytest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
-TIMEOUT = {"pod8": 120, "mesh4": 150}
+TIMEOUT = {"pod8": 120, "mesh4": 150, "uneven4": 150}
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +334,135 @@ def prog_mesh4(rank, world, port):
     torch.distributed.destroy_process_group()
 
 
-PROGS = {"pod8": (prog_pod8, 8), "mesh4": (prog_mesh4, 4)}
+def _train_steps(mesh, cfg, batches, n_micro, dtype):
+    """Three train steps of cfg from seed 0 with its parameters in dtype,
+    on mesh (param_shardings, sp_policy) or, with mesh None, unsharded;
+    returns (losses, the first step's gradients, the parameters after the
+    steps), whole."""
+    import contextlib
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as MD
+    from repro_torch.models.module import trainable
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import (TrainConfig, loss_and_grads,
+                                        make_train_step)
+    params = trainable(MD.init_model(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu", dtype=dtype))
+    shard, place, whole = None, (lambda b: b), (lambda t: t)
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        shard = SH.param_shardings(params, mesh)
+        SH.shard_params(params, shard)
+        bs = SH.batch_sharding(mesh)
+        place = lambda b: {k: SH.distribute(v, mesh, bs.spec)
+                           for k, v in b.items()}
+        whole = lambda t: t.full_tensor()
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(POL.use_policy(POL.sp_policy(mesh)))
+        ctx.enter_context(implicit_replication())
+    ocfg = AdamWConfig()
+    opt = adamw_init(params, ocfg)
+    tcfg = TrainConfig(n_micro=n_micro)
+    step = make_train_step(cfg, ocfg, tcfg, param_shardings=shard)
+    losses = []
+    with ctx:
+        _, grads = loss_and_grads(params, cfg, place(batches[0]), tcfg, shard)
+        grads = [whole(g) for g in grads]
+        for b in batches:
+            params, opt, mets = step(params, opt, place(b))
+            losses.append(float(whole(mets["loss"])))
+        params = [whole(p.detach()) for p in params.parameters()]
+    return losses, grads, params
+
+
+def prog_uneven4(rank, world, port):
+    import copy
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import ShapeSpec, get_smoke_config
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import input_specs as IS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as MD
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.module import Tree
+    _init(rank, world, port)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+
+    # -- GQA heads and a vocab that do not divide the model axis -----------
+    gqa = dataclasses.replace(get_smoke_config("qwen3-32b"), n_heads=9,
+                              n_kv_heads=3, head_dim=16)
+    ssm = dataclasses.replace(get_smoke_config("mamba2-370m"), vocab=255)
+    g = torch.Generator().manual_seed(5)
+    for name, cfg, B, n_micro in (("GQA", gqa, 8, 2), ("GQA", gqa, 4, 4),
+                                  ("SSM-vocab", ssm, 8, 2)):
+        batches = [{k: torch.randint(0, cfg.vocab, (B, 16), generator=g,
+                                     dtype=torch.int32)
+                    for k in ("tokens", "targets")} for _ in range(3)]
+        losses, grads, whole = _train_steps(mesh, cfg, batches, n_micro,
+                                            torch.float64)
+        ref_losses, g0, ref = _train_steps(None, cfg, batches, n_micro,
+                                           torch.float64)
+        _say(rank, f"{name} rows {B // n_micro} losses " + " ".join(
+            f"{a:.12f}/{b:.12f}" for a, b in zip(losses, ref_losses)))
+        _say(rank, f"{name} rows {B // n_micro} grad_rel "
+             f"{max(rel(a, b) for a, b in zip(grads, g0)):.3e} param_rel "
+             f"{max(rel(a, b) for a, b in zip(whole, ref)):.3e}")
+
+    # -- the SSM decode over a sharded state -------------------------------
+    # (4, 1): 6 heads over `model` (1 wide) and not dividing the 4-wide
+    # data axis, the small form of zamba2-7b's 112 heads on the 32-wide
+    # (pod x data) axis, where DTensor's own einsums split the heads
+    # unevenly over `data`
+    narrow = make_mesh((4, 1), ("data", "model"))
+    for mesh, B, d_model in ((mesh, 1, 40), (mesh, 1, 32), (mesh, 2, 40),
+                             (narrow, 1, 48)):
+        mcfg = SSM.Mamba2Config(d_model=d_model, d_state=16, head_dim=16,
+                                expand=2, chunk=8)
+        mdl = MD.ModelConfig(name="ssm-uneven", family="ssm", n_layers=1,
+                             d_model=d_model, vocab=256, attn_type="none",
+                             d_ff=0, ssm=mcfg)
+        g = torch.Generator().manual_seed(B * d_model)
+        p = Tree(SSM.init_mamba2(g, mcfg, dtype=torch.float32,
+                                 device="cpu"))
+        x = torch.randn(B, 1, d_model, generator=g)
+        h = torch.randn(1, B, mcfg.n_heads, mcfg.head_dim, mcfg.d_state,
+                        generator=g)
+        conv = torch.randn(1, B, mcfg.d_conv - 1,
+                           mcfg.d_inner + 2 * mcfg.d_state, generator=g)
+        with torch.no_grad():
+            y0, (h0, c0) = SSM.mamba2_decode(p, mcfg, x, (h[0], conv[0]))
+        sp = copy.deepcopy(p)
+        SH.shard_params(sp, SH.param_shardings(sp, mesh))
+        sh_h, sh_c = IS.decode_state_shardings(
+            mdl, ShapeSpec("decode", 8, B, "decode"), mesh)["blocks"]
+        hs = SH.distribute(h, mesh, sh_h.spec)
+        cs = SH.distribute(conv, mesh, sh_c.spec)
+        xd = SH.distribute(x, mesh, IS.decode_input_shardings(mesh, B)[0]
+                           .spec)
+        with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
+                torch.no_grad():
+            y, (h1, c1) = SSM.mamba2_decode(sp, mcfg, xd, (hs[0], cs[0]))
+            same = h1.placements == hs[0].placements
+            y, h1, c1 = y.full_tensor(), h1.full_tensor(), c1.full_tensor()
+        err = max(float((a - b).abs().max() / max(1.0, b.abs().max()))
+                  for a, b in ((y, y0), (h1, h0), (c1, c0)))
+        _say(rank, f"SSM mesh {tuple(mesh.shape)} batch {B} heads "
+             f"{mcfg.n_heads} state_spec {sh_h.spec} err {err:.3e} "
+             f"same_layout {same}")
+    torch.distributed.destroy_process_group()
+
+
+PROGS = {"pod8": (prog_pod8, 8), "mesh4": (prog_mesh4, 4),
+         "uneven4": (prog_uneven4, 4)}
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +494,11 @@ def pod8():
 @pytest.fixture(scope="module")
 def mesh4():
     return _run("mesh4")
+
+
+@pytest.fixture(scope="module")
+def uneven4():
+    return _run("uneven4")
 
 
 def _floats(pattern, out):
@@ -388,6 +549,39 @@ def test_sharded_train_steps_equal_unsharded(mesh4):
     assert m, mesh4
     assert float(m.group(1)) <= 1e-5 and float(m.group(2)) <= 1e-4
     assert m.group(3) == "True" and int(m.group(4)) > 0
+
+
+@pytest.mark.parametrize("name,rows", [("GQA", 4), ("GQA", 1),
+                                       ("SSM-vocab", 4)])
+def test_sharded_steps_with_uneven_heads_equal_unsharded(uneven4, name,
+                                                         rows):
+    """GQA: 9 query and 3 KV heads on a model axis of 2; rows 1: a
+    microbatch of fewer rows than the data axis. SSM-vocab: the Mamba2
+    smoke config with a vocab of 255, which the model axis does not divide
+    (the tied table's two gradients), its SSD train form on local
+    tensors."""
+    pairs = re.findall(r"(\S+)/(\S+)", re.search(
+        rf"{name} rows {rows} losses (.*)", uneven4).group(1))
+    assert len(pairs) == 3
+    for got, want in pairs:
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    m = re.search(rf"{name} rows {rows} grad_rel (\S+) param_rel (\S+)",
+                  uneven4)
+    assert m, uneven4
+    assert float(m.group(1)) <= 1e-5 and float(m.group(2)) <= 1e-4
+
+
+@pytest.mark.parametrize("mesh,batch,heads,spec", [
+    ("2, 2", 1, 5, "(None, None, None, None, None)"),
+    ("2, 2", 1, 4, "(None, None, 'model', None, None)"),
+    ("2, 2", 2, 5, "(None, 'data', None, None, None)"),
+    ("4, 1", 1, 6, "(None, None, 'model', None, None)")])
+def test_ssm_decode_on_a_sharded_state(uneven4, mesh, batch, heads, spec):
+    m = re.search(rf"SSM mesh \({mesh}\) batch {batch} heads {heads} "
+                  rf"state_spec (.*) err (\S+) same_layout (\w+)", uneven4)
+    assert m, uneven4
+    assert m.group(1) == spec
+    assert float(m.group(2)) <= 1e-6 and m.group(3) == "True"
 
 
 def _main():

@@ -130,7 +130,7 @@ def ref_fill_decode_state(jcfg, state, caches):
 
 
 def serving_case(arch: str, *, batch: int = 2, seq: int = 16,
-                 steps: int = 3):
+                 steps: int = 3, n_layers: int = 0):
     """Both packages' serving form of the smoke config of `arch` in f32 on
     one weight tree (numpy_weights) and one batch (family_batch): forward
     (every position's logits), prefill (last-token logits and caches) and
@@ -138,7 +138,10 @@ def serving_case(arch: str, *, batch: int = 2, seq: int = 16,
     context plus steps + 1 slots filled from the prefill. Returns (jcfg,
     tcfg, ref, port), ref and port holding numpy arrays: "forward",
     "prefill", "caches", "decode" (a list), "state" (after the steps), and
-    the port's "routes" of its prefill."""
+    the port's "routes" of its prefill. n_layers > 0 cuts both configs to
+    that depth."""
+    import dataclasses
+
     import jax.numpy as jnp
     import torch
     from repro import configs as JC
@@ -147,6 +150,9 @@ def serving_case(arch: str, *, batch: int = 2, seq: int = 16,
     from repro_torch.models import model as TMm
 
     jcfg, tcfg = JC.get_smoke_config(arch), TC.get_smoke_config(arch)
+    if n_layers:
+        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+        tcfg = dataclasses.replace(tcfg, n_layers=n_layers)
     tree = numpy_weights(jcfg, seed=len(arch))
     data = family_batch(jcfg, batch, seq, seed=1)
     toks = np.random.default_rng(2).integers(
