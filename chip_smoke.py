@@ -2,6 +2,8 @@
 """Chip smoke test of the PyTorch/H100 port (src/repro_torch).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-only   # phases 4c-4e alone
+    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c2) alone
 
 Needs one CUDA card, nvcc (PATH, $CUDA_HOME or /usr/local/cuda) and the
 repository's src/ beside this file; imports nothing of JAX or of the JAX
@@ -118,7 +120,23 @@ package. Phases, each fatal on failure:
    against the unsharded one, (b) the 236B production-mesh dry run and,
    beside it, each in a subprocess of its own at full depth, qwen3-32b
    train_4k on (16, 16) and zamba2-7b long_500k on (2, 16, 16), every
-   record printed and ok;
+   record printed and ok; the sharded serve over NCCL, each part a
+   process group of its own, one process per visible card: (c1)
+   V2-Lite cut to 4 layers in f32 with the kernels, prefill 2 x 2048 into
+   a 4096-slot cache laid out by decode_state_shardings (the sequence over
+   `model`), 8 decode steps at slots 2048-2055 fed the unsharded run's
+   greedy tokens, on (1, n) and, on four cards, (2, 2): against the same
+   steps unsharded (1e-4) and against the sharded PLAIN ops (MODEL_TOL),
+   limits held whatever the routes do, routes equal but for a few
+   near-ties (router margin < 1e-3), and after a flip the comparison also
+   held in f64 with PLAIN ops; (c2) on two cards or more, V2-Lite as
+   published in bf16 on (1, n): against card 0's unsharded run,
+   last-token logits, top-1 per row, routes, per-layer divergence, walls,
+   peak memory by card and the cross-card merge's share of a decode step;
+   in both, each kernel's first call on each card held against its plain
+   version at TOL on the same inputs (the shapes the shard gives it);
+   mla_decode, softmax_merge and flash_prefill (f32 in (c1), bf16 in (c2))
+   launched on every card;
 5f. examples — repro_torch.examples in-process through run():
    quickstart (route+merge and the mla_decode kernel within 1e-5),
    serve_routed, agentic_fanout (routed fork decode within 1e-5),
@@ -138,7 +156,9 @@ package. Phases, each fatal on failure:
    in each prefill of (a) and (b) and nothing else, and no kernel in (c);
    in 5f, mla_decode in quickstart, agentic_fanout and plan_execute,
    softmax_merge in quickstart and plan_execute, delta_rotate in
-   plan_execute where it fetched, and no kernel in the train steps;
+   plan_execute where it fetched, and no kernel in the train steps; in
+   5e's sharded serve, counted in each rank's process around the sharded
+   run with the kernels ("dist_serve"), its three kernels on every card;
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -150,6 +170,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1826,11 +1847,12 @@ def profiled(torch, fn, top: int = 6):
 
 
 def run_model(torch, M, params, cfg, batch, step_cfgs, *, dtype, ops,
-              feed=None, routes=None, profile_last=False):
+              feed=None, routes=None, profile_last=False, slots=None):
     """prefill batch ({"tokens": (B, S)} and the family's stub inputs)
     through the entry points, then one decode_step per config of step_cfgs
     on a cache of the context (S, and the VLM's patches) plus
-    len(step_cfgs) slots holding the prefill caches (fill_decode_state).
+    len(step_cfgs) slots (or of `slots` slots) holding the prefill caches
+    (fill_decode_state).
     Greedy tokens, or `feed`'s. Returns the prefill logits and caches, the
     decode logits, the tokens fed, the state after the last step and the
     walls; with profile_last, the last step's device busy time and top
@@ -1844,7 +1866,7 @@ def run_model(torch, M, params, cfg, batch, step_cfgs, *, dtype, ops,
     torch.cuda.synchronize(dev)
     t_prefill = time.perf_counter() - t0
     state = M.fill_decode_state(cfg, M.init_decode_state(
-        cfg, B, S + len(step_cfgs), dtype=dtype, device=dev), caches)
+        cfg, B, slots or S + len(step_cfgs), dtype=dtype, device=dev), caches)
     tok = logits.argmax(-1)
     fed, outs, walls, prof = [], [], [], None
     for i, scfg in enumerate(step_cfgs):
@@ -2653,7 +2675,8 @@ DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 128, 3   # (a): 4 x 128 tokens, 3 steps
 # bits into parameter steps of up to lr where a gradient is near zero
 DIST_LOSS_RTOL, DIST_PARAM_RTOL = 1e-5, 1e-4
 CM_TOL = 2e-5                                  # the collective matmul
-DIST_TIMEOUT = {"a": 300, "b": 900}            # seconds, each subprocess
+# seconds, each subprocess: (a), (b), and the sharded serve's (c1), (c2)
+DIST_TIMEOUT = {"a": 300, "b": 900, "c1": 600, "c2": 600}
 DRYRUN_ARCH = "deepseek-v2-236b"
 # (b)'s further cells, each `python -m repro_torch.launch.dryrun` in a
 # subprocess of its own, at full depth, run beside the 236B one: GQA heads
@@ -2692,12 +2715,6 @@ def dist_part_a(torch, device="cuda"):
     from repro_torch.distributed import collective_matmul as CM
     from repro_torch.distributed import policy as POL
     from repro_torch.distributed import sharding as SH
-    from repro_torch.kernels.delta_rotate import ops as rot_ops
-    from repro_torch.kernels.flash_prefill import ops as fp_ops
-    from repro_torch.kernels.mla_decode import ops as mla_ops
-    from repro_torch.kernels.softmax_merge import ops as merge_ops
-    from repro_torch.kernels.sparse_select import ops as sel_ops
-    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
     from repro_torch.models.module import trainable
@@ -2716,17 +2733,8 @@ def dist_part_a(torch, device="cuda"):
                             rank=0, world_size=1)
     mesh = make_mesh((1, 1), ("data", "model"))
     cfg = get_smoke_config("deepseek-v2-lite")
-    wrappers = {"mla_decode": mla_ops.mla_decode,
-                "softmax_merge": merge_ops.softmax_merge,
-                "delta_rotate": rot_ops.delta_rotate,
-                "sparse_select": sel_ops.sparse_select,
-                "flash_prefill": fp_ops.flash_prefill,
-                "ssd_chunk": ssd_ops.ssd_intra_chunk}
-    by_dtype = fp_ops.flash_prefill.launches_by_dtype
-    for w in wrappers.values():
-        w.launches = 0
-    for k in by_dtype:
-        by_dtype[k] = 0
+    zero, read = _launch_counters()
+    zero()
     g = torch.Generator(device=dev).manual_seed(1)
     batches = [{k: torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_SEQ),
                                  generator=g, device=dev, dtype=torch.int32)
@@ -2784,9 +2792,7 @@ def dist_part_a(torch, device="cuda"):
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses1, losses0))
     routes_equal = len(routes1) == len(routes0) > 0 and all(
         torch.equal(a, b) for a, b in zip(routes1, routes0))
-    launches = {k: w.launches for k, w in wrappers.items()}
-    launches["flash_prefill"] = by_dtype["float32"]
-    launches["flash_prefill_bf16"] = by_dtype["bfloat16"]
+    launches = {k: sum(by_card.values()) for k, by_card in read().items()}
 
     # the checkpoint: saved from the DTensors, restored into plain tensors
     with tempfile.TemporaryDirectory() as d:
@@ -2833,22 +2839,28 @@ def dist_part_a(torch, device="cuda"):
 
 
 def run_subprocess_part(part, argv):
-    """Run argv (a part of phase 5e) in a subprocess with its timeout;
-    echo its output; fail on a non-zero exit or a timeout."""
+    """Run argv (a part of phase 5e) in a subprocess, in a session of its
+    own, with its timeout; echo its output; fail on a non-zero exit or a
+    timeout, after which the session's processes (a part's ranks) are
+    killed."""
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT, start_new_session=True)
     try:
-        res = subprocess.run(argv, capture_output=True, text=True, env=env,
-                             timeout=DIST_TIMEOUT[part], cwd=ROOT)
+        out, err = proc.communicate(timeout=DIST_TIMEOUT[part])
     except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
         fail(f"(5e) ({part}) did not end within {DIST_TIMEOUT[part]} s")
     wall = time.perf_counter() - t0
-    sys.stdout.write(res.stdout)
-    if res.returncode != 0:
-        fail(f"(5e) ({part}) exited {res.returncode}: "
-             f"{res.stderr.strip()[-3000:]}")
-    return res.stdout, wall
+    sys.stdout.write(out)
+    if proc.returncode != 0:
+        fail(f"(5e) ({part}) exited {proc.returncode}: "
+             f"{err.strip()[-3000:]}")
+    return out, wall
 
 
 def run_distribution(torch, smi_line):
@@ -2989,6 +3001,741 @@ def log_dry_record(rec, wall, smi_line):
         f"{roof['dominant']}; dry-run wall {wall:.1f} s on the host "
         f"(build {rec['t_build_s']} s, analyse {rec['t_analyse_s']} s); "
         f"ok {rec['ok']}; {smi_line}")
+
+
+# ---------------------------------------------------------------------------
+# 5e (c1), (c2). the sharded serving form over NCCL, one process per card
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS = 4096      # the decode cache: the prompt's 2048 slots, then
+                        # the decode steps write 2048-2055
+# the kernels of the sharded serve, by part: each launched on every card
+SERVE_PATH = {"c1": ("flash_prefill", "mla_decode", "softmax_merge"),
+              "c2": ("flash_prefill_bf16", "mla_decode", "softmax_merge")}
+# (c1), the sharded steps against the same steps unsharded: the same ops on
+# the same f32 values, a head's attention and a shard's rows summed in
+# another order, the decode's softmax merged across the shards: the model
+# phase's limit (tests/test_torch_model.py's)
+SERVE_TOL = (1e-4, 1e-4)
+# (c1)'s routes: a flip is let pass only at a near-tie, the token's router
+# margin (its k-th less its (k + 1)-th router probability, the unsharded
+# run's) below NEAR_TIE, and at most MAX_FLIPS of them in a comparison;
+# the error limits hold whatever flips, and a flip also holds the
+# comparison in f64 with PLAIN ops
+NEAR_TIE, MAX_FLIPS = 1e-3, 4
+
+
+def serve_meshes(n: int):
+    """(c1)'s ("data", "model") meshes over n cards: (1, n), and (2, n / 2)
+    where n is even and at least 4; (1, 1) on one card."""
+    return [(1, n)] + ([(2, n // 2)] if n >= 4 and n % 2 == 0 else [])
+
+
+def _row_sets(n_data: int, batch: int = MODEL_BATCH):
+    """The batch rows each of n_data data shards holds."""
+    return [slice(i * batch // n_data, (i + 1) * batch // n_data)
+            for i in range(n_data)]
+
+
+def _launch_counters():
+    """(zero, read) for this process's kernel launch counters, by the names
+    of KERNELS, each also by card."""
+    from repro_torch.kernels.delta_rotate import ops as rot_ops
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
+    from repro_torch.kernels.mla_decode import ops as mla_ops
+    from repro_torch.kernels.softmax_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_select import ops as sel_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    wrappers = {"mla_decode": mla_ops.mla_decode,
+                "softmax_merge": merge_ops.softmax_merge,
+                "delta_rotate": rot_ops.delta_rotate,
+                "sparse_select": sel_ops.sparse_select,
+                "ssd_chunk": ssd_ops.ssd_intra_chunk}
+    fp = fp_ops.flash_prefill
+
+    def counters():
+        out = {k: w.launches_by_card for k, w in wrappers.items()}
+        out["flash_prefill"] = fp.launches_by_card["float32"]
+        out["flash_prefill_bf16"] = fp.launches_by_card["bfloat16"]
+        return out
+
+    def zero():
+        for w in list(wrappers.values()) + [fp]:
+            w.launches = 0
+        for k in fp.launches_by_dtype:
+            fp.launches_by_dtype[k] = 0
+        for c in counters().values():
+            c.clear()
+
+    def read():
+        return {k: {int(card): n for card, n in c.items()}
+                for k, c in counters().items()}
+    return zero, read
+
+
+def _whole(torch, x):
+    """A result tree with every DTensor leaf gathered whole (a collective:
+    every rank calls it)."""
+    if isinstance(x, dict):
+        return {k: _whole(torch, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_whole(torch, v) for v in x)
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+class MergeTimer:
+    """Wraps models.model's local_seq_partials, while active, to time the
+    cross-card merge of each call: CUDA events on the current stream after
+    the shard's attention and after the merge, so their interval holds the
+    packing, the all-gather over the sequence's ranks (waiting for the
+    slowest) and the softmax_merge kernel."""
+
+    def __init__(self, torch, M):
+        self.torch, self.M, self.real = torch, M, M.local_seq_partials
+        self.calls = []
+
+    def __enter__(self):
+        self.M.local_seq_partials = self
+        return self
+
+    def __exit__(self, *exc):
+        self.M.local_seq_partials = self.real
+
+    def __call__(self, attend, merge, q, cache):
+        ev = {}
+
+        def mark(fn, key):
+            def run(*a):
+                out = fn(*a)
+                ev[key] = self.torch.cuda.Event(enable_timing=True)
+                ev[key].record()
+                return out
+            return run
+        out = self.real(mark(attend, "attend"), mark(merge, "merge"), q,
+                        cache)
+        self.calls.append((ev["attend"], ev["merge"]))
+        return out
+
+    def per_step(self, n_steps):
+        """Each of n_steps decode steps' merge ms (a step's calls are its
+        layers', in order; read after a synchronize)."""
+        ms = [a.elapsed_time(b) for a, b in self.calls]
+        if not ms or len(ms) % n_steps:
+            fail(f"(5e) {len(ms)} merges timed over {n_steps} decode steps")
+        k = len(ms) // n_steps
+        return [sum(ms[i * k:(i + 1) * k]) for i in range(n_steps)]
+
+
+def first_calls(torch, ops):
+    """(ops whose flash_prefill, mla_decode and softmax_merge keep a copy
+    of the arguments of their first call in this process, by the name of
+    KERNELS, and pass every call on; that record)."""
+    seen = {}
+
+    def keep(field, fn):
+        def call(*args, **kw):
+            name = field + ("_bf16" if field == "flash_prefill"
+                            and args[0].dtype == torch.bfloat16 else "")
+            if name not in seen:
+                seen[name] = (tuple(a.clone() if torch.is_tensor(a) else a
+                                    for a in args), dict(kw))
+            return fn(*args, **kw)
+        return call
+    return dataclasses.replace(ops, **{
+        f: keep(f, getattr(ops, f))
+        for f in ("flash_prefill", "mla_decode", "softmax_merge")}), seen
+
+
+def hold_first_calls(torch, M, seen):
+    """Each call first_calls kept, run again through its kernel wrapper and
+    through its plain version on the same inputs: {name: [argument shapes,
+    max|err| over the output's leaves, within TOL]}. softmax_merge's
+    leaves are held at TOL's 1e-6 relative to the leaf's largest
+    magnitude where it exceeds 1 (check_softmax_merge holds l so)."""
+    out = {}
+    for name, (args, kw) in sorted(seen.items()):
+        field = name.removesuffix("_bf16")
+        got = leaves(getattr(M.KERNELS, field)(*args, **kw))
+        want = leaves(getattr(M.PLAIN, field)(*args, **kw))
+        torch.cuda.synchronize()
+        atol, rtol = TOL[name]
+        errs, ok = [], True
+        for g, w in zip(got, want):
+            g, w = g.float(), w.float()
+            errs.append(max_err(torch, g, w))
+            if field == "softmax_merge":
+                ok &= errs[-1] <= atol * max(1.0, float(w.abs().max()))
+            else:
+                ok &= within(torch, g, w, atol, rtol)
+        out[name] = [[list(a.shape) for a in args if torch.is_tensor(a)],
+                     max(errs), bool(ok and len(got) == len(want))]
+    return out
+
+
+def serve_sharded(torch, M, params, cfg, mesh, tokens, feed, *, dtype, ops,
+                  routes=None):
+    """The sharded serving form through the entry points, on mesh with the
+    dry run's placements (the batch as train_batch_shardings, the decode
+    state of SERVE_SLOTS slots as decode_state_shardings: the latent
+    cache's sequence over `model`; each step's token and position as
+    decode_input_shardings; sp_policy): prefill tokens (B, S) twice (the
+    second for the warm wall), fill the state with the first's caches,
+    then one decode_step per row of feed (steps, B, 1) at slots S, S + 1,
+    ... Returns the results (DTensors) and the walls, each ending in a
+    synchronize."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import input_specs as IS
+    B, S = tokens.shape
+    dev = tokens.device
+    sync = lambda: torch.cuda.synchronize(dev)
+    out = {"decode": [], "decode_s": []}
+    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
+            torch.no_grad():
+        tk = SH.distribute(tokens, mesh, IS.train_batch_shardings(
+            {"tokens": tokens}, mesh)["tokens"].spec)
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = M.prefill(params, cfg, {"tokens": tk}, ops=ops,
+                                   routes=routes)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        M.prefill(params, cfg, {"tokens": tk}, ops=ops)
+        sync()
+        out["warm_prefill_s"] = time.perf_counter() - t0
+        shard = IS.decode_state_shardings(
+            cfg, ShapeSpec("serve", SERVE_SLOTS, B, "decode"), mesh)
+        state = M.fill_decode_state(cfg, {
+            k: SH.distribute(v, mesh, shard[k].spec)
+            for k, v in M.init_decode_state(cfg, B, SERVE_SLOTS, dtype=dtype,
+                                            device=dev).items()}, caches)
+        tok_sh, pos_sh, _ = IS.decode_input_shardings(mesh, B)
+        for i in range(feed.shape[0]):
+            tok = SH.distribute(feed[i], mesh, tok_sh.spec)
+            pos = SH.distribute(torch.full((B, 1), S + i, device=dev), mesh,
+                                pos_sh.spec)
+            sync()
+            t0 = time.perf_counter()
+            lg, state = M.decode_step(params, cfg, state, tok, pos, S + i,
+                                      ops=ops, routes=routes)
+            sync()
+            out["decode_s"].append(time.perf_counter() - t0)
+            out["decode"].append(lg)
+    out.update(prefill=logits, caches=caches, state=state)
+    return out
+
+
+def serve_unsharded(torch, M, cfg, tokens, n_data, *, dtype, ops, feed=None,
+                    routes=None, margins=False):
+    """The same prefill and steps unsharded on this card, the batch as n_data
+    data shards dispatch it (each shard's rows on their own: the
+    expert-parallel MoE takes each data shard's tokens at that shard's
+    capacity), greedy or fed feed (steps, B, 1); every result joined over
+    the batch, the routes call by call (and with margins, each call's
+    router margins, "margins")."""
+    import contextlib
+    dev = tokens.device
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=dtype)
+    runs, per_run, per_margins = [], [], []
+    for rows in _row_sets(n_data, tokens.shape[0]):
+        rr = []
+        rec = RouterMargins(torch) if margins else contextlib.nullcontext()
+        with rec:
+            runs.append(run_model(
+                torch, M, params, cfg, {"tokens": tokens[rows]},
+                [cfg] * MODEL_STEPS, dtype=dtype, ops=ops, routes=rr,
+                feed=None if feed is None else [f[rows] for f in feed],
+                slots=SERVE_SLOTS))
+        per_run.append(rr)
+        per_margins.append(rec.margins if margins else None)
+    del params
+    torch.cuda.empty_cache()
+    cat = lambda xs, d=0: torch.cat(xs, dim=d)
+    batch1 = lambda key: {k: cat([r[key][k] for r in runs], 1)
+                          for k in runs[0][key]}
+    out = {"prefill": cat([r["prefill"] for r in runs]),
+           "decode": [cat([r["decode"][i] for r in runs])
+                      for i in range(MODEL_STEPS)],
+           "fed": torch.stack([cat([r["fed"][i] for r in runs])
+                               for i in range(MODEL_STEPS)]),
+           "caches": batch1("caches"), "state": batch1("state"),
+           "prefill_s": [r["prefill_s"] for r in runs],
+           "decode_s": [w for r in runs for w in r["decode_s"]]}
+    if routes is not None:
+        routes.extend(cat([rr[i] for rr in per_run])
+                      for i in range(len(per_run[0])))
+    if margins:
+        out["margins"] = [cat([m[i] for m in per_margins])
+                          for i in range(len(per_margins[0]))]
+    return out
+
+
+class RouterMargins:
+    """Records, while active, each MoE call's router margin per token: the
+    gap between its k-th and (k + 1)-th router probabilities (a flip needs
+    the two to swap)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe as MOE
+        self.torch, self.MOE, self.real = torch, MOE, MOE._router
+        self.margins = []
+
+    def __enter__(self):
+        def record(p, cfg, x, idx=None):
+            out = self.real(p, cfg, x, idx)
+            top = self.torch.topk(out[2], cfg.top_k + 1, dim=-1).values
+            self.margins.append(top[:, -2] - top[:, -1])
+            return out
+        self.MOE._router = record
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE._router = self.real
+
+
+def route_flips(torch, got, want, margins=None):
+    """[(call, token, router margin or None)] where two runs' MoE routes
+    differ (a different number of calls: one entry, call -1)."""
+    if len(got) != len(want):
+        return [(-1, -1, None)]
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        for t in (a != b).any(-1).nonzero().flatten().tolist():
+            m = float(margins[i][t]) if margins and i < len(margins) \
+                else None
+            out.append((i, t, m))
+    return out
+
+
+def held_errors(torch, got, want, tol):
+    """{what: max|err|} of prefill logits, decode logits, every cache and
+    state leaf; the names of those beyond tol (atol, rtol)."""
+    pairs = {"prefill": [(got["prefill"], want["prefill"])],
+             "decode": list(zip(got["decode"], want["decode"])),
+             "caches": list(zip(leaves(got["caches"]),
+                                leaves(want["caches"]))),
+             "state": list(zip(leaves(got["state"]), leaves(want["state"])))}
+    errs, bad = {}, []
+    for what, ps in pairs.items():
+        if not ps or any(a.shape != b.shape for a, b in ps):
+            bad.append(f"{what} (layout)")
+            continue
+        errs[what] = max(max_err(torch, a.float(), b.float()) for a, b in ps)
+        if not all(within(torch, a.double(), b.double(), *tol) for a, b in ps):
+            bad.append(what)
+    return errs, bad
+
+
+def _sharded_params(torch, M, cfg, mesh, dev, dtype):
+    from repro_torch.distributed import sharding as SH
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=dtype)
+    return SH.shard_params(params, SH.param_shardings(params, mesh))
+
+
+def serve_f32_mesh(torch, dev, cfg, shape):
+    """(c1) on one mesh: the unsharded steps (rank 0's card, KERNELS, the
+    router margins recorded), then the sharded ones with KERNELS (counted,
+    each kernel's first call on each card kept and held against its plain
+    version) and with PLAIN, fed the unsharded run's greedy tokens; rank 0
+    holds the sharded KERNELS run against both. After a route flip, the
+    comparison is also held in f64 with PLAIN ops on both sides."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    rank = dist.get_rank()
+    mesh = make_mesh(shape, ("data", "model"))
+    tokens = _prompt(torch, dev, cfg.vocab, MODEL_PROMPT)
+    feed = torch.zeros((MODEL_STEPS, MODEL_BATCH, 1), dtype=torch.long,
+                       device=dev)
+    ref, ref_routes = None, []
+    if rank == 0:
+        ref = serve_unsharded(torch, M, cfg, tokens, shape[0],
+                              dtype=torch.float32, ops=M.KERNELS,
+                              routes=ref_routes, margins=True)
+        feed.copy_(ref["fed"])
+    dist.broadcast(feed, 0)
+    params = _sharded_params(torch, M, cfg, mesh, dev, torch.float32)
+    ops, seen = first_calls(torch, M.KERNELS)
+    zero, read = _launch_counters()
+    zero()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rk, rp = [], []
+    kern = serve_sharded(torch, M, params, cfg, mesh, tokens, feed,
+                         dtype=torch.float32, ops=ops, routes=rk)
+    torch.cuda.synchronize(dev)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    held = hold_first_calls(torch, M, seen)
+    del seen
+    plain = serve_sharded(torch, M, params, cfg, mesh, tokens, feed,
+                          dtype=torch.float32, ops=M.PLAIN, routes=rp)
+    walls = {k: kern[k] for k in ("prefill_s", "warm_prefill_s",
+                                  "decode_s")}
+    kern, plain = _whole(torch, kern), _whole(torch, plain)
+    rk, rp = _whole(torch, rk), _whole(torch, rp)
+    res = {"mesh": list(shape), "walls": walls}
+    if rank == 0:
+        res["unsharded_walls"] = {"prefill_s": ref["prefill_s"],
+                                  "decode_s": ref["decode_s"]}
+        res["routes"] = sum(int(r.numel()) for r in rk)
+        for name, want, want_routes, tol in (
+                ("unsharded", ref, ref_routes, SERVE_TOL),
+                ("plain", plain, rp, MODEL_TOL["v2_lite"])):
+            errs, bad = held_errors(torch, kern, want, tol)
+            res[name] = {"errs": errs, "beyond": bad,
+                         "flips": route_flips(torch, rk, want_routes,
+                                              ref["margins"])}
+    del kern, plain
+    flipped = [any(res[k]["flips"] for k in ("unsharded", "plain"))
+               if rank == 0 else None]
+    dist.broadcast_object_list(flipped, 0)
+    if flipped[0]:
+        res["f64"] = serve_f64_mesh(torch, dev, cfg, mesh, shape, tokens,
+                                    feed)
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, {"launches": launches, "peak_gib": peak,
+                                     "held": held})
+    for key in ("launches", "peak_gib", "held"):
+        res[key] = [r[key] for r in by_rank]
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_f64_mesh(torch, dev, cfg, mesh, shape, tokens, feed):
+    """(c1)'s comparison again after a route flip: the sharded and the
+    unsharded steps in f64 with PLAIN ops, the same tokens fed; rank 0's
+    errors and flips."""
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+    ref, ref_routes = None, []
+    if dist.get_rank() == 0:
+        ref = serve_unsharded(torch, M, cfg, tokens, shape[0],
+                              dtype=torch.float64, ops=M.PLAIN,
+                              feed=list(feed), routes=ref_routes)
+    params = _sharded_params(torch, M, cfg, mesh, dev, torch.float64)
+    rs = []
+    got = _whole(torch, serve_sharded(torch, M, params, cfg, mesh, tokens,
+                                      feed, dtype=torch.float64,
+                                      ops=M.PLAIN, routes=rs))
+    rs = _whole(torch, rs)
+    del params
+    torch.cuda.empty_cache()
+    if dist.get_rank() != 0:
+        return None
+    errs, bad = held_errors(torch, got, ref, SERVE_TOL)
+    return {"errs": errs, "beyond": bad,
+            "flips": route_flips(torch, rs, ref_routes)}
+
+
+def serve_bf16(torch, dev, cfg, shape):
+    """(c2): V2-Lite as published in bf16 on a (1, n) mesh with KERNELS,
+    fed the greedy tokens of the same steps unsharded on card 0 (run as
+    phase 5b (a) runs them, on the same weights): each kernel's first call
+    on each card held against its plain version at the shapes the shard
+    gives it; rank 0 compares the last-token logits, the top-1 tokens and
+    the routes; every card's launches, peak memory; the walls and the
+    cross-card merge's share of a decode step."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    rank = dist.get_rank()
+    mesh = make_mesh(shape, ("data", "model"))
+    tokens = _prompt(torch, dev, cfg.vocab, MODEL_PROMPT)
+    feed = torch.zeros((MODEL_STEPS, MODEL_BATCH, 1), dtype=torch.long,
+                       device=dev)
+    ref, ref_routes, ref_peak = None, [], None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref = serve_unsharded(torch, M, cfg, tokens, 1,
+                              dtype=torch.bfloat16, ops=M.KERNELS,
+                              routes=ref_routes)
+        ref_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        feed.copy_(ref["fed"])
+    dist.broadcast(feed, 0)
+    t0 = time.perf_counter()
+    params = _sharded_params(torch, M, cfg, mesh, dev, torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    ops, seen = first_calls(torch, M.KERNELS)
+    zero, read = _launch_counters()
+    zero()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rk = []
+    with MergeTimer(torch, M) as timer:
+        kern = serve_sharded(torch, M, params, cfg, mesh, tokens, feed,
+                             dtype=torch.bfloat16, ops=ops, routes=rk)
+    torch.cuda.synchronize(dev)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    merge_ms = timer.per_step(MODEL_STEPS)
+    held = hold_first_calls(torch, M, seen)
+    del seen
+    lg = _whole(torch, [kern["prefill"]] + kern["decode"])
+    rk = _whole(torch, rk)
+    caches = _whole(torch, kern["caches"])
+    walls = {k: kern[k] for k in ("prefill_s", "warm_prefill_s",
+                                  "decode_s")}
+    del kern, params
+    torch.cuda.empty_cache()
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, {"launches": launches, "peak_gib": peak,
+                                     "merge_ms": merge_ms, "held": held})
+    if rank != 0:
+        return None
+    want = [ref["prefill"]] + ref["decode"]
+    top1 = [[bool(a) for a in (g.argmax(-1) == w.argmax(-1)).flatten()]
+            for g, w in zip(lg, want)]
+    same = sum(int((a == b).all(-1).sum()) for a, b in zip(rk, ref_routes)) \
+        if len(rk) == len(ref_routes) else 0
+    share = [m / (w * 1e3) for m, w in zip(merge_ms, walls["decode_s"])]
+    out = {"mesh": list(shape), "layers": cfg.n_layers, "init_s": init_s,
+           "parting": _parting(torch, cfg, caches, rk, ref["caches"],
+                               ref_routes),
+           "last_token_max_abs_diff": max_err(torch, lg[0].float(),
+                                              want[0].float()),
+           "decode_max_abs_diff": max(max_err(torch, g.float(), w.float())
+                                      for g, w in zip(lg[1:], want[1:])),
+           "top1_by_row": top1, "routes_equal": same,
+           "routes": sum(int(r.shape[0]) for r in ref_routes),
+           "walls": walls,
+           "unsharded_walls": {"prefill_s": ref["prefill_s"],
+                               "decode_s": ref["decode_s"]},
+           "unsharded_peak_gib": ref_peak,
+           "merge_share_card0": share}
+    for key in ("launches", "peak_gib", "merge_ms", "held"):
+        out[key] = [r[key] for r in by_rank]
+    return out
+
+
+def _parting(torch, cfg, caches, routes, ref_caches, ref_routes):
+    """Where two runs part, layer by layer: each layer's prefill cache
+    entries' max|diff|, and each MoE layer's share of prefill tokens whose
+    top-k routes are all equal (the first MoE calls are the prefill's)."""
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    return {"cache_max_abs_diff": [
+                max_err(torch, a.float(), b.float())
+                for key in ("dense_blocks", "blocks")
+                for a, b in zip(caches[key], ref_caches[key])],
+            "routes_equal_share": [
+                float((a == b).all(-1).float().mean())
+                for a, b in zip(routes[:n_moe], ref_routes[:n_moe])]}
+
+
+def dist_serve_rank(rank, world, port, part):
+    """One rank of (c1) or (c2) (torch.multiprocessing.spawn's target):
+    card `rank`, a NCCL group of `world` ranks. Rank 0 prints the part's
+    result as one "DIST-SERVE {json}" line."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import deepseek_v2_lite
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    v2_lite = deepseek_v2_lite.config()
+    if part == "c1":
+        cut = dataclasses.replace(v2_lite, n_layers=4)
+        out = [serve_f32_mesh(torch, dev, cut, shape)
+               for shape in serve_meshes(world)]
+    else:
+        out = serve_bf16(torch, dev, v2_lite, (1, world))
+    if rank == 0:
+        print("DIST-SERVE " + json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_serve_part(part: str) -> None:
+    """(c1) or (c2) in this process: one rank per visible card, spawned; a
+    rank that fails fails the part."""
+    import torch
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count()
+    if n < 1:
+        fail(f"(5e) ({part}) needs a CUDA card")
+    mp.spawn(dist_serve_rank, args=(n, _free_port(), part), nprocs=n,
+             join=True)
+
+
+def _serve_result(part, out):
+    found = [line for line in out.splitlines()
+             if line.startswith("DIST-SERVE ")]
+    if not found:
+        fail(f"(5e) ({part}) printed no result")
+    return json.loads(found[-1][len("DIST-SERVE "):])
+
+
+def _launch_totals(by_rank):
+    """{kernel: launches summed over the ranks}, {kernel: {card: n}}."""
+    total, cards = {k: 0 for k in KERNELS}, {k: {} for k in KERNELS}
+    for launches in by_rank:
+        for k, per_card in launches.items():
+            for card, n in per_card.items():
+                total[k] += n
+                cards[k][int(card)] = cards[k].get(int(card), 0) + n
+    return total, cards
+
+
+def _on_every_card(part, cards, n_cards):
+    missing = [f"{k} on cuda:{c}" for k in SERVE_PATH[part]
+               for c in range(n_cards) if cards[k].get(c, 0) <= 0]
+    if missing:
+        fail(f"(5e) ({part}) not launched: {missing}")
+
+
+def run_dist_serve(torch, smi_line):
+    """(c1) on every visible card's meshes and, on two cards or more, (c2);
+    each part a process group of its own in a subprocess with its
+    timeout. Returns ({part: result}, launches by kernel, by kernel and
+    card), the launches those of the sharded KERNELS runs alone."""
+    n_cards = torch.cuda.device_count()
+    parts = ["c1"] + (["c2"] if n_cards >= 2 else [])
+    results, total, cards = {}, {k: 0 for k in KERNELS}, \
+        {k: {} for k in KERNELS}
+    for part in parts:
+        out, wall = run_subprocess_part(
+            part, [sys.executable, os.path.abspath(__file__), "--dist-part",
+                   part])
+        r = _serve_result(part, out)
+        runs = r if part == "c1" else [r]
+        for run in runs:
+            t, c = _launch_totals(run["launches"])
+            _on_every_card(part, c, n_cards)
+            for k in KERNELS:
+                total[k] += t[k]
+                for card, n in c[k].items():
+                    cards[k][card] = cards[k].get(card, 0) + n
+        results[part] = {"result": r, "wall_s": wall}
+        (log_serve_f32 if part == "c1" else log_serve_bf16)(
+            r, wall, n_cards, smi_line)
+    if n_cards == 1:
+        log(f"[dist] (c1) on (1, 4) and (2, 2) and (c2) did not run: 1 card "
+            f"visible; on four cards python3 chip_smoke.py --dist-only runs "
+            f"them; {smi_line}")
+    return results, total, cards
+
+
+def _fmt_walls(w):
+    pre = w["prefill_s"]
+    return ("prefill " + ", ".join(f"{p * 1e3:.1f}" for p in (
+        pre if isinstance(pre, list) else [pre])) + " ms"
+            + (f" (warm {w['warm_prefill_s'] * 1e3:.1f})"
+               if "warm_prefill_s" in w else "")
+            + ", decode steps " + ", ".join(f"{s * 1e3:.1f}"
+                                            for s in w["decode_s"]) + " ms")
+
+
+def _log_held(part, shape, held, smi_line):
+    """Log each card's held first calls (hold_first_calls'); fail where one
+    is beyond its TOL."""
+    log(f"[dist] ({part}) {shape}: each kernel's first call on each card, "
+        f"again through the kernel against its plain version on the same "
+        f"inputs ([argument shapes, max|err|, within TOL]) by card "
+        f"{held}; TOL {TOL}; {smi_line}")
+    bad = [f"{k} on cuda:{c}" for c, h in enumerate(held)
+           for k, v in h.items() if not v[2]]
+    if bad:
+        fail(f"(5e) ({part}) {shape}: beyond TOL against the plain "
+             f"versions: {bad}")
+
+
+def log_serve_f32(runs, wall, n_cards, smi_line):
+    """(c1)'s lines, a mesh each; fail unless each mesh is within its
+    limits against both runs, its routes equal but for at most MAX_FLIPS
+    near-ties (router margin below NEAR_TIE), and, after a flip, its f64
+    comparison is within SERVE_TOL with equal routes."""
+    for r in runs:
+        shape = tuple(r["mesh"])
+        t, c = _launch_totals(r["launches"])
+        parts = []
+        for name, tol in (("unsharded", SERVE_TOL),
+                          ("plain", MODEL_TOL["v2_lite"])):
+            h = r[name]
+            parts.append(
+                f"against {name} " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                               h["errs"].items())
+                + f" (atol {tol[0]:g}, rtol {tol[1]:g}); routes "
+                + ("equal" if not h["flips"] else
+                   f"flipped at (call, token, router margin) {h['flips']}"))
+        log(f"[dist] (c1) V2-Lite cut to 4 layers in f32, KERNELS, on a "
+            f"{shape} (data, model) NCCL mesh over {n_cards} card(s): "
+            f"prefill {MODEL_BATCH} x {MODEL_PROMPT} into {SERVE_SLOTS} "
+            f"slots, {MODEL_STEPS} decode steps at slots {MODEL_PROMPT}-"
+            f"{MODEL_PROMPT + MODEL_STEPS - 1}; {r['routes']} route entries; "
+            + "; ".join(parts) + f"; sharded {_fmt_walls(r['walls'])}; "
+            f"unsharded {_fmt_walls(r['unsharded_walls'])}; peak GiB by "
+            f"card {[round(p, 2) for p in r['peak_gib']]}; launches {t}, by "
+            f"card {c}; part wall {wall:.1f} s; {smi_line}")
+        _log_held("c1", shape, r["held"], smi_line)
+        for name in ("unsharded", "plain"):
+            h = r[name]
+            if h["beyond"]:
+                fail(f"(5e) (c1) {shape}: against {name} beyond the limit "
+                     f"in {h['beyond']}: {h['errs']}")
+            ties = [f for f in h["flips"]
+                    if f[2] is not None and f[2] < NEAR_TIE]
+            if len(ties) < len(h["flips"]) or len(ties) > MAX_FLIPS:
+                fail(f"(5e) (c1) {shape}: against {name} routes flipped "
+                     f"beyond {MAX_FLIPS} near-ties (router margin < "
+                     f"{NEAR_TIE:g}): {h['flips']}")
+        if "f64" in r:
+            f = r["f64"]
+            if f is None or f["beyond"] or f["flips"]:
+                fail(f"(5e) (c1) {shape}: routes flipped and the f64 "
+                     f"comparison did not hold: {f}")
+            log(f"[dist] (c1) {shape}: after the flip, the sharded steps "
+                f"against the unsharded ones in f64 with PLAIN ops: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in f["errs"].items())
+                + f" (atol {SERVE_TOL[0]:g}, rtol {SERVE_TOL[1]:g}), routes "
+                f"equal; {smi_line}")
+
+
+def log_serve_bf16(r, wall, n_cards, smi_line):
+    """(c2)'s lines: its kernels held at its shard shapes on every card;
+    its numbers against the unsharded run reported."""
+    t, c = _launch_totals(r["launches"])
+    rows = [sum(col) for col in zip(*r["top1_by_row"])]
+    shares = r["merge_share_card0"]
+    log(f"[dist] (c2) V2-Lite as published ({r['layers']} layers) in bf16, "
+        f"KERNELS, on a {tuple(r['mesh'])} (data, model) NCCL mesh, "
+        f"weights from seed 0 (sharded in {r['init_s']:.2f} s): prefill "
+        f"{MODEL_BATCH} x {MODEL_PROMPT} into {SERVE_SLOTS} slots, "
+        f"{MODEL_STEPS} decode steps fed card 0's unsharded greedy tokens; "
+        f"against the unsharded run: last-token logits max|diff| "
+        f"{r['last_token_max_abs_diff']:.4e}, decode logits max|diff| "
+        f"{r['decode_max_abs_diff']:.4e}, top-1 agreement per row "
+        f"{rows} of {len(r['top1_by_row'])} (prefill + {MODEL_STEPS} "
+        f"steps), routes equal {r['routes_equal']} of {r['routes']} "
+        f"tokens; sharded {_fmt_walls(r['walls'])}; unsharded "
+        f"{_fmt_walls(r['unsharded_walls'])}; peak GiB by card "
+        f"{[round(p, 2) for p in r['peak_gib']]} (unsharded on card 0 "
+        f"{r['unsharded_peak_gib']:.2f}); part wall {wall:.1f} s; "
+        f"{smi_line}")
+    p = r["parting"]
+    log(f"[dist] (c2) layer by layer, the sharded run against the unsharded "
+        f"one: prefill cache entries max|diff| "
+        f"{[float(f'{x:.3g}') for x in p['cache_max_abs_diff']]}; share of "
+        f"prefill tokens whose top-k routes are all equal, by MoE layer "
+        f"{[round(x, 4) for x in p['routes_equal_share']]}; {smi_line}")
+    log(f"[dist] (c2) cross-card merge (all-gather of (o, m, l) over the "
+        f"sequence's ranks + softmax_merge, CUDA events after the shard's "
+        f"attention and after the merge, summed over the layers) ms a "
+        f"decode step by card "
+        f"{[[round(x, 3) for x in m] for m in r['merge_ms']]}"
+        f"; share of card 0's step wall "
+        f"{[round(x, 4) for x in shares]} (median "
+        f"{statistics.median(shares):.4f}); launches {t}, by card {c}; "
+        f"{smi_line}")
+    _log_held("c2", tuple(r["mesh"]), r["held"], smi_line)
 
 
 # ---------------------------------------------------------------------------
@@ -3189,7 +3936,7 @@ def run_mesh_phases(torch, cfg, dev, kind, smi_line, counted, cards_of):
                         else {})}
 
 
-def main(mesh_only: bool = False) -> int:
+def main(mesh_only: bool = False, dist_only: bool = False) -> int:
     import torch
     if not torch.cuda.is_available():
         print("[chip_smoke] FAIL: torch.cuda.is_available() is false: this "
@@ -3268,6 +4015,13 @@ def main(mesh_only: bool = False) -> int:
             for card, c in cards_of(name).items():
                 tot[card] = tot.get(card, 0) + c
         return result, n
+
+    if dist_only:           # phase 5e (c1)-(c2) alone (a run on four cards)
+        t0 = time.perf_counter()
+        _, total, cards = run_dist_serve(torch, smi_line)
+        log(f"[dist] (c1)-(c2) alone: {time.perf_counter() - t0:.1f} s; "
+            f"launches {total}; by card {cards}; {smi_line}")
+        return 0
 
     if mesh_only:           # phases 4c-4e alone (a run on several cards)
         from repro_torch.configs.deepseek_v2_lite import V2_LITE_MLA as cfg
@@ -3395,9 +4149,17 @@ def main(mesh_only: bool = False) -> int:
     log(f"[families] phase 5d wall {fam_s:.1f} s; launches by part "
         f"{fam_launches}")
 
-    # 5e. distribution: the sharded train step, the production dry run
+    # 5e. distribution: the sharded train step, the production dry run,
+    # the sharded serve over NCCL
     t0 = time.perf_counter()
     dist_res, dist_launches = run_distribution(torch, smi_line)
+    t1 = time.perf_counter()
+    sharded_res, sharded_launches, sharded_cards = run_dist_serve(torch,
+                                                                  smi_line)
+    sharded_s = time.perf_counter() - t1
+    for name, per_card in sharded_cards.items():
+        for card, n in per_card.items():
+            by_card[name][card] = by_card[name].get(card, 0) + n
     dist_s = time.perf_counter() - t0
     log(f"[dist] phase 5e wall {dist_s:.1f} s; {smi_line}")
 
@@ -3415,6 +4177,7 @@ def main(mesh_only: bool = False) -> int:
                 "model_mla_bf16": layer_launches, **train_launches,
                 **fam_launches,
                 "dist_train": {k: dist_launches.get(k, 0) for k in checks},
+                "dist_serve": sharded_launches,
                 **ex_launches}
     launches = {k: sum(p[k] for p in by_phase.values()) for k in checks}
 
@@ -3440,6 +4203,8 @@ def main(mesh_only: bool = False) -> int:
                 if sum(p[k] for p in model_phases) <= 0]
     if fam_launches["families_zamba2"]["ssd_chunk"] <= 0:
         missing.append("ssd_chunk (families)")
+    missing += [f"{k} (dist_serve)" for k in SERVE_PATH["c1"]
+                if sharded_launches[k] <= 0]
     # 5f: the routed decode of the examples on the kernels
     want_ex = {"ex_quickstart": ("mla_decode", "softmax_merge"),
                "ex_agentic_fanout": ("mla_decode",),
@@ -3509,6 +4274,9 @@ def main(mesh_only: bool = False) -> int:
         f"{dist_res['record']['roofline']['dominant']}; "
         + ", ".join(f"{k} ok in {v['wall_s']:.1f} s"
                     for k, v in dist_res["cells"].items())
+        + f"; the sharded serve {sharded_s:.1f} s: "
+        + ", ".join(f"({k}) {v['wall_s']:.1f} s"
+                    for k, v in sharded_res.items())
         + "), examples phase "
         f"{ex_s:.1f} s (train_mla_100m --full "
         f"{ex_res['train']['step_s'] * 1e3:.1f} ms a step, "
@@ -3529,4 +4297,9 @@ if __name__ == "__main__":
         sys.path.insert(0, SRC)
         dist_part_a(torch, *sys.argv[3:4])
         sys.exit(0)
-    sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"]))
+    if sys.argv[1:2] == ["--dist-part"] and sys.argv[2:3] in (["c1"],
+                                                             ["c2"]):
+        dist_serve_part(sys.argv[2])               # (c1) or (c2)'s ranks
+        sys.exit(0)
+    sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
+                  dist_only=sys.argv[1:2] == ["--dist-only"]))

@@ -280,6 +280,114 @@ def local_heads(fn, args: Sequence, heads: Sequence[Optional[int]],
     return wrap(out, out_heads)
 
 
+def _seq_shard(t, seq_dim: int) -> Tuple[list, int, int]:
+    """(the mesh dims that split t's dim seq_dim, in mesh order; this
+    rank's first row of that dim; its row count) for a DTensor t whose dim
+    divides evenly over those mesh dims, split major first as DTensor
+    splits it."""
+    from torch.distributed.tensor import Shard
+    mesh, n = t.device_mesh, t.shape[seq_dim]
+    dims = [i for i, p in enumerate(t.placements) if p == Shard(seq_dim)]
+    coord = mesh.get_coordinate()
+    off = 0
+    for i in dims:
+        if n % mesh.shape[i]:
+            raise ValueError(f"dim {seq_dim} of {tuple(t.shape)} does not "
+                             f"divide over mesh dims {dims}")
+        n //= mesh.shape[i]
+        off += coord[i] * n
+    return dims, off, n
+
+
+def _batch_placements(t) -> list:
+    """t's placements on the mesh dims that split its dim 0 (the batch),
+    Replicate on every other."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [p if p == Shard(0) else Replicate() for p in t.placements]
+
+
+def local_seq_partials(attend, merge, q, cache):
+    """attend(q, cache) -> Partial (o (B, R, d_v), m (B, R), l (B, R)) for
+    queries q (B, R, D) over a cache (B, S, D), every row attended. On
+    plain tensors it is that one call.
+
+    On a DTensor cache (decode_state_shardings' layout: the batch over the
+    data dims where it divides, the SEQUENCE over `model`, or over the
+    whole mesh where the batch is one row) it is the paper's ROUTE at the
+    scale of one model: the query moves, the cache stays. Each rank takes
+    its own cache rows and the query rows of its batch shard with every
+    head (q replicated over the sequence's mesh dims), attends them with
+    attend on local tensors, and the ranks' partials (o, m, l), packed
+    into one f32 tensor, are gathered over the sequence's mesh dims (one
+    functional all-gather a dim, the op DTensor issues, which the dry
+    run's step costs count) and merged with merge (o (M, B, R, d_v), m, l
+    (M, B, R)), M the ranks that split the sequence. Every rank holds the
+    merged result, a DTensor over the batch's mesh dims. The rows' global
+    offset does not enter: every row is attended, written or not (ROADMAP
+    C.1), and an exact merge does not depend on which rank holds which
+    rows."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(cache, DTensor):
+        return attend(q, cache)
+    mesh = cache.device_mesh
+    pl = _batch_placements(cache)
+    seq_dims, _, _ = _seq_shard(cache, 1)
+    part = attend(q.redistribute(mesh, pl).to_local().contiguous(),
+                  cache.to_local())
+    if seq_dims:
+        d_v = part.o.shape[-1]
+        buf = torch.cat([part.o, part.m[..., None], part.l[..., None]],
+                        dim=-1)[None]
+        c10d = torch.ops._c10d_functional
+        for i in reversed(seq_dims):       # the minor dim first: rank order
+            grp = mesh.get_group(i)
+            buf = c10d.wait_tensor(c10d.all_gather_into_tensor(
+                buf.contiguous(), grp.size(), grp.group_name))
+        part = merge(buf[..., :d_v].contiguous(), buf[..., d_v].contiguous(),
+                     buf[..., d_v + 1].contiguous())
+    return type(part)(*(DTensor.from_local(t, mesh, pl, run_check=False)
+                        for t in part))
+
+
+def write_seq_row(cache, widx: int, entry) -> None:
+    """cache[:, widx] = entry for a cache (B, S, D) and its new entry (B,
+    D), in place. On a DTensor cache sharded over the sequence only the
+    ranks that hold row widx write it, at their local index; every rank
+    first takes the entry's rows of its batch shard (a collective where
+    the entry's layout differs, so every rank takes part)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(cache, DTensor):
+        cache[:, widx] = entry
+        return
+    rows = entry.redistribute(cache.device_mesh,
+                              _batch_placements(cache)).to_local()
+    _, off, n = _seq_shard(cache, 1)
+    if off <= widx < off + n:
+        cache.to_local()[:, widx - off] = rows
+
+
+def copy_seq_prefix(dst, src, seq_dim: int) -> None:
+    """dst's first src.shape[seq_dim] positions along seq_dim = src, in
+    place. On a DTensor dst sharded over that dim each rank copies the
+    positions its own rows cover from its copy of src, laid out as dst's
+    batch and whole over the sequence: the layout prefill's caches come
+    in (the block input's sequence is gathered before the projections), so
+    nothing moves between ranks and no rank holds more of dst than its
+    own rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dims, off, n = _seq_shard(dst, seq_dim) if isinstance(dst, DTensor) \
+        else ((), 0, 0)
+    if not dims:
+        dst.narrow(seq_dim, 0, src.shape[seq_dim]).copy_(src)
+        return
+    pl = [Replicate() if p == Shard(seq_dim) else p for p in dst.placements]
+    local = src.redistribute(dst.device_mesh, pl).to_local()
+    hi = min(off + n, src.shape[seq_dim])
+    if hi > off:
+        dst.to_local().narrow(seq_dim, 0, hi - off).copy_(
+            local.narrow(seq_dim, off, hi - off))
+
+
 def is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)

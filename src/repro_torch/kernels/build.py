@@ -106,6 +106,15 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
 
 
+def refuse_dtensor(what: str, use: str, *ts) -> None:
+    """Raise TypeError if any of ts is a DTensor: a kernel takes the local
+    tensors of one rank, and a DTensor's layout is the caller's to resolve
+    (`use` says how), never the wrapper's behind the caller's back."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError(f"{what} takes local tensors, got a DTensor: {use}")
+
+
 def as_f32(what: str, *ts):
     """The operands in f32, as the reference's kernels take them: a floating
     tensor of another width (bf16, f16) is cast, an f32 one passes as it is

@@ -150,7 +150,12 @@ def flash_prefill(q: torch.Tensor, ckv: torch.Tensor, *, d_v: int = 512,
     """Causal absorbed-MLA attention: q (B, Sq, H, D) over ckv (B, Sk, D),
     Sq <= Sk, query i seeing cache rows [0, Sk - Sq + i]; values the first
     d_v columns of ckv. q and ckv are both f32 or both bf16. Returns
-    (B, Sq, H, d_v) f32. CPU tensors take the plain version."""
+    (B, Sq, H, d_v) f32. CPU tensors take the plain version. A DTensor
+    raises TypeError (on a mesh: distributed.sharding.local_heads)."""
+    build.refuse_dtensor(
+        "flash_prefill", "on a mesh call it through "
+        "repro_torch.distributed.sharding.local_heads (each rank's batch rows "
+        "and heads)", q, ckv)
     _check(q, ckv, d_v)
     if q.device.type == "cpu":
         return flash_prefill_ref(q, ckv, d_v, scale)

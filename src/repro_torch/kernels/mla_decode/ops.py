@@ -178,7 +178,13 @@ def mla_decode(q: torch.Tensor, ckv: torch.Tensor,
     Returns Partial(o (B, R, d_v), m (B, R), l (B, R)) in f32 — the
     (o, m, l) wire triple of §3.2. q and ckv may be bf16 or f16: they are
     cast to f32 first, as the reference's kernel casts them. CPU tensors
-    take the plain version."""
+    take the plain version. A DTensor raises TypeError (on a mesh:
+    distributed.sharding.local_seq_partials)."""
+    build.refuse_dtensor(
+        "mla_decode", "on a mesh call it through "
+        "repro_torch.distributed.sharding.local_seq_partials (each rank's "
+        "sequence shard, the partials merged across the ranks)", q, ckv,
+        lengths)
     _check(q, ckv, lengths, d_v)
     q, ckv = build.as_f32("mla_decode", q, ckv)
     if q.device.type == "cpu":

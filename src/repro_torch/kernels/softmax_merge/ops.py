@@ -49,7 +49,11 @@ def softmax_merge(o: torch.Tensor, m: torch.Tensor,
     """Merge M partials exactly (§3.3): o (M, ..., d_v), m/l (M, ...).
     Identity slots (m = -inf, l = 0) are no-ops. o, m and l may be bf16 or
     f16: they are cast to f32 first, as the reference's kernel casts them.
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version. A DTensor raises TypeError (on a
+    mesh: distributed.sharding.local_seq_partials gathers and merges)."""
+    build.refuse_dtensor(
+        "softmax_merge", "on a mesh merge the ranks' partials through "
+        "repro_torch.distributed.sharding.local_seq_partials", o, m, l)
     if o.ndim < 2 or o.shape[0] < 1 or m.shape != o.shape[:-1] \
             or l.shape != m.shape:
         raise ValueError(f"softmax_merge: o must be (M, ..., d_v) and m/l "

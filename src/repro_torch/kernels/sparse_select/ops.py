@@ -136,7 +136,13 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
     Returns Partial(o (B, R, d_v), m (B, R), l (B, R)) in f32; a row with
     nothing selected is the merge identity. q and ckv may be bf16 or f16:
     they are cast to f32 first, as the reference's kernel casts them. CPU
-    tensors take the plain version."""
+    tensors take the plain version. A DTensor raises TypeError: selection
+    over a sequence-sharded cache (a global top-k) is not ported."""
+    build.refuse_dtensor(
+        "sparse_select", "selection over a sequence-sharded cache is not "
+        "ported (a global top-k over the shards); the dense decode on a mesh "
+        "goes through repro_torch.distributed.sharding.local_seq_partials",
+        q, ckv, block_idx, kb, lengths)
     _check(q, ckv, block_idx, kb, lengths, d_v, block_tokens)
     q, ckv = build.as_f32("sparse_select", q, ckv)
     if q.device.type == "cpu":

@@ -66,10 +66,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import policy as POL
-from repro_torch.distributed.sharding import (axis_sizes, dp_entry,
-                                              local_inputs, placements)
+from repro_torch.distributed.sharding import (axis_sizes, copy_seq_prefix,
+                                              dp_entry, local_inputs,
+                                              local_seq_partials, placements,
+                                              write_seq_row)
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
 from repro_torch.kernels.mla_decode import mla_decode, mla_decode_ref
+from repro_torch.kernels.softmax_merge import softmax_merge, softmax_merge_ref
 from repro_torch.kernels.sparse_select import sparse_select, sparse_select_ref
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk, ssd_intra_chunk_ref
 from repro_torch.models import attention as A
@@ -155,16 +158,20 @@ class Ops:
     """The model path's inner ops, each with its kernel wrapper's signature:
     flash_prefill (q, ckv, *, d_v, scale); mla_decode (q, ckv, lengths, *,
     d_v, scale); sparse_select (q, ckv, block_idx, kb, lengths, *, d_v,
-    scale, block_tokens); ssd_intra_chunk (x, dt, A, B, C)."""
+    scale, block_tokens); ssd_intra_chunk (x, dt, A, B, C); softmax_merge
+    (o, m, l), which joins decode's partials across the ranks of a
+    sequence-sharded cache."""
     flash_prefill: Callable
     mla_decode: Callable
     sparse_select: Callable
     ssd_intra_chunk: Callable
+    softmax_merge: Callable
 
 
-KERNELS = Ops(flash_prefill, mla_decode, sparse_select, ssd_intra_chunk)
+KERNELS = Ops(flash_prefill, mla_decode, sparse_select, ssd_intra_chunk,
+              softmax_merge)
 PLAIN = Ops(flash_prefill_ref, mla_decode_ref, sparse_select_ref,
-            ssd_intra_chunk_ref)
+            ssd_intra_chunk_ref, softmax_merge_ref)
 
 
 # ---------------------------------------------------------------------------
@@ -749,14 +756,15 @@ def _copy_in(dst, src, seq_axis: Optional[int]) -> None:
     elif seq_axis is None:
         dst.copy_(src)
     else:
-        dst.narrow(seq_axis, 0, src.shape[seq_axis]).copy_(src)
+        copy_seq_prefix(dst, src, seq_axis)
 
 
 def fill_decode_state(cfg: ModelConfig, state, caches):
     """Copy prefill's caches into a decode state (init_decode_state's), in
     place, and return it: the attention caches' S positions into its first
     S slots, the SSM states and the audio model's cross-attention K/V
-    whole."""
+    whole. On a mesh (a state laid out by decode_state_shardings) each
+    rank writes the slots of its own sequence shard (copy_seq_prefix)."""
     if cfg.family == "ssm":
         _copy_in(state["blocks"], caches["blocks"], None)
     elif cfg.family == "hybrid":
@@ -789,11 +797,20 @@ def _mla_decode_cached(p, cfg: ModelConfig, x, cache, positions, widx: int,
     reference, it attends every slot, written or not (ROADMAP C.1). With
     selection_k > 0 it attends only the top-k entries of a mean-head latent
     score, in place through sparse_select at token granularity. The kernels
-    take the model's dtype and compute in f32."""
+    take the model's dtype and compute in f32.
+
+    On a mesh (the cache a DTensor over the sequence, decode_state_shardings)
+    the entry is written by the rank that holds slot widx and the dense
+    attention runs per sequence shard, the partials merged across the
+    shards (sharding.local_seq_partials). Selection over a sequence-sharded
+    cache (a global top-k) is not ported: its branch runs DTensor ops, so
+    only with the PLAIN ops (the dry run's); the kernel wrappers refuse a
+    DTensor."""
     mcfg = cfg.mla
     q_nope, q_rope = MLA.project_q(p, mcfg, x, positions)
     q_abs = MLA.absorb_query(p, mcfg, q_nope, q_rope)       # (B, 1, H, d_qk)
-    cache[:, widx] = MLA.latent_cache_entries(p, mcfg, x, positions)[:, 0]
+    write_seq_row(cache, widx,
+                  MLA.latent_cache_entries(p, mcfg, x, positions)[:, 0])
     B, H = q_abs.shape[0], mcfg.n_heads
     q = q_abs.reshape(B, H, mcfg.d_qk).contiguous()
     if cfg.selection_k:
@@ -805,8 +822,10 @@ def _mla_decode_cached(p, cfg: ModelConfig, x, cache, positions, widx: int,
                                  None, None, d_v=mcfg.kv_lora_rank,
                                  scale=mcfg.scale, block_tokens=1)
     else:
-        part = ops.mla_decode(q, cache, None, d_v=mcfg.kv_lora_rank,
-                              scale=mcfg.scale)
+        part = local_seq_partials(
+            lambda ql, cl: ops.mla_decode(ql, cl, None, d_v=mcfg.kv_lora_rank,
+                                          scale=mcfg.scale),
+            ops.softmax_merge, q, cache)
     o = part.o.reshape(B, 1, H, mcfg.kv_lora_rank).to(x.dtype)
     return MLA.unabsorb_output(p, mcfg, o)
 

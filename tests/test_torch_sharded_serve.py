@@ -1,0 +1,553 @@
+"""The sharded serving form of the MLA family on gloo, on the CPU, against
+the unsharded port and the JAX package: the DeepSeek smoke config in f32 on
+one weight tree (numpy_weights, carried across by convert.py), a prefill of
+B x S tokens, the decode state laid out by decode_state_shardings (the
+latent cache's SEQUENCE over `model`) and STEPS decode steps at slots S,
+S + 1, ... of a cache of SLOTS slots, which lie on a non-zero `model`
+rank: on (1, 4) ("data", "model") the slots are on rank 2 and rank 3
+attends unwritten zeros; on (2, 2) they are on rank 1. One batch row on
+(2, 2) takes the long-context layout, the sequence over both mesh dims:
+its slots lie on the third of four sequence shards.
+
+The sharded steps run in a subprocess (python <this file> --prog serve4
+<port> <dir>) that spawns 4 ranks, with a timeout; rank 0 saves what they
+computed, gathered whole, and the tests read it. The parameters, the
+prefill batch, the decode state and the decode inputs take the dry run's
+placements (param_shardings, train_batch_shardings,
+decode_state_shardings, decode_input_shardings) under sp_policy, with
+the KERNELS ops (their plain versions on the CPU's local tensors): the
+prefill's attention per (batch row, head) shard (local_heads), the decode
+attention per sequence shard, the partials gathered and merged
+(local_seq_partials).
+
+The unsharded side runs the batch as the mesh's data shards dispatch it:
+(1, 4) the whole batch, (2, 2) each row on its own, for the expert-parallel
+MoE takes each data shard's tokens with that shard's capacity (1.25 x its
+tokens x top_k / experts, 1 at a decode step), as the reference's EP form
+does: two rows picking one expert at capacity 1 drop a pair that two
+shards keep.
+
+Limits: the unsharded port at 1e-5 (the same ops, the decode's softmax
+summed per shard and merged), the reference at tests/test_torch_model.py's
+TOL, the MoE routes equal. The unit case holds local_seq_partials over a
+cache split 2 and 4 ways against the one call and the reference's
+absorbed_partial at 2e-6; each kernel wrapper refuses a DTensor with a
+TypeError that names the helper to use. A second subprocess (--prog fake)
+holds the dry run's count of the helper's all-gather on a fake group of 4
+(distributed.step_costs, meta tensors) and builds the V2-Lite decode_32k
+cell at 2 layers on (2, 2).
+"""
+
+import os
+import pickle
+import signal
+import socket
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import pytest
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(HERE), "src")
+TIMEOUT = 150
+ARCH, SEED = "deepseek-v2-lite", 0
+B, S, SLOTS, STEPS = 2, 16, 32, 3
+MESHES = ((1, 4), (2, 2))
+# one batch row on (2, 2): decode_state_shardings splits the latent
+# cache's sequence over both mesh dims, the slots S.. on shard 2 of 4
+ONE_ROW, ROW0 = "2x2 one row", slice(0, 1)
+CASES, IDS = MESHES + (ONE_ROW,), ["1x4", "2x2", "2x2-one-row"]
+PORT_TOL = dict(atol=1e-5, rtol=1e-5)
+TOL = dict(atol=1e-4, rtol=1e-4)       # tests/test_torch_model.py's
+UNIT_TOL = 2e-6
+UNIT_META = (8, 16, 64, 576, 512)      # the fake group's B, H, S, D, d_v
+
+
+# ---------------------------------------------------------------------------
+# the prog (run in the subprocess's ranks; imports no JAX)
+# ---------------------------------------------------------------------------
+
+def _sharded_run(mesh, params, cfg, inputs, rows=slice(0, B),
+                 prefill_params=None):
+    """Prefill, the state filled and STEPS decode steps of the batch rows
+    `rows` on mesh (KERNELS ops): every result whole, as numpy, and the
+    sequence shard that wrote the decode slots (its index over every mesh
+    dim that splits the cache's sequence). With prefill_params (the same
+    weights unsharded) the prefill runs unsharded on each rank and its
+    caches enter the state replicated: the long-context form, a decode
+    cell alone (long_500k), whose one row the data axis does not split."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import input_specs as IS
+    from repro_torch.models import model as MD
+    b = rows.stop - rows.start
+    shape = ShapeSpec("decode", SLOTS, b, "decode")
+    tokens = torch.tensor(inputs["tokens"][rows])
+    routes = []
+    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
+            torch.no_grad():
+        if prefill_params is None:
+            bsh = IS.train_batch_shardings({"tokens": tokens}, mesh)
+            logits, caches = MD.prefill(
+                params, cfg, {"tokens": SH.distribute(tokens, mesh,
+                                                      bsh["tokens"].spec)},
+                routes=routes)
+        else:
+            with POL.use_policy(None):
+                logits, caches = MD.prefill(prefill_params, cfg,
+                                            {"tokens": tokens}, routes=routes)
+            caches = {k: SH.distribute(v, mesh, ()) for k, v in
+                      caches.items()}
+        st_sh = IS.decode_state_shardings(cfg, shape, mesh)
+        state = MD.init_decode_state(cfg, b, SLOTS, dtype=torch.float32,
+                                     device="cpu")
+        state = MD.fill_decode_state(cfg, {
+            k: SH.distribute(v, mesh, st_sh[k].spec)
+            for k, v in state.items()}, caches)
+        tok_sh, pos_sh, _ = IS.decode_input_shardings(mesh, b)
+        decode = []
+        for i in range(STEPS):
+            lg, state = MD.decode_step(
+                params, cfg, state,
+                SH.distribute(torch.tensor(inputs["steps"][i][rows]), mesh,
+                              tok_sh.spec),
+                SH.distribute(torch.full((b, 1), S + i, dtype=torch.int32),
+                              mesh, pos_sh.spec), S + i, routes=routes)
+            decode.append(lg.full_tensor().numpy())
+        local = state["blocks"].to_local()
+        _, off, n = SH._seq_shard(state["blocks"], 2)
+        wrote = off <= S and S + STEPS <= off + n and \
+            bool(local[:, :, S - off:S - off + STEPS].abs().sum() > 0)
+        writers = [None] * mesh.size()
+        torch.distributed.all_gather_object(writers,
+                                            off // n if wrote else None)
+        np1 = lambda t: (t.full_tensor() if SH.is_dtensor(t) else t).numpy()
+        whole = lambda t: {k: np1(v) for k, v in t.items()}
+        return {"prefill": np1(logits), "caches": whole(caches),
+                "decode": decode, "state": whole(state),
+                "routes": [np1(r) for r in routes],
+                "writers": sorted({w for w in writers if w is not None})}
+
+
+def _unit_partials(mesh, inputs, rows=slice(0, B)):
+    """local_seq_partials (mla_decode per shard, softmax_merge across)
+    over a DTensor cache of the batch rows `rows` laid out as
+    decode_state_shardings lays out the latent cache: the batch over
+    `data` and the sequence over `model`, or, for one row, the sequence
+    over both mesh dims (data major); whole."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.softmax_merge import softmax_merge
+    q, ckv = (torch.tensor(inputs[k][rows]) for k in ("unit_q", "unit_ckv"))
+    one = rows.stop - rows.start == 1
+    part = SH.local_seq_partials(
+        lambda ql, cl: mla_decode(ql, cl, None, d_v=inputs["unit_dv"],
+                                  scale=inputs["unit_scale"]),
+        softmax_merge, SH.distribute(q, mesh, () if one else ("data",)),
+        SH.distribute(ckv, mesh, (None, ("data", "model")) if one
+                      else ("data", "model")))
+    return [t.full_tensor().numpy() for t in part]
+
+
+def _refusals(mesh, cfg, params, inputs):
+    """{what: the message of the TypeError it raised, or None}: each kernel
+    wrapper given a DTensor, and a selection decode step with the KERNELS
+    ops on a sequence-sharded cache."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.softmax_merge import softmax_merge
+    from repro_torch.kernels.sparse_select import sparse_select
+    from repro_torch.launch import input_specs as IS
+    from repro_torch.models import model as MD
+    g = torch.Generator().manual_seed(3)
+    d = lambda *shape: SH.distribute(torch.randn(*shape, generator=g), mesh,
+                                     ("data",))
+    sel = dataclasses.replace(cfg, selection_k=4)
+    st_sh = IS.decode_state_shardings(sel, ShapeSpec("decode", SLOTS, B,
+                                                     "decode"), mesh)
+    state = {k: SH.distribute(v, mesh, st_sh[k].spec) for k, v in
+             MD.init_decode_state(sel, B, SLOTS, dtype=torch.float32,
+                                  device="cpu").items()}
+    tok_sh, pos_sh, _ = IS.decode_input_shardings(mesh, B)
+    calls = {
+        "mla_decode": lambda: mla_decode(d(2, 4, 40), d(2, 32, 40), d_v=32),
+        "sparse_select": lambda: sparse_select(
+            d(2, 4, 40), d(2, 32, 40),
+            SH.distribute(torch.zeros(2, 1, dtype=torch.int32), mesh,
+                          ("data",)), d_v=32, block_tokens=8),
+        "flash_prefill": lambda: flash_prefill(d(2, 8, 4, 40), d(2, 8, 40),
+                                               d_v=32),
+        "softmax_merge": lambda: softmax_merge(d(2, 2, 4, 32), d(2, 2, 4),
+                                               d(2, 2, 4).abs()),
+        "selection_decode": lambda: MD.decode_step(
+            params, sel, state,
+            SH.distribute(torch.tensor(inputs["steps"][0]), mesh,
+                          tok_sh.spec),
+            SH.distribute(torch.full((B, 1), S, dtype=torch.int32), mesh,
+                          pos_sh.spec), S)}
+    out = {}
+    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
+            torch.no_grad():
+        for name, fn in calls.items():
+            try:
+                fn()
+                out[name] = None
+            except TypeError as e:
+                out[name] = str(e)
+    return out
+
+
+def prog_serve4(rank, world, port, tmp):
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as fh:
+        inputs = pickle.load(fh)
+    cfg = get_smoke_config(ARCH)
+    out = {}
+    for shape in MESHES:
+        mesh = make_mesh(shape, ("data", "model"))
+        params = model_params_from_numpy(inputs["tree"], cfg, device="cpu")
+        SH.shard_params(params, SH.param_shardings(params, mesh))
+        out[shape] = _sharded_run(mesh, params, cfg, inputs)
+        out[shape]["unit"] = _unit_partials(mesh, inputs)
+        if shape == (2, 2):
+            out["refusals"] = _refusals(mesh, cfg, params, inputs)
+            out[ONE_ROW] = _sharded_run(
+                mesh, params, cfg, inputs, ROW0, model_params_from_numpy(
+                    inputs["tree"], cfg, device="cpu"))
+            out[ONE_ROW]["unit"] = _unit_partials(mesh, inputs, ROW0)
+    if rank == 0:
+        with open(os.path.join(tmp, "sharded.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+    dist.destroy_process_group()
+
+
+def prog_fake():
+    """On a fake group of 4 ranks, on meta tensors, as the dry run counts
+    a step (distributed.step_costs): local_seq_partials over a (2, 2)
+    mesh's cache, its collectives; and the V2-Lite decode_32k cell at 2
+    layers on that mesh, built and analysed."""
+    import json
+
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import step_costs
+    from repro_torch.kernels.mla_decode import mla_decode_ref
+    from repro_torch.kernels.softmax_merge import softmax_merge_ref
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    b, h, s, d, d_v = UNIT_META
+    with D.fake_group(4):
+        mesh = make_mesh((2, 2), ("data", "model"))
+        meta = lambda *shape: torch.zeros(shape, device="meta")
+        q = SH.distribute(meta(b, h, d), mesh, ("data",))
+        ckv = SH.distribute(meta(b, s, d), mesh, ("data", "model"))
+        costs = step_costs.count(lambda: SH.local_seq_partials(
+            lambda ql, cl: mla_decode_ref(ql, cl, None, d_v, 1.0),
+            softmax_merge_ref, q, ckv))
+        step, info = D.build_step("deepseek-v2-lite", "decode_32k", mesh,
+                                  n_layers=2)
+        rec = D.analyse(step, mesh, info)
+    print("FAKE " + json.dumps({
+        "counts": dict(costs.collective_counts),
+        "result_bytes": costs.collective_result_bytes,
+        "wire_bytes": costs.collective_wire_bytes,
+        "cell": {"kind": rec["kind"], "flops": rec["flops"],
+                 "counts": rec["collectives"]["counts"]}}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the pytest side
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _inputs():
+    """The weight tree in the reference's layout, the prompt, the decode
+    tokens and the unit case's query and cache, as numpy."""
+    from repro import configs as JC
+    from torch_parity import numpy_weights
+    jcfg = JC.get_smoke_config(ARCH)
+    rng = np.random.default_rng(1)
+    mcfg = jcfg.mla
+    return jcfg, {
+        "tree": numpy_weights(jcfg, seed=SEED),
+        "tokens": rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32),
+        "steps": rng.integers(0, jcfg.vocab, (STEPS, B, 1)).astype(np.int32),
+        "unit_q": rng.standard_normal((B, mcfg.n_heads, mcfg.d_qk)).astype(
+            np.float32),
+        "unit_ckv": rng.standard_normal((B, SLOTS, mcfg.d_qk)).astype(
+            np.float32),
+        "unit_dv": mcfg.kv_lora_rank, "unit_scale": float(mcfg.scale)}
+
+
+def _reference(jcfg, inputs, rows):
+    """The JAX package's prefill and decode steps on the batch rows `rows`
+    (numpy): last-token logits, caches, decode logits, the state after."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import model as JMm
+    from torch_parity import ref_fill_decode_state
+    params = jax.tree.map(jnp.asarray, inputs["tree"])
+    b = rows.stop - rows.start
+    logits, caches = jax.jit(JMm.prefill, static_argnums=1)(
+        params, jcfg, {"tokens": jnp.asarray(inputs["tokens"][rows])})
+    state = ref_fill_decode_state(
+        jcfg, JMm.init_decode_state(jcfg, b, SLOTS, dtype=jnp.float32),
+        caches)
+    dec = jax.jit(JMm.decode_step, static_argnums=1)
+    decode = []
+    for i in range(STEPS):
+        lg, state = dec(params, jcfg, state,
+                        jnp.asarray(inputs["steps"][i][rows]),
+                        jnp.full((b, 1), S + i, jnp.int32), S + i)
+        decode.append(np.asarray(lg))
+    np_tree = lambda t: jax.tree.map(np.asarray, t)
+    return {"prefill": np.asarray(logits), "caches": np_tree(caches),
+            "decode": decode, "state": np_tree(state)}
+
+
+def _port(inputs, rows):
+    """The port's prefill and decode steps, unsharded, on the rows."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.models import model as MD
+    cfg = get_smoke_config(ARCH)
+    params = model_params_from_numpy(inputs["tree"], cfg, device="cpu")
+    b = rows.stop - rows.start
+    routes = []
+    with torch.no_grad():
+        logits, caches = MD.prefill(
+            params, cfg, {"tokens": torch.tensor(inputs["tokens"][rows])},
+            routes=routes)
+        state = MD.fill_decode_state(cfg, MD.init_decode_state(
+            cfg, b, SLOTS, dtype=torch.float32, device="cpu"), caches)
+        decode = []
+        for i in range(STEPS):
+            lg, state = MD.decode_step(
+                params, cfg, state, torch.tensor(inputs["steps"][i][rows]),
+                torch.full((b, 1), S + i), S + i, routes=routes)
+            decode.append(lg.numpy())
+    whole = lambda t: {k: v.numpy() for k, v in t.items()}
+    return {"prefill": logits.numpy(), "caches": whole(caches),
+            "decode": decode, "state": whole(state),
+            "routes": [r.numpy() for r in routes]}
+
+
+def _joined(runs):
+    """Runs on consecutive row sets as one run over the batch: every array
+    joined on its batch dim (the caches' and states' dim 1), the routes
+    (the MoE layers' (tokens, k)) call by call."""
+    cat = lambda xs, d: np.concatenate(xs, axis=d)
+    first = runs[0]
+    out = {"prefill": cat([r["prefill"] for r in runs], 0),
+           "decode": [cat([r["decode"][i] for r in runs], 0)
+                      for i in range(STEPS)]}
+    for k in ("caches", "state"):
+        out[k] = {n: cat([r[k][n] for r in runs], 1) for n in first[k]}
+    if "routes" in first:
+        out["routes"] = [cat([r["routes"][i] for r in runs], 0)
+                         for i in range(len(first["routes"]))]
+    return out
+
+
+def _row_sets(shape):
+    """The batch rows each data shard dispatches."""
+    n = shape[0]
+    return [slice(i * B // n, (i + 1) * B // n) for i in range(n)]
+
+
+@pytest.fixture(scope="module")
+def case():
+    jcfg, inputs = _inputs()
+    with tempfile.TemporaryDirectory(prefix="sharded_serve_") as tmp:
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as fh:
+            pickle.dump(inputs, fh)
+        env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+                   os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+        proc = subprocess.Popen([sys.executable, __file__, "--prog",
+                                 "serve4", str(_free_port()), tmp],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env,
+                                start_new_session=True)
+        try:
+            # the references meanwhile: each row set's, run once
+            sets = {(r.start, r.stop): r for shape in MESHES
+                    for r in _row_sets(shape)}
+            ref = {k: _reference(jcfg, inputs, r) for k, r in sets.items()}
+            port = {k: _port(inputs, r) for k, r in sets.items()}
+            out, err = proc.communicate(timeout=TIMEOUT)
+        finally:
+            if proc.poll() is None:          # the ranks with it
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        assert proc.returncode == 0 and "PROG-OK serve4" in out, \
+            out[-3000:] + err[-3000:]
+        with open(os.path.join(tmp, "sharded.pkl"), "rb") as fh:
+            sharded = pickle.load(fh)
+    by_mesh = {}
+    for shape in MESHES:
+        keys = [(r.start, r.stop) for r in _row_sets(shape)]
+        by_mesh[shape] = (sharded[shape], _joined([port[k] for k in keys]),
+                          _joined([ref[k] for k in keys]))
+    row0 = (ROW0.start, ROW0.stop)
+    by_mesh[ONE_ROW] = (sharded[ONE_ROW], port[row0], ref[row0])
+    return inputs, by_mesh, sharded["refusals"]
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(got, want, err_msg=what, **tol)
+
+
+def _held(got, want, tol):
+    _close(got["prefill"], want["prefill"], tol, "prefill logits")
+    for i in range(STEPS):
+        _close(got["decode"][i], want["decode"][i], tol, f"decode step {i}")
+    for k in ("caches", "state"):
+        assert sorted(got[k]) == sorted(want[k])
+        for n in got[k]:
+            _close(got[k][n], want[k][n], tol, f"{k} {n}")
+
+
+@pytest.mark.parametrize("shape", CASES, ids=IDS)
+def test_sharded_serve_equals_unsharded_port(case, shape):
+    got, port, _ = case[1][shape]
+    _held(got, port, PORT_TOL)
+    assert len(got["routes"]) == len(port["routes"]) > 0
+    for a, b in zip(got["routes"], port["routes"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("shape", CASES, ids=IDS)
+def test_sharded_serve_matches_reference(case, shape):
+    got, _, ref = case[1][shape]
+    _held(got, ref, TOL)
+
+
+@pytest.mark.parametrize("shape", CASES, ids=IDS)
+def test_decode_writes_on_a_nonzero_model_rank(case, shape):
+    """Slots S .. S + STEPS - 1 are written on one sequence shard, not the
+    first, at their local index; the slots past them stay zero."""
+    got = case[1][shape][0]
+    rows_per_rank = SLOTS // (4 if shape == ONE_ROW else shape[1])
+    assert got["writers"] == [S // rows_per_rank] != [0]
+    state = got["state"]["blocks"]
+    assert np.all(np.abs(state[:, :, S:S + STEPS]).sum(-1) > 0)
+    assert not np.any(state[:, :, S + STEPS:])
+
+
+@pytest.mark.parametrize("shape", CASES, ids=IDS)
+def test_local_seq_partials_merge_equals_one_call(case, shape):
+    """local_seq_partials over a cache split over `model` (4 shards on
+    (1, 4), 2 on (2, 2)), and for one row over both dims of (2, 2) (4
+    shards, gathered the minor dim first), against the one mla_decode
+    call on the whole cache (the helper on plain tensors, bit for bit that
+    call) and the reference's absorbed_partial, batch row by batch row."""
+    import jax.numpy as jnp
+    import torch
+    from repro.models import mla as JMLA
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.softmax_merge import softmax_merge
+    from repro import configs as JC
+    inputs = case[0]
+    q, ckv = (torch.tensor(inputs[k]) for k in ("unit_q", "unit_ckv"))
+    attend = lambda ql, cl: mla_decode(ql, cl, None, d_v=inputs["unit_dv"],
+                                       scale=inputs["unit_scale"])
+    one = attend(q, ckv)
+    plain = SH.local_seq_partials(attend, softmax_merge, q, ckv)
+    for a, b in zip(plain, one):
+        assert torch.equal(a, b)
+    mcfg = JC.get_smoke_config(ARCH).mla
+    for i in range(B):
+        ref = JMLA.absorbed_partial(mcfg, jnp.asarray(inputs["unit_q"][i]),
+                                    jnp.asarray(inputs["unit_ckv"][i]))
+        for a, b in zip(one, ref):
+            np.testing.assert_allclose(a[i].numpy(), np.asarray(b),
+                                       atol=UNIT_TOL, rtol=UNIT_TOL)
+    rows = ROW0 if shape == ONE_ROW else slice(0, B)
+    for got, want in zip(case[1][shape][0]["unit"], one):
+        np.testing.assert_allclose(got, want[rows].numpy(), atol=UNIT_TOL,
+                                   rtol=UNIT_TOL)
+
+
+@pytest.fixture(scope="module")
+def fake():
+    import json
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, __file__, "--prog", "fake"],
+                         capture_output=True, text=True, timeout=TIMEOUT,
+                         env=env)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    line = [x for x in res.stdout.splitlines() if x.startswith("FAKE ")]
+    assert line, res.stdout[-3000:]
+    return json.loads(line[-1][5:])
+
+
+def test_dry_run_counts_the_partials_all_gather(fake):
+    """One all-gather of the packed (o, m, l) over the 2-wide model axis:
+    2 ranks x the batch shard's rows x every head x (d_v + 2) f32, half of
+    it sent (the ring model); the query and the cache move nowhere."""
+    b, h, _, _, d_v = UNIT_META
+    result = 2 * (b // 2) * h * (d_v + 2) * 4
+    assert fake["counts"] == {"all_gather_into_tensor": 1.0}
+    assert fake["result_bytes"] == result
+    assert fake["wire_bytes"] == result / 2
+
+
+def test_the_mla_decode_cell_builds_with_the_gather(fake):
+    cell = fake["cell"]
+    assert cell["kind"] == "decode" and cell["flops"] > 0
+    assert cell["counts"].get("all_gather_into_tensor", 0) >= 2   # a layer
+
+
+@pytest.mark.parametrize("what,names", [
+    ("mla_decode", "local_seq_partials"),
+    ("softmax_merge", "local_seq_partials"),
+    ("flash_prefill", "local_heads"),
+    ("sparse_select", "not ported"),
+    ("selection_decode", "not ported")])
+def test_kernel_wrappers_refuse_a_dtensor(case, what, names):
+    msg = case[2][what]
+    assert msg is not None and "DTensor" in msg and names in msg, msg
+
+
+def _main():
+    import torch.multiprocessing as mp
+    port, tmp = int(sys.argv[3]), sys.argv[4]
+    mp.spawn(prog_serve4, args=(4, port, tmp), nprocs=4, join=True)
+    print("PROG-OK serve4", flush=True)
+
+
+if __name__ == "__main__" and "--prog" in sys.argv:
+    sys.path.insert(0, SRC)
+    if sys.argv[-1] == "fake":
+        prog_fake()
+    else:
+        _main()

@@ -12,6 +12,10 @@ between XLA and torch, which can move a rounding by one bf16 step (and a
 near-cancelling f32 result by ~1e-7). The latent columns are held bit for
 bit in both types."""
 
+import ctypes
+import ctypes.util
+import warnings
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -39,7 +43,26 @@ def _close(got, want, atol=ATOL):
                                rtol=RTOL)
 
 
-def test_rope_helpers_match():
+@pytest.fixture
+def round_to_nearest():
+    """The calling thread's IEEE rounding mode pinned to round-to-nearest
+    (fesetround) for the test, the mode it found restored after, and a
+    warning naming that mode where it was another. At positions up to 4095
+    one step of f32 rounding in the angle moves cos and sin by up to
+    2.4e-4: a thread left in another mode by native code an earlier test
+    ran in this process would round torch's angle products, computed on
+    this thread, differently from XLA's."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    before = libm.fegetround()
+    if before != 0:                         # FE_TONEAREST
+        warnings.warn(f"test_rope_helpers_match found the thread's rounding "
+                      f"mode at {before:#x}, not round-to-nearest")
+    assert libm.fesetround(0) == 0
+    yield
+    libm.fesetround(before)
+
+
+def test_rope_helpers_match(round_to_nearest):
     pos = np.arange(0, 4096, 7, dtype=np.int32)
     np.testing.assert_array_equal(TL.rope_freqs(64), JL.rope_freqs(64))
     for got, want in zip(TL.rope_cos_sin(torch.tensor(pos), 64),
