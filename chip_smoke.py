@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 4c-4e alone
-    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c2) alone
+    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c3) alone
 
 Needs one CUDA card, nvcc (PATH, $CUDA_HOME or /usr/local/cuda) and the
 repository's src/ beside this file; imports nothing of JAX or of the JAX
@@ -124,19 +124,30 @@ package. Phases, each fatal on failure:
    process group of its own, one process per visible card: (c1)
    V2-Lite cut to 4 layers in f32 with the kernels, prefill 2 x 2048 into
    a 4096-slot cache laid out by decode_state_shardings (the sequence over
-   `model`), 8 decode steps at slots 2048-2055 fed the unsharded run's
-   greedy tokens, on (1, n) and, on four cards, (2, 2): against the same
+   `model`), 8 decode steps at slots 2048-2055, then 4 selection steps
+   (selection_k 512: a global top-k over the shards, sparse_select on each
+   card's chosen rows, softmax_merge) fed the unsharded run's greedy
+   tokens, on (1, n) and, on four cards, (2, 2) and one row on (2, 2) (its
+   sequence over both mesh dims, its prefill unsharded): against the same
    steps unsharded (1e-4) and against the sharded PLAIN ops (MODEL_TOL),
-   limits held whatever the routes do, routes equal but for a few
-   near-ties (router margin < 1e-3), and after a flip the comparison also
-   held in f64 with PLAIN ops; (c2) on two cards or more, V2-Lite as
-   published in bf16 on (1, n): against card 0's unsharded run,
-   last-token logits, top-1 per row, routes, per-layer divergence, walls,
-   peak memory by card and the cross-card merge's share of a decode step;
-   in both, each kernel's first call on each card held against its plain
+   limits held whatever the routes do, routes and every layer's chosen set
+   equal but for a few near-ties (router margin < 1e-3; k-th and (k +
+   1)-th scores within 1e-5), and after a flip the comparison also held in
+   f64 with PLAIN ops; each step's kb by rank, one 0 required where a mesh
+   splits the sequence; (c2) on two cards or more, V2-Lite as published in
+   bf16 on (1, n): against card 0's unsharded run, last-token logits,
+   top-1 per row, routes, per-layer divergence, walls, peak memory by card
+   and the cross-card merge's share of a decode step; (c3) in (c2)'s
+   process on its weights, long_500k's decode: one row, 524 288 slots
+   drawn N(0, 1) on the cards (each its own rows), selection_k 2048, 4
+   steps: the first step's chosen ids, every layer, equal to the top k of
+   the all-gathered scores; reported against card 0's unsharded run (and
+   its PLAIN control): the chosen sets' overlap by layer, logits, top-1,
+   walls, peak memory, the selection's and the merge's share of a step; in
+   all three, each kernel's first call on each card held against its plain
    version at TOL on the same inputs (the shapes the shard gives it);
-   mla_decode, softmax_merge and flash_prefill (f32 in (c1), bf16 in (c2))
-   launched on every card;
+   mla_decode, softmax_merge, flash_prefill (f32 in (c1), bf16 in (c2))
+   and sparse_select ((c1), (c3)) launched on every card;
 5f. examples — repro_torch.examples in-process through run():
    quickstart (route+merge and the mla_decode kernel within 1e-5),
    serve_routed, agentic_fanout (routed fork decode within 1e-5),
@@ -158,7 +169,7 @@ package. Phases, each fatal on failure:
    softmax_merge in quickstart and plan_execute, delta_rotate in
    plan_execute where it fetched, and no kernel in the train steps; in
    5e's sharded serve, counted in each rank's process around the sharded
-   run with the kernels ("dist_serve"), its three kernels on every card;
+   run with the kernels ("dist_serve"), its four kernels on every card;
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -1847,16 +1858,18 @@ def profiled(torch, fn, top: int = 6):
 
 
 def run_model(torch, M, params, cfg, batch, step_cfgs, *, dtype, ops,
-              feed=None, routes=None, profile_last=False, slots=None):
+              feed=None, routes=None, profile_last=False, slots=None,
+              keep_state_at=None):
     """prefill batch ({"tokens": (B, S)} and the family's stub inputs)
     through the entry points, then one decode_step per config of step_cfgs
     on a cache of the context (S, and the VLM's patches) plus
     len(step_cfgs) slots (or of `slots` slots) holding the prefill caches
     (fill_decode_state).
     Greedy tokens, or `feed`'s. Returns the prefill logits and caches, the
-    decode logits, the tokens fed, the state after the last step and the
-    walls; with profile_last, the last step's device busy time and top
-    kernels (that step runs under the profiler, its wall is not kept)."""
+    decode logits, the tokens fed, the state after the last step (and a
+    copy of it after keep_state_at steps, "kept_state") and the walls; with
+    profile_last, the last step's device busy time and top kernels (that
+    step runs under the profiler, its wall is not kept)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     S += cfg.vlm_patches if cfg.family == "vlm" else 0
@@ -1868,8 +1881,10 @@ def run_model(torch, M, params, cfg, batch, step_cfgs, *, dtype, ops,
     state = M.fill_decode_state(cfg, M.init_decode_state(
         cfg, B, slots or S + len(step_cfgs), dtype=dtype, device=dev), caches)
     tok = logits.argmax(-1)
-    fed, outs, walls, prof = [], [], [], None
+    fed, outs, walls, prof, kept = [], [], [], None, None
     for i, scfg in enumerate(step_cfgs):
+        if i == keep_state_at:
+            kept = clone_tree(state)
         tok = tok if feed is None else feed[i]
         fed.append(tok)
 
@@ -1888,8 +1903,17 @@ def run_model(torch, M, params, cfg, batch, step_cfgs, *, dtype, ops,
         outs.append(lg)
         tok = lg.argmax(-1)
     return {"prefill": logits, "caches": caches, "decode": outs, "fed": fed,
-            "state": state, "prefill_s": t_prefill, "decode_s": walls,
-            "profile": prof}
+            "state": state, "kept_state": kept, "prefill_s": t_prefill,
+            "decode_s": walls, "profile": prof}
+
+
+def clone_tree(tree):
+    """A copy of a state tree (dicts and tuples of tensors or DTensors)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone()
 
 
 def leaves(tree):
@@ -2675,8 +2699,9 @@ DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 128, 3   # (a): 4 x 128 tokens, 3 steps
 # bits into parameter steps of up to lr where a gradient is near zero
 DIST_LOSS_RTOL, DIST_PARAM_RTOL = 1e-5, 1e-4
 CM_TOL = 2e-5                                  # the collective matmul
-# seconds, each subprocess: (a), (b), and the sharded serve's (c1), (c2)
-DIST_TIMEOUT = {"a": 300, "b": 900, "c1": 600, "c2": 600}
+# seconds, each subprocess: (a), (b), and the sharded serve's (c1), (c2);
+# (c3) runs in (c2)'s process, which gets both parts' seconds
+DIST_TIMEOUT = {"a": 300, "b": 900, "c1": 600, "c2": 600, "c3": 600}
 DRYRUN_ARCH = "deepseek-v2-236b"
 # (b)'s further cells, each `python -m repro_torch.launch.dryrun` in a
 # subprocess of its own, at full depth, run beside the 236B one: GQA heads
@@ -2838,11 +2863,12 @@ def dist_part_a(torch, device="cuda"):
         "cm_rel": cm_err}), flush=True)
 
 
-def run_subprocess_part(part, argv):
+def run_subprocess_part(part, argv, timeout=None):
     """Run argv (a part of phase 5e) in a subprocess, in a session of its
-    own, with its timeout; echo its output; fail on a non-zero exit or a
-    timeout, after which the session's processes (a part's ranks) are
-    killed."""
+    own, with its timeout (None: DIST_TIMEOUT[part]); echo its output; fail
+    on a non-zero exit or a timeout, after which the session's processes
+    (a part's ranks) are killed."""
+    timeout = timeout or DIST_TIMEOUT[part]
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
@@ -2850,11 +2876,11 @@ def run_subprocess_part(part, argv):
                             stderr=subprocess.PIPE, text=True, env=env,
                             cwd=ROOT, start_new_session=True)
     try:
-        out, err = proc.communicate(timeout=DIST_TIMEOUT[part])
+        out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        fail(f"(5e) ({part}) did not end within {DIST_TIMEOUT[part]} s")
+        fail(f"(5e) ({part}) did not end within {timeout} s")
     wall = time.perf_counter() - t0
     sys.stdout.write(out)
     if proc.returncode != 0:
@@ -3008,10 +3034,26 @@ def log_dry_record(rec, wall, smi_line):
 # ---------------------------------------------------------------------------
 
 SERVE_SLOTS = 4096      # the decode cache: the prompt's 2048 slots, then
-                        # the decode steps write 2048-2055
+                        # the decode steps write 2048-2059
+# (c1)'s selection decode steps after its MODEL_STEPS dense ones, on the
+# same caches: the top SEL_K of the 4096 slots' mean-head scores (2060
+# written; the unwritten ones score 0 exactly, so they tie)
+SEL_STEPS, SEL_K = 4, 512
+# a selection flip (the chosen sets of the sharded and the unsharded run
+# differ in a layer) passes only where the unsharded run's k-th and (k +
+# 1)-th scores are within SEL_NEAR_TIE relative, at most MAX_FLIPS times a
+# run; it also holds the run in f64 with PLAIN ops
+SEL_NEAR_TIE = 1e-5
+# (c3): long_500k's decode (configs.SHAPES, launch/dryrun.py): one row,
+# LONG_SLOTS slots, selection_k LONG_K; LONG_STEPS steps at the last slots;
+# the latent cache drawn N(0, 1) on the card, LONG_BLOCK slots a seeded
+# draw (seed, layer, block), so that each card draws only its own rows
+LONG_SLOTS, LONG_K, LONG_STEPS, LONG_BLOCK = 524288, 2048, 4, 4096
 # the kernels of the sharded serve, by part: each launched on every card
-SERVE_PATH = {"c1": ("flash_prefill", "mla_decode", "softmax_merge"),
-              "c2": ("flash_prefill_bf16", "mla_decode", "softmax_merge")}
+SERVE_PATH = {"c1": ("flash_prefill", "mla_decode", "softmax_merge",
+                     "sparse_select"),
+              "c2": ("flash_prefill_bf16", "mla_decode", "softmax_merge",
+                     "sparse_select")}
 # (c1), the sharded steps against the same steps unsharded: the same ops on
 # the same f32 values, a head's attention and a shard's rows summed in
 # another order, the decode's softmax merged across the shards: the model
@@ -3026,9 +3068,14 @@ NEAR_TIE, MAX_FLIPS = 1e-3, 4
 
 
 def serve_meshes(n: int):
-    """(c1)'s ("data", "model") meshes over n cards: (1, n), and (2, n / 2)
-    where n is even and at least 4; (1, 1) on one card."""
-    return [(1, n)] + ([(2, n // 2)] if n >= 4 and n % 2 == 0 else [])
+    """(c1)'s ("data", "model") meshes over n cards, each with its batch
+    rows: (1, n), and (2, n / 2) where n is even and at least 4, both with
+    MODEL_BATCH rows, and then (2, n / 2) with one row (its cache's
+    sequence over both mesh dims); (1, 1) on one card."""
+    if n >= 4 and n % 2 == 0:
+        return [((1, n), MODEL_BATCH), ((2, n // 2), MODEL_BATCH),
+                ((2, n // 2), 1)]
+    return [((1, n), MODEL_BATCH)]
 
 
 def _row_sets(n_data: int, batch: int = MODEL_BATCH):
@@ -3127,9 +3174,10 @@ class MergeTimer:
 
 
 def first_calls(torch, ops):
-    """(ops whose flash_prefill, mla_decode and softmax_merge keep a copy
-    of the arguments of their first call in this process, by the name of
-    KERNELS, and pass every call on; that record)."""
+    """(ops whose flash_prefill, mla_decode, softmax_merge and
+    sparse_select keep a copy of the arguments of their first call in this
+    process, by the name of KERNELS, and pass every call on; that
+    record)."""
     seen = {}
 
     def keep(field, fn):
@@ -3143,13 +3191,15 @@ def first_calls(torch, ops):
         return call
     return dataclasses.replace(ops, **{
         f: keep(f, getattr(ops, f))
-        for f in ("flash_prefill", "mla_decode", "softmax_merge")}), seen
+        for f in ("flash_prefill", "mla_decode", "softmax_merge",
+                  "sparse_select")}), seen
 
 
 def hold_first_calls(torch, M, seen):
     """Each call first_calls kept, run again through its kernel wrapper and
     through its plain version on the same inputs: {name: [argument shapes,
-    max|err| over the output's leaves, within TOL]}. softmax_merge's
+    max|err| over the output's leaves, within TOL] and, for sparse_select,
+    the call's kb (the chosen rows each batch row attends)}. softmax_merge's
     leaves are held at TOL's 1e-6 relative to the leaf's largest
     magnitude where it exceeds 1 (check_softmax_merge holds l so)."""
     out = {}
@@ -3169,20 +3219,26 @@ def hold_first_calls(torch, M, seen):
                 ok &= within(torch, g, w, atol, rtol)
         out[name] = [[list(a.shape) for a in args if torch.is_tensor(a)],
                      max(errs), bool(ok and len(got) == len(want))]
+        if field == "sparse_select" and torch.is_tensor(args[3]):
+            out[name].append(args[3].tolist())
     return out
 
 
 def serve_sharded(torch, M, params, cfg, mesh, tokens, feed, *, dtype, ops,
-                  routes=None):
+                  routes=None, step_cfgs=None, whole_params=None):
     """The sharded serving form through the entry points, on mesh with the
     dry run's placements (the batch as train_batch_shardings, the decode
     state of SERVE_SLOTS slots as decode_state_shardings: the latent
-    cache's sequence over `model`; each step's token and position as
-    decode_input_shardings; sp_policy): prefill tokens (B, S) twice (the
-    second for the warm wall), fill the state with the first's caches,
-    then one decode_step per row of feed (steps, B, 1) at slots S, S + 1,
-    ... Returns the results (DTensors) and the walls, each ending in a
-    synchronize."""
+    cache's sequence over `model`, or over both mesh dims for one row;
+    each step's token and position as decode_input_shardings; sp_policy):
+    prefill tokens (B, S) twice (the second for the warm wall), fill the
+    state with the first's caches, then one decode_step per row of feed
+    (steps, B, 1) at slots S, S + 1, ..., step i with step_cfgs[i] (None:
+    cfg). With whole_params (the same weights unsharded) the prefill runs
+    unsharded on every rank and its caches enter the state whole: one row's
+    form, which the data dims do not split. Returns the results (DTensors;
+    "kept_state" a copy of the state after the steps with cfg, where
+    others follow) and the walls, each ending in a synchronize."""
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs import ShapeSpec
     from repro_torch.distributed import policy as POL
@@ -3190,20 +3246,30 @@ def serve_sharded(torch, M, params, cfg, mesh, tokens, feed, *, dtype, ops,
     from repro_torch.launch import input_specs as IS
     B, S = tokens.shape
     dev = tokens.device
+    step_cfgs = step_cfgs or [cfg] * feed.shape[0]
     sync = lambda: torch.cuda.synchronize(dev)
-    out = {"decode": [], "decode_s": []}
+    out = {"decode": [], "decode_s": [], "kept_state": None}
     with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
             torch.no_grad():
-        tk = SH.distribute(tokens, mesh, IS.train_batch_shardings(
-            {"tokens": tokens}, mesh)["tokens"].spec)
+        if whole_params is None:
+            tk = SH.distribute(tokens, mesh, IS.train_batch_shardings(
+                {"tokens": tokens}, mesh)["tokens"].spec)
+            prefill = lambda **kw: M.prefill(params, cfg, {"tokens": tk},
+                                             ops=ops, **kw)
+        else:
+            def prefill(**kw):
+                with POL.use_policy(None):
+                    lg, cs = M.prefill(whole_params, cfg, {"tokens": tokens},
+                                       ops=ops, **kw)
+                return lg, {k: SH.distribute(v, mesh, ())
+                            for k, v in cs.items()}
         sync()
         t0 = time.perf_counter()
-        logits, caches = M.prefill(params, cfg, {"tokens": tk}, ops=ops,
-                                   routes=routes)
+        logits, caches = prefill(routes=routes)
         sync()
         out["prefill_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        M.prefill(params, cfg, {"tokens": tk}, ops=ops)
+        prefill()
         sync()
         out["warm_prefill_s"] = time.perf_counter() - t0
         shard = IS.decode_state_shardings(
@@ -3214,13 +3280,15 @@ def serve_sharded(torch, M, params, cfg, mesh, tokens, feed, *, dtype, ops,
                                             device=dev).items()}, caches)
         tok_sh, pos_sh, _ = IS.decode_input_shardings(mesh, B)
         for i in range(feed.shape[0]):
+            if step_cfgs[i] is not cfg and out["kept_state"] is None:
+                out["kept_state"] = clone_tree(state)
             tok = SH.distribute(feed[i], mesh, tok_sh.spec)
             pos = SH.distribute(torch.full((B, 1), S + i, device=dev), mesh,
                                 pos_sh.spec)
             sync()
             t0 = time.perf_counter()
-            lg, state = M.decode_step(params, cfg, state, tok, pos, S + i,
-                                      ops=ops, routes=routes)
+            lg, state = M.decode_step(params, step_cfgs[i], state, tok, pos,
+                                      S + i, ops=ops, routes=routes)
             sync()
             out["decode_s"].append(time.perf_counter() - t0)
             out["decode"].append(lg)
@@ -3229,15 +3297,19 @@ def serve_sharded(torch, M, params, cfg, mesh, tokens, feed, *, dtype, ops,
 
 
 def serve_unsharded(torch, M, cfg, tokens, n_data, *, dtype, ops, feed=None,
-                    routes=None, margins=False):
+                    routes=None, margins=False, step_cfgs=None):
     """The same prefill and steps unsharded on this card, the batch as n_data
     data shards dispatch it (each shard's rows on their own: the
     expert-parallel MoE takes each data shard's tokens at that shard's
-    capacity), greedy or fed feed (steps, B, 1); every result joined over
-    the batch, the routes call by call (and with margins, each call's
-    router margins, "margins")."""
+    capacity), greedy or fed feed (steps, B, 1), step i with step_cfgs[i]
+    (None: MODEL_STEPS with cfg); every result joined over the batch, the
+    routes call by call (and with margins, each call's router margins,
+    "margins"); where other configs follow cfg's steps, "kept_state" the
+    state after cfg's."""
     import contextlib
     dev = tokens.device
+    step_cfgs = step_cfgs or [cfg] * MODEL_STEPS
+    keep = next((i for i, c in enumerate(step_cfgs) if c is not cfg), None)
     params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                           device=dev, dtype=dtype)
     runs, per_run, per_margins = [], [], []
@@ -3246,10 +3318,10 @@ def serve_unsharded(torch, M, cfg, tokens, n_data, *, dtype, ops, feed=None,
         rec = RouterMargins(torch) if margins else contextlib.nullcontext()
         with rec:
             runs.append(run_model(
-                torch, M, params, cfg, {"tokens": tokens[rows]},
-                [cfg] * MODEL_STEPS, dtype=dtype, ops=ops, routes=rr,
+                torch, M, params, cfg, {"tokens": tokens[rows]}, step_cfgs,
+                dtype=dtype, ops=ops, routes=rr,
                 feed=None if feed is None else [f[rows] for f in feed],
-                slots=SERVE_SLOTS))
+                slots=SERVE_SLOTS, keep_state_at=keep))
         per_run.append(rr)
         per_margins.append(rec.margins if margins else None)
     del params
@@ -3259,10 +3331,11 @@ def serve_unsharded(torch, M, cfg, tokens, n_data, *, dtype, ops, feed=None,
                           for k in runs[0][key]}
     out = {"prefill": cat([r["prefill"] for r in runs]),
            "decode": [cat([r["decode"][i] for r in runs])
-                      for i in range(MODEL_STEPS)],
+                      for i in range(len(step_cfgs))],
            "fed": torch.stack([cat([r["fed"][i] for r in runs])
-                               for i in range(MODEL_STEPS)]),
+                               for i in range(len(step_cfgs))]),
            "caches": batch1("caches"), "state": batch1("state"),
+           "kept_state": batch1("kept_state") if keep is not None else None,
            "prefill_s": [r["prefill_s"] for r in runs],
            "decode_s": [w for r in runs for w in r["decode_s"]]}
     if routes is not None:
@@ -3312,13 +3385,22 @@ def route_flips(torch, got, want, margins=None):
 
 
 def held_errors(torch, got, want, tol):
-    """{what: max|err|} of prefill logits, decode logits, every cache and
-    state leaf; the names of those beyond tol (atol, rtol)."""
+    """{what: max|err|} of prefill logits, the MODEL_STEPS dense decode
+    steps' logits, every cache and state leaf (the state after the dense
+    steps), and where selection steps follow, their logits ("select") and
+    the state after them ("select_state"); the names of those beyond tol
+    (atol, rtol)."""
+    n = MODEL_STEPS
+    dense = lambda r: r["kept_state"] if r.get("kept_state") else r["state"]
     pairs = {"prefill": [(got["prefill"], want["prefill"])],
-             "decode": list(zip(got["decode"], want["decode"])),
+             "decode": list(zip(got["decode"][:n], want["decode"][:n])),
              "caches": list(zip(leaves(got["caches"]),
                                 leaves(want["caches"]))),
-             "state": list(zip(leaves(got["state"]), leaves(want["state"])))}
+             "state": list(zip(leaves(dense(got)), leaves(dense(want))))}
+    if len(want["decode"]) > n:
+        pairs["select"] = list(zip(got["decode"][n:], want["decode"][n:]))
+        pairs["select_state"] = list(zip(leaves(got["state"]),
+                                         leaves(want["state"])))
     errs, bad = {}, []
     for what, ps in pairs.items():
         if not ps or any(a.shape != b.shape for a, b in ps):
@@ -3330,6 +3412,93 @@ def held_errors(torch, got, want, tol):
     return errs, bad
 
 
+class ChosenIds:
+    """Records, while active, each call of sharding.global_top_k (one a
+    layer of a selection step): this rank's first row offset, its row
+    count, the chosen global ids; for a call on one whole cache each row's
+    gap between its k-th and (k + 1)-th scores, relative to the k-th; with
+    keep_scores, the scores this rank passed."""
+
+    def __init__(self, torch, keep_scores=False):
+        from repro_torch.distributed import sharding as SH
+        self.torch, self.SH, self.real = torch, SH, SH.global_top_k
+        self.keep_scores, self.calls = keep_scores, []
+
+    def __enter__(self):
+        def record(scores, k, mesh=None, seq_dims=(), off=0):
+            ids = self.real(scores, k, mesh, seq_dims, off)
+            entry = {"off": off, "n": scores.shape[-1], "ids": ids}
+            if not seq_dims and scores.shape[-1] > k:
+                top = self.torch.topk(scores.double(), k + 1, dim=-1).values
+                entry["gap"] = (top[:, -2] - top[:, -1]) / \
+                    top[:, -2].abs().clamp_min(1e-300)
+            if self.keep_scores:
+                entry["scores"] = scores.clone()
+            self.calls.append(entry)
+            return ids
+        self.SH.global_top_k = record
+        return self
+
+    def __exit__(self, *exc):
+        self.SH.global_top_k = self.real
+
+    def portable(self):
+        """The calls as (offset, rows, ids on the host) for
+        all_gather_object."""
+        return [(c["off"], c["n"], c["ids"].cpu()) for c in self.calls]
+
+
+def chosen_whole(torch, by_rank, batch):
+    """Each recorded call's chosen ids over the whole batch from every
+    rank's record ((data coordinate, ChosenIds.portable())), the ranks of
+    one data shard checked equal and a split batch joined in data order;
+    and each call's kb (the chosen ids a rank holds) by rank, the least
+    over the rows. None where the ranks disagree."""
+    n_calls = {len(c) for _, c in by_rank}
+    if len(n_calls) != 1:
+        return None, None
+    whole, kb = [], []
+    for i in range(n_calls.pop()):
+        by_data, held = {}, []
+        for data, calls in by_rank:
+            off, n, ids = calls[i]
+            if data in by_data and not torch.equal(by_data[data], ids):
+                return None, None
+            by_data[data] = ids
+            held.append(int(((ids >= off) & (ids < off + n)).sum(-1).min()))
+        parts = [by_data[d] for d in sorted(by_data)]
+        if parts[0].shape[0] == batch:
+            if not all(torch.equal(p, parts[0]) for p in parts):
+                return None, None
+            whole.append(parts[0])
+        else:
+            whole.append(torch.cat(parts))
+        kb.append(held)
+    return whole, kb
+
+
+def unsharded_chosen(torch, calls, n_sets):
+    """An unsharded run's calls (ChosenIds.calls, its row sets one after
+    another) as (ids, gaps) a call over the whole batch."""
+    per = len(calls) // n_sets
+    cat = lambda key, i: torch.cat([calls[s * per + i][key].cpu()
+                                    for s in range(n_sets)])
+    return [(cat("ids", i), cat("gap", i)) for i in range(per)]
+
+
+def selection_flips(torch, got, want):
+    """[(call, row, the unsharded gap)] where the chosen sets differ (a
+    different number of calls: one entry, call -1)."""
+    if got is None or len(got) != len(want):
+        return [(-1, -1, None)]
+    out = []
+    for i, (a, (b, gap)) in enumerate(zip(got, want)):
+        diff = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        out += [(i, r, float(gap[r])) for r in diff.nonzero().flatten()
+                .tolist()]
+    return out
+
+
 def _sharded_params(torch, M, cfg, mesh, dev, dtype):
     from repro_torch.distributed import sharding as SH
     params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -3337,48 +3506,66 @@ def _sharded_params(torch, M, cfg, mesh, dev, dtype):
     return SH.shard_params(params, SH.param_shardings(params, mesh))
 
 
-def serve_f32_mesh(torch, dev, cfg, shape):
-    """(c1) on one mesh: the unsharded steps (rank 0's card, KERNELS, the
-    router margins recorded), then the sharded ones with KERNELS (counted,
+def serve_f32_mesh(torch, dev, cfg, shape, batch=MODEL_BATCH):
+    """(c1) on one mesh, `batch` rows (1: one row, its cache's sequence
+    over every mesh dim, its prefill unsharded on each rank): the
+    unsharded steps (rank 0's card, KERNELS, the router margins and the
+    chosen sets recorded), then the sharded ones with KERNELS (counted,
     each kernel's first call on each card kept and held against its plain
-    version) and with PLAIN, fed the unsharded run's greedy tokens; rank 0
-    holds the sharded KERNELS run against both. After a route flip, the
-    comparison is also held in f64 with PLAIN ops on both sides."""
+    version, the chosen sets recorded) and with PLAIN, fed the unsharded
+    run's greedy tokens: MODEL_STEPS dense steps, then SEL_STEPS with
+    selection_k SEL_K; rank 0 holds the sharded KERNELS run against both.
+    After a route or selection flip, the comparison is also held in f64
+    with PLAIN ops on both sides."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
     rank = dist.get_rank()
     mesh = make_mesh(shape, ("data", "model"))
-    tokens = _prompt(torch, dev, cfg.vocab, MODEL_PROMPT)
-    feed = torch.zeros((MODEL_STEPS, MODEL_BATCH, 1), dtype=torch.long,
+    tokens = _prompt(torch, dev, cfg.vocab, MODEL_PROMPT)[:batch]
+    n_data = shape[0] if batch > 1 else 1
+    step_cfgs = [cfg] * MODEL_STEPS + \
+        [dataclasses.replace(cfg, selection_k=SEL_K)] * SEL_STEPS
+    feed = torch.zeros((len(step_cfgs), batch, 1), dtype=torch.long,
                        device=dev)
     ref, ref_routes = None, []
     if rank == 0:
-        ref = serve_unsharded(torch, M, cfg, tokens, shape[0],
-                              dtype=torch.float32, ops=M.KERNELS,
-                              routes=ref_routes, margins=True)
+        with ChosenIds(torch) as ref_ids:
+            ref = serve_unsharded(torch, M, cfg, tokens, n_data,
+                                  dtype=torch.float32, ops=M.KERNELS,
+                                  routes=ref_routes, margins=True,
+                                  step_cfgs=step_cfgs)
         feed.copy_(ref["fed"])
     dist.broadcast(feed, 0)
     params = _sharded_params(torch, M, cfg, mesh, dev, torch.float32)
+    whole = None if batch > 1 else M.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.float32)
     ops, seen = first_calls(torch, M.KERNELS)
     zero, read = _launch_counters()
     zero()
     torch.cuda.reset_peak_memory_stats(dev)
     rk, rp = [], []
-    kern = serve_sharded(torch, M, params, cfg, mesh, tokens, feed,
-                         dtype=torch.float32, ops=ops, routes=rk)
+    with ChosenIds(torch) as got_ids:
+        kern = serve_sharded(torch, M, params, cfg, mesh, tokens, feed,
+                             dtype=torch.float32, ops=ops, routes=rk,
+                             step_cfgs=step_cfgs, whole_params=whole)
     torch.cuda.synchronize(dev)
     launches = read()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     held = hold_first_calls(torch, M, seen)
     del seen
     plain = serve_sharded(torch, M, params, cfg, mesh, tokens, feed,
-                          dtype=torch.float32, ops=M.PLAIN, routes=rp)
+                          dtype=torch.float32, ops=M.PLAIN, routes=rp,
+                          step_cfgs=step_cfgs, whole_params=whole)
     walls = {k: kern[k] for k in ("prefill_s", "warm_prefill_s",
                                   "decode_s")}
     kern, plain = _whole(torch, kern), _whole(torch, plain)
     rk, rp = _whole(torch, rk), _whole(torch, rp)
-    res = {"mesh": list(shape), "walls": walls}
+    ids_by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(ids_by_rank, (mesh.get_coordinate()[0],
+                                         got_ids.portable()))
+    res = {"mesh": list(shape), "batch": batch, "walls": walls}
     if rank == 0:
         res["unsharded_walls"] = {"prefill_s": ref["prefill_s"],
                                   "decode_s": ref["decode_s"]}
@@ -3390,47 +3577,66 @@ def serve_f32_mesh(torch, dev, cfg, shape):
             res[name] = {"errs": errs, "beyond": bad,
                          "flips": route_flips(torch, rk, want_routes,
                                               ref["margins"])}
+        chosen, kb = chosen_whole(torch, ids_by_rank, batch)
+        res["chosen_calls"] = len(ref_ids.calls)
+        res["chosen_flips"] = selection_flips(torch, chosen, unsharded_chosen(
+            torch, ref_ids.calls, len(_row_sets(n_data, batch))))
+        res["kb"] = kb
     del kern, plain
     flipped = [any(res[k]["flips"] for k in ("unsharded", "plain"))
-               if rank == 0 else None]
+               or bool(res["chosen_flips"]) if rank == 0 else None]
     dist.broadcast_object_list(flipped, 0)
     if flipped[0]:
         res["f64"] = serve_f64_mesh(torch, dev, cfg, mesh, shape, tokens,
-                                    feed)
+                                    feed, step_cfgs, batch)
     by_rank = [None] * dist.get_world_size()
     dist.all_gather_object(by_rank, {"launches": launches, "peak_gib": peak,
                                      "held": held})
     for key in ("launches", "peak_gib", "held"):
         res[key] = [r[key] for r in by_rank]
-    del params
+    del params, whole
     torch.cuda.empty_cache()
     return res
 
 
-def serve_f64_mesh(torch, dev, cfg, mesh, shape, tokens, feed):
-    """(c1)'s comparison again after a route flip: the sharded and the
-    unsharded steps in f64 with PLAIN ops, the same tokens fed; rank 0's
-    errors and flips."""
+def serve_f64_mesh(torch, dev, cfg, mesh, shape, tokens, feed, step_cfgs,
+                   batch):
+    """(c1)'s comparison again after a route or selection flip: the sharded
+    and the unsharded steps in f64 with PLAIN ops, the same tokens fed;
+    rank 0's errors, route flips and selection flips."""
     import torch.distributed as dist
     from repro_torch.models import model as M
     ref, ref_routes = None, []
+    n_data = shape[0] if batch > 1 else 1
     if dist.get_rank() == 0:
-        ref = serve_unsharded(torch, M, cfg, tokens, shape[0],
-                              dtype=torch.float64, ops=M.PLAIN,
-                              feed=list(feed), routes=ref_routes)
+        with ChosenIds(torch) as ref_ids:
+            ref = serve_unsharded(torch, M, cfg, tokens, n_data,
+                                  dtype=torch.float64, ops=M.PLAIN,
+                                  feed=list(feed), routes=ref_routes,
+                                  step_cfgs=step_cfgs)
     params = _sharded_params(torch, M, cfg, mesh, dev, torch.float64)
+    whole = None if batch > 1 else M.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.float64)
     rs = []
-    got = _whole(torch, serve_sharded(torch, M, params, cfg, mesh, tokens,
-                                      feed, dtype=torch.float64,
-                                      ops=M.PLAIN, routes=rs))
+    with ChosenIds(torch) as got_ids:
+        got = _whole(torch, serve_sharded(
+            torch, M, params, cfg, mesh, tokens, feed, dtype=torch.float64,
+            ops=M.PLAIN, routes=rs, step_cfgs=step_cfgs, whole_params=whole))
     rs = _whole(torch, rs)
-    del params
+    ids_by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(ids_by_rank, (mesh.get_coordinate()[0],
+                                         got_ids.portable()))
+    del params, whole
     torch.cuda.empty_cache()
     if dist.get_rank() != 0:
         return None
     errs, bad = held_errors(torch, got, ref, SERVE_TOL)
+    chosen, _ = chosen_whole(torch, ids_by_rank, batch)
     return {"errs": errs, "beyond": bad,
-            "flips": route_flips(torch, rs, ref_routes)}
+            "flips": route_flips(torch, rs, ref_routes),
+            "chosen_flips": selection_flips(torch, chosen, unsharded_chosen(
+                torch, ref_ids.calls, len(_row_sets(n_data, batch))))}
 
 
 def serve_bf16(torch, dev, cfg, shape):
@@ -3481,13 +3687,13 @@ def serve_bf16(torch, dev, cfg, shape):
     caches = _whole(torch, kern["caches"])
     walls = {k: kern[k] for k in ("prefill_s", "warm_prefill_s",
                                   "decode_s")}
-    del kern, params
+    del kern
     torch.cuda.empty_cache()
     by_rank = [None] * dist.get_world_size()
     dist.all_gather_object(by_rank, {"launches": launches, "peak_gib": peak,
                                      "merge_ms": merge_ms, "held": held})
     if rank != 0:
-        return None
+        return None, params
     want = [ref["prefill"]] + ref["decode"]
     top1 = [[bool(a) for a in (g.argmax(-1) == w.argmax(-1)).flatten()]
             for g, w in zip(lg, want)]
@@ -3510,7 +3716,7 @@ def serve_bf16(torch, dev, cfg, shape):
            "merge_share_card0": share}
     for key in ("launches", "peak_gib", "merge_ms", "held"):
         out[key] = [r[key] for r in by_rank]
-    return out
+    return out, params
 
 
 def _parting(torch, cfg, caches, routes, ref_caches, ref_routes):
@@ -3525,6 +3731,247 @@ def _parting(torch, cfg, caches, routes, ref_caches, ref_routes):
             "routes_equal_share": [
                 float((a == b).all(-1).float().mean())
                 for a, b in zip(routes[:n_moe], ref_routes[:n_moe])]}
+
+
+def long_cache(torch, cfg, state, off, seed=0):
+    """Fill the latent caches of a long_500k decode state in place, local
+    tensors {key: (L, B, n, D)} holding slots off .. off + n of LONG_SLOTS:
+    N(0, 1) draws made on the card, LONG_BLOCK slots a generator seeded by
+    (seed, the model's layer, the block), cast to the cache's dtype. Each
+    card draws only its own rows; the same slots get the same values on
+    any card and in any split."""
+    first = {"dense_blocks": 0, "blocks": cfg.first_k_dense}
+    for key, t in state.items():
+        B, n, D = t.shape[1:]
+        for li in range(t.shape[0]):
+            for j in range(off // LONG_BLOCK, (off + n) // LONG_BLOCK):
+                g = torch.Generator(device=t.device).manual_seed(
+                    (seed * 1000 + first[key] + li) * 1000 + j)
+                lo = j * LONG_BLOCK - off
+                t[li, :, lo:lo + LONG_BLOCK].copy_(torch.randn(
+                    (B, LONG_BLOCK, D), generator=g, device=t.device))
+
+
+class SelectTimer:
+    """Wraps models.model's local_seq_selected, while active, to time each
+    call's parts with CUDA events on the current stream: from its start to
+    the local attend (the scores, the shard's top k and the candidates'
+    all-gather: "select"), the attend (sparse_select: "attend") and the
+    merge (packing, the partials' all-gather, softmax_merge: "merge")."""
+
+    def __init__(self, torch, M):
+        self.torch, self.M, self.real = torch, M, M.local_seq_selected
+        self.calls = []
+
+    def __enter__(self):
+        self.M.local_seq_selected = self
+        return self
+
+    def __exit__(self, *exc):
+        self.M.local_seq_selected = self.real
+
+    def __call__(self, select, merge, q, qi, cache, k):
+        ev = {key: self.torch.cuda.Event(enable_timing=True)
+              for key in ("start", "select", "attend", "merge")}
+        ev["start"].record()
+
+        def attend(*a):
+            ev["select"].record()
+            out = select(*a)
+            ev["attend"].record()
+            return out
+
+        def joined(*a):
+            out = merge(*a)
+            ev["merge"].record()
+            return out
+        out = self.real(attend, joined, q, qi, cache, k)
+        self.calls.append(ev)
+        return out
+
+    def per_step(self, n_steps):
+        """{part: ms a decode step} summed over the step's layers (read
+        after a synchronize)."""
+        k = len(self.calls) // n_steps
+        span = {"select": ("start", "select"), "attend": ("select", "attend"),
+                "merge": ("attend", "merge")}
+        return {part: [sum(e[a].elapsed_time(e[b])
+                           for e in self.calls[i * k:(i + 1) * k])
+                       for i in range(n_steps)]
+                for part, (a, b) in span.items()}
+
+
+def long_unsharded(torch, M, cfg, dev, first, ops, feed=None):
+    """(c3)'s steps unsharded on this card with ops, greedy from token
+    first (1, 1) or fed feed's tokens: logits, the tokens fed, the walls,
+    every layer's chosen ids a step, the peak memory."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.bfloat16)
+    state = M.init_decode_state(cfg, 1, LONG_SLOTS, dtype=torch.bfloat16,
+                                device=dev)
+    long_cache(torch, cfg, state, 0)
+    out = {"logits": [], "fed": [], "decode_s": []}
+    tok = first
+    with ChosenIds(torch) as rec, torch.no_grad():
+        for i in range(LONG_STEPS):
+            widx = LONG_SLOTS - LONG_STEPS + i
+            tok = tok if feed is None else feed[i]
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            lg, state = M.decode_step(params, cfg, state, tok,
+                                      torch.full((1, 1), widx, device=dev),
+                                      widx, ops=ops)
+            torch.cuda.synchronize(dev)
+            out["decode_s"].append(time.perf_counter() - t0)
+            out["logits"].append(lg)
+            out["fed"].append(tok)
+            tok = lg.argmax(-1)
+    out["ids"] = [c["ids"] for c in rec.calls]
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_state(torch, M, cfg, mesh, dev):
+    """(c3)'s decode state on mesh, laid out by decode_state_shardings at
+    long_500k (one row: the sequence over the mesh), each card's rows
+    drawn on the card (long_cache) into its local tensors."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import input_specs as IS
+    shard = IS.decode_state_shardings(
+        cfg, ShapeSpec("long_500k", LONG_SLOTS, 1, "decode"), mesh)
+    state = {}
+    for key, spec in M.init_decode_state(cfg, 1, LONG_SLOTS,
+                                         device="meta").items():
+        pl = SH.placements(shard[key].spec, mesh)
+        shape = list(spec.shape)
+        for i, p in enumerate(pl):
+            if p.is_shard():
+                shape[p.dim] //= mesh.shape[i]
+        local = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        state[key] = DTensor.from_local(local, mesh, pl, run_check=False)
+        _, off, _ = SH._seq_shard(state[key], 2)
+        long_cache(torch, cfg, {key: local}, off)
+    return state
+
+
+def long_decode_bf16(torch, dev, cfg, shape, params):
+    """(c3): long_500k's decode of V2-Lite as published in bf16 on a (1, n)
+    mesh with KERNELS, on (c2)'s sharded parameters: one row, LONG_SLOTS
+    slots drawn on the card (long_cache), selection_k LONG_K, LONG_STEPS
+    steps at the last slots fed card 0's unsharded greedy tokens. Each
+    kernel's first call on each card held against its plain version; the
+    first step's chosen ids, every layer, against top_k_lowest_first over
+    the all-gathered scores (exact); rank 0 reports the chosen sets'
+    overlap with the unsharded run by layer, logits and top-1, walls, peak
+    memory by card, the selection's and the merge's share of a step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import input_specs as IS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = dataclasses.replace(cfg, selection_k=LONG_K)
+    mesh = make_mesh(shape, ("data", "model"))
+    feed = torch.zeros((LONG_STEPS, 1, 1), dtype=torch.long, device=dev)
+    ref = None
+    if rank == 0:
+        first = torch.randint(0, cfg.vocab, (1, 1), device=dev,
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(2))
+        ref = long_unsharded(torch, M, cfg, dev, first, M.KERNELS)
+        feed.copy_(torch.stack(ref["fed"]))
+        # the control: the same steps unsharded through the PLAIN ops,
+        # where the bf16 roundings differ from KERNELS' and the mesh does
+        # not enter
+        control = long_unsharded(torch, M, cfg, dev, first, M.PLAIN,
+                                 feed=ref["fed"])
+    dist.broadcast(feed, 0)
+    t0 = time.perf_counter()
+    state = long_state(torch, M, cfg, mesh, dev)
+    torch.cuda.synchronize(dev)
+    fill_s = time.perf_counter() - t0
+    tok_sh, pos_sh, _ = IS.decode_input_shardings(mesh, 1)
+    ops, seen = first_calls(torch, M.KERNELS)
+    zero, read = _launch_counters()
+    zero()
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, walls = [], []
+    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
+            torch.no_grad(), SelectTimer(torch, M) as timer, \
+            ChosenIds(torch, keep_scores=True) as rec:
+        for i in range(LONG_STEPS):
+            rec.keep_scores = i == 0
+            widx = LONG_SLOTS - LONG_STEPS + i
+            tok = SH.distribute(feed[i], mesh, tok_sh.spec)
+            pos = SH.distribute(torch.full((1, 1), widx, device=dev), mesh,
+                                pos_sh.spec)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            lg, state = M.decode_step(params, cfg, state, tok, pos, widx,
+                                      ops=ops)
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+            logits.append(lg)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    parts = timer.per_step(LONG_STEPS)
+    held = hold_first_calls(torch, M, seen)
+    del seen, state
+    # the first step's chosen ids against the whole score vector
+    n_layers = len(rec.calls) // LONG_STEPS
+    offs = [None] * world
+    dist.all_gather_object(offs, [c["off"] for c in rec.calls[:n_layers]])
+    exact = []
+    for li, c in enumerate(rec.calls[:n_layers]):
+        got = [torch.empty_like(c["scores"]) for _ in range(world)]
+        dist.all_gather(got, c["scores"].contiguous())
+        whole = torch.empty((1, LONG_SLOTS), dtype=c["scores"].dtype,
+                            device=dev)
+        for r, part in enumerate(got):
+            whole[:, offs[r][li]:offs[r][li] + part.shape[-1]] = part
+        exact.append(bool(torch.equal(
+            SH.top_k_lowest_first(whole, LONG_K), c["ids"])))
+        del got, whole
+    kb = [int(((c["ids"] >= c["off"]) & (c["ids"] < c["off"] + c["n"]))
+              .sum()) for c in rec.calls]
+    logits = [lg.full_tensor() for lg in logits]
+    torch.cuda.empty_cache()
+    by_rank = [None] * world
+    dist.all_gather_object(by_rank, {
+        "launches": launches, "peak_gib": peak, "held": held,
+        "exact": exact, "kb_first_step": kb[:n_layers],
+        "select_ms": parts["select"], "attend_ms": parts["attend"],
+        "merge_ms": parts["merge"]})
+    if rank != 0:
+        return None
+    overlap = lambda got: [
+        [float(torch.isin(got[i * n_layers + li], ref["ids"][i * n_layers
+                                                             + li])
+               .float().mean()) for li in range(n_layers)]
+        for i in range(LONG_STEPS)]
+    out = {"mesh": list(shape), "layers": cfg.n_layers, "fill_s": fill_s,
+           "overlap_by_step_layer": overlap([c["ids"] for c in rec.calls]),
+           "control_overlap_by_step_layer": overlap(control["ids"]),
+           "control_logits_max_abs_diff": [
+               max_err(torch, g.float(), w.float())
+               for g, w in zip(control["logits"], ref["logits"])],
+           "logits_max_abs_diff": [max_err(torch, g.float(), w.float())
+                                   for g, w in zip(logits, ref["logits"])],
+           "top1_equal": [bool((g.argmax(-1) == w.argmax(-1)).all())
+                          for g, w in zip(logits, ref["logits"])],
+           "walls": walls, "unsharded_walls": ref["decode_s"],
+           "unsharded_peak_gib": ref["peak_gib"]}
+    for key in ("launches", "peak_gib", "held", "exact", "kb_first_step",
+                "select_ms", "attend_ms", "merge_ms"):
+        out[key] = [r[key] for r in by_rank]
+    return out
 
 
 def dist_serve_rank(rank, world, port, part):
@@ -3544,10 +3991,14 @@ def dist_serve_rank(rank, world, port, part):
     v2_lite = deepseek_v2_lite.config()
     if part == "c1":
         cut = dataclasses.replace(v2_lite, n_layers=4)
-        out = [serve_f32_mesh(torch, dev, cut, shape)
-               for shape in serve_meshes(world)]
+        out = [serve_f32_mesh(torch, dev, cut, shape, batch)
+               for shape, batch in serve_meshes(world)]
     else:
-        out = serve_bf16(torch, dev, v2_lite, (1, world))
+        out, params = serve_bf16(torch, dev, v2_lite, (1, world))
+        long = long_decode_bf16(torch, dev, v2_lite, (1, world), params)
+        if rank == 0:
+            out["long"] = long
+        del params
     if rank == 0:
         print("DIST-SERVE " + json.dumps(out), flush=True)
     dist.barrier()
@@ -3593,10 +4044,11 @@ def _on_every_card(part, cards, n_cards):
 
 
 def run_dist_serve(torch, smi_line):
-    """(c1) on every visible card's meshes and, on two cards or more, (c2);
-    each part a process group of its own in a subprocess with its
-    timeout. Returns ({part: result}, launches by kernel, by kernel and
-    card), the launches those of the sharded KERNELS runs alone."""
+    """(c1) on every visible card's meshes and, on two cards or more, (c2)
+    and, in its process group, (c3); each part a process group of its own
+    in a subprocess with its timeout. Returns ({part: result}, launches by
+    kernel, by kernel and card), the launches those of the sharded KERNELS
+    runs alone."""
     n_cards = torch.cuda.device_count()
     parts = ["c1"] + (["c2"] if n_cards >= 2 else [])
     results, total, cards = {}, {k: 0 for k in KERNELS}, \
@@ -3604,9 +4056,13 @@ def run_dist_serve(torch, smi_line):
     for part in parts:
         out, wall = run_subprocess_part(
             part, [sys.executable, os.path.abspath(__file__), "--dist-part",
-                   part])
+                   part], DIST_TIMEOUT[part] + (DIST_TIMEOUT["c3"]
+                                               if part == "c2" else 0))
         r = _serve_result(part, out)
-        runs = r if part == "c1" else [r]
+        # each c1 mesh launches its kernels on every card; (c2) and (c3)
+        # together (sparse_select runs in (c3) alone)
+        runs = r if part == "c1" else [
+            {"launches": r["launches"] + r["long"]["launches"]}]
         for run in runs:
             t, c = _launch_totals(run["launches"])
             _on_every_card(part, c, n_cards)
@@ -3615,12 +4071,15 @@ def run_dist_serve(torch, smi_line):
                 for card, n in c[k].items():
                     cards[k][card] = cards[k].get(card, 0) + n
         results[part] = {"result": r, "wall_s": wall}
-        (log_serve_f32 if part == "c1" else log_serve_bf16)(
-            r, wall, n_cards, smi_line)
+        if part == "c1":
+            log_serve_f32(r, wall, n_cards, smi_line)
+        else:
+            log_serve_bf16(r, wall, n_cards, smi_line)
+            log_long(r["long"], smi_line)
     if n_cards == 1:
-        log(f"[dist] (c1) on (1, 4) and (2, 2) and (c2) did not run: 1 card "
-            f"visible; on four cards python3 chip_smoke.py --dist-only runs "
-            f"them; {smi_line}")
+        log(f"[dist] (c1) on (1, 4), (2, 2) and one row on (2, 2), (c2) and "
+            f"(c3) did not run: 1 card visible; on four cards python3 "
+            f"chip_smoke.py --dist-only runs them; {smi_line}")
     return results, total, cards
 
 
@@ -3651,10 +4110,16 @@ def _log_held(part, shape, held, smi_line):
 def log_serve_f32(runs, wall, n_cards, smi_line):
     """(c1)'s lines, a mesh each; fail unless each mesh is within its
     limits against both runs, its routes equal but for at most MAX_FLIPS
-    near-ties (router margin below NEAR_TIE), and, after a flip, its f64
-    comparison is within SERVE_TOL with equal routes."""
+    near-ties (router margin below NEAR_TIE), its chosen sets equal but for
+    at most MAX_FLIPS near-ties (the unsharded k-th and (k + 1)-th scores
+    within SEL_NEAR_TIE), and, after a flip, its f64 comparison is within
+    SERVE_TOL with equal routes and chosen sets; and unless some selection
+    step left a sequence shard none of the chosen rows (kb = 0) where a
+    mesh splits the sequence."""
+    empty = None
     for r in runs:
         shape = tuple(r["mesh"])
+        label = f"{shape}" + (", one row" if r["batch"] == 1 else "")
         t, c = _launch_totals(r["launches"])
         parts = []
         for name, tol in (("unsharded", SERVE_TOL),
@@ -3668,35 +4133,61 @@ def log_serve_f32(runs, wall, n_cards, smi_line):
                    f"flipped at (call, token, router margin) {h['flips']}"))
         log(f"[dist] (c1) V2-Lite cut to 4 layers in f32, KERNELS, on a "
             f"{shape} (data, model) NCCL mesh over {n_cards} card(s): "
-            f"prefill {MODEL_BATCH} x {MODEL_PROMPT} into {SERVE_SLOTS} "
+            f"prefill {r['batch']} x {MODEL_PROMPT} into {SERVE_SLOTS} "
             f"slots, {MODEL_STEPS} decode steps at slots {MODEL_PROMPT}-"
-            f"{MODEL_PROMPT + MODEL_STEPS - 1}; {r['routes']} route entries; "
+            f"{MODEL_PROMPT + MODEL_STEPS - 1}, then {SEL_STEPS} with "
+            f"selection_k {SEL_K}; {r['routes']} route entries; "
             + "; ".join(parts) + f"; sharded {_fmt_walls(r['walls'])}; "
             f"unsharded {_fmt_walls(r['unsharded_walls'])}; peak GiB by "
             f"card {[round(p, 2) for p in r['peak_gib']]}; launches {t}, by "
             f"card {c}; part wall {wall:.1f} s; {smi_line}")
-        _log_held("c1", shape, r["held"], smi_line)
+        kb = r["kb"]
+        n_layers = len(kb) // SEL_STEPS if kb else 0
+        by_step = [[min(kb[i * n_layers + li][k] for li in range(n_layers))
+                    for k in range(len(kb[0]))]
+                   for i in range(SEL_STEPS)] if kb else None
+        log(f"[dist] (c1) {label}: the selection steps' chosen sets (a "
+            f"global top-{SEL_K} over the sequence shards, {r['chosen_calls']}"
+            f" layer calls unsharded) against the unsharded run's: "
+            + ("equal" if not r["chosen_flips"] else
+               f"differ at (call, row, unsharded k-th/(k+1)-th gap) "
+               f"{r['chosen_flips']}")
+            + f"; kb (chosen rows a shard attends), the least over the "
+            f"layers and rows, by step and rank {by_step}; {smi_line}")
+        _log_held("c1", label, r["held"], smi_line)
+        if by_step is None:
+            fail(f"(5e) (c1) {label}: the ranks chose different sets")
+        if len(by_step[0]) > 1:
+            empty = bool(empty) or any(0 in row for row in by_step)
         for name in ("unsharded", "plain"):
             h = r[name]
             if h["beyond"]:
-                fail(f"(5e) (c1) {shape}: against {name} beyond the limit "
+                fail(f"(5e) (c1) {label}: against {name} beyond the limit "
                      f"in {h['beyond']}: {h['errs']}")
             ties = [f for f in h["flips"]
                     if f[2] is not None and f[2] < NEAR_TIE]
             if len(ties) < len(h["flips"]) or len(ties) > MAX_FLIPS:
-                fail(f"(5e) (c1) {shape}: against {name} routes flipped "
+                fail(f"(5e) (c1) {label}: against {name} routes flipped "
                      f"beyond {MAX_FLIPS} near-ties (router margin < "
                      f"{NEAR_TIE:g}): {h['flips']}")
+        ties = [f for f in r["chosen_flips"]
+                if f[2] is not None and f[2] <= SEL_NEAR_TIE]
+        if len(ties) < len(r["chosen_flips"]) or len(ties) > MAX_FLIPS:
+            fail(f"(5e) (c1) {label}: chosen sets differ beyond {MAX_FLIPS} "
+                 f"near-ties (gap <= {SEL_NEAR_TIE:g}): {r['chosen_flips']}")
         if "f64" in r:
             f = r["f64"]
-            if f is None or f["beyond"] or f["flips"]:
-                fail(f"(5e) (c1) {shape}: routes flipped and the f64 "
-                     f"comparison did not hold: {f}")
-            log(f"[dist] (c1) {shape}: after the flip, the sharded steps "
+            if f is None or f["beyond"] or f["flips"] or f["chosen_flips"]:
+                fail(f"(5e) (c1) {label}: a flip, and the f64 comparison "
+                     f"did not hold: {f}")
+            log(f"[dist] (c1) {label}: after the flip, the sharded steps "
                 f"against the unsharded ones in f64 with PLAIN ops: "
                 + ", ".join(f"{k} {v:.3e}" for k, v in f["errs"].items())
                 + f" (atol {SERVE_TOL[0]:g}, rtol {SERVE_TOL[1]:g}), routes "
-                f"equal; {smi_line}")
+                f"and chosen sets equal; {smi_line}")
+    if empty is False:
+        fail("(5e) (c1) no selection step left a sequence shard without a "
+             "chosen row (kb = 0): the merge identity went untested")
 
 
 def log_serve_bf16(r, wall, n_cards, smi_line):
@@ -3736,6 +4227,56 @@ def log_serve_bf16(r, wall, n_cards, smi_line):
         f"{statistics.median(shares):.4f}); launches {t}, by card {c}; "
         f"{smi_line}")
     _log_held("c2", tuple(r["mesh"]), r["held"], smi_line)
+
+
+def log_long(r, smi_line):
+    """(c3)'s lines: its kernels held at its shard shapes on every card and
+    the first step's chosen ids exact (fail otherwise); its numbers against
+    the unsharded run reported."""
+    t, c = _launch_totals(r["launches"])
+    walls = r["walls"]
+    share = lambda key: [[round(ms / (w * 1e3), 4) for ms, w in
+                          zip(per, walls)] for per in r[key]]
+    first = [round(x, 4) for x in r["overlap_by_step_layer"][0]]
+    control = [round(x, 4) for x in r["control_overlap_by_step_layer"][0]]
+    log(f"[dist] (c3) long_500k decode: V2-Lite as published "
+        f"({r['layers']} layers) in bf16, KERNELS, one row on a "
+        f"{tuple(r['mesh'])} (data, model) NCCL mesh on (c2)'s weights, "
+        f"{LONG_SLOTS} slots drawn N(0, 1) on the cards (each its own "
+        f"{LONG_SLOTS // len(r['peak_gib'])} rows, {r['fill_s']:.2f} s), "
+        f"selection_k {LONG_K}, {LONG_STEPS} steps at slots "
+        f"{LONG_SLOTS - LONG_STEPS}-{LONG_SLOTS - 1} fed card 0's unsharded "
+        f"greedy tokens; against the unsharded run: logits max|diff| by step "
+        f"{[float(f'{x:.4g}') for x in r['logits_max_abs_diff']]}, top-1 "
+        f"equal {r['top1_equal']}, chosen-set overlap by layer, step 0 "
+        f"{first}, least over steps and layers "
+        f"{min(min(x) for x in r['overlap_by_step_layer']):.4f}; decode "
+        f"steps sharded " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+        + " ms, unsharded " + ", ".join(f"{w * 1e3:.1f}"
+                                          for w in r["unsharded_walls"])
+        + f" ms; peak GiB by card {[round(p, 2) for p in r['peak_gib']]} "
+        f"(unsharded on card 0 {r['unsharded_peak_gib']:.2f}); launches "
+        f"{t}, by card {c}; {smi_line}")
+    log(f"[dist] (c3) the control, the same steps unsharded through the "
+        f"PLAIN ops against KERNELS (bf16 rounded elsewhere, no mesh): "
+        f"chosen-set overlap by layer, step 0 {control}, logits max|diff| "
+        f"by step {[float(f'{x:.4g}') for x in r['control_logits_max_abs_diff']]}"
+        f"; {smi_line}")
+    log(f"[dist] (c3) a decode step's parts by card, CUDA events summed over "
+        f"the layers, ms a step: selection (scores, the shard's top k, the "
+        f"candidates' all-gather) {r['select_ms']}, attend (sparse_select) "
+        f"{r['attend_ms']}, merge (the partials' all-gather, softmax_merge) "
+        f"{r['merge_ms']}; share of the step wall by card: selection "
+        f"{share('select_ms')}, merge {share('merge_ms')}; step 0's kb by "
+        f"card, layer by layer {r['kb_first_step']}; {smi_line}")
+    log(f"[dist] (c3) step 0, every layer: the chosen ids equal "
+        f"top_k_lowest_first over the all-gathered scores, by card "
+        f"{[all(e) for e in r['exact']]}; {smi_line}")
+    _log_held("c3", tuple(r["mesh"]), r["held"], smi_line)
+    bad = [card for card, e in enumerate(r["exact"]) if not all(e)]
+    if bad:
+        fail(f"(5e) (c3) chosen ids differ from the top k of the gathered "
+             f"scores on cards {bad}: {r['exact']}")
 
 
 # ---------------------------------------------------------------------------
@@ -4016,11 +4557,15 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
                 tot[card] = tot.get(card, 0) + c
         return result, n
 
-    if dist_only:           # phase 5e (c1)-(c2) alone (a run on four cards)
+    if dist_only:           # phase 5e (c1)-(c3) alone (a run on four cards)
         t0 = time.perf_counter()
         _, total, cards = run_dist_serve(torch, smi_line)
-        log(f"[dist] (c1)-(c2) alone: {time.perf_counter() - t0:.1f} s; "
+        log(f"[dist] (c1)-(c3) alone: {time.perf_counter() - t0:.1f} s; "
             f"launches {total}; by card {cards}; {smi_line}")
+        print(smi_line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
     if mesh_only:           # phases 4c-4e alone (a run on several cards)

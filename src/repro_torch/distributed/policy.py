@@ -18,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.sharding import dp_entry, fit_spec, placements
+from repro_torch.distributed.sharding import (_axis_size, dp_entry, fit_spec,
+                                              placements)
 
 _POLICY: contextvars.ContextVar = contextvars.ContextVar("policy",
                                                          default=None)
@@ -56,6 +57,10 @@ class ShardingPolicy:
         spec = self.specs.get(kind)
         if spec is None or not isinstance(x, DTensor):
             return x
+        if x.shape[0] == 1 and spec[0] and _axis_size(self.mesh, (
+                spec[0] if isinstance(spec[0], tuple) else (spec[0],))) == 1:
+            spec = (None,) + spec[1:]       # one row over axes of size 1
+                                            # stays whole (sharding.splits)
         if len(spec) > 2:
             # the sequence-parallel split only where the sequence divides
             # it: Whisper's 1500 encoder frames on a 16-wide model axis

@@ -60,6 +60,14 @@ def _axis_size(mesh, axes: Tuple[str, ...]) -> int:
     return math.prod(sizes[a] for a in axes) if axes else 1
 
 
+def splits(n: int, mesh, axes: Tuple[str, ...]) -> bool:
+    """Whether a batch of n rows splits over the mesh axes `axes`: their
+    size divides n and n > 1. One row is never split, not even over axes
+    of size 1, where the split holds the same data: DTensor cannot view
+    away a sharded dim of one (a one-row decode on a (1, n) mesh)."""
+    return bool(axes) and n > 1 and n % _axis_size(mesh, axes) == 0
+
+
 def dp_entry(mesh):
     """The spec entry of a dim sharded over the data-parallel axes: (pod,
     data), data, or None."""
@@ -159,7 +167,7 @@ def cache_spec(shape: Sequence[int], mesh, seq_dim: int = 2,
     dp = _fsdp_axes(mesh)
     sizes = axis_sizes(mesh)
     entries: list = [None] * len(shape)
-    if dp and shape[batch_dim] % _axis_size(mesh, dp) == 0:
+    if splits(shape[batch_dim], mesh, dp):
         entries[batch_dim] = dp if len(dp) > 1 else dp[0]
     if "model" in sizes and shape[seq_dim] % sizes["model"] == 0:
         entries[seq_dim] = "model"
@@ -258,8 +266,7 @@ def local_heads(fn, args: Sequence, heads: Sequence[Optional[int]],
     mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
     sizes = axis_sizes(mesh)
     dp = _fsdp_axes(mesh)
-    b_entry = dp_entry(mesh) if dp and \
-        args[0].shape[0] % _axis_size(mesh, dp) == 0 else None
+    b_entry = dp_entry(mesh) if splits(args[0].shape[0], mesh, dp) else None
     h_entry = "model" if "model" in sizes and all(
         a.shape[h] % sizes["model"] == 0 for a, h in zip(args, heads)
         if h is not None) else None
@@ -334,19 +341,120 @@ def local_seq_partials(attend, merge, q, cache):
     seq_dims, _, _ = _seq_shard(cache, 1)
     part = attend(q.redistribute(mesh, pl).to_local().contiguous(),
                   cache.to_local())
+    return _merged_partials(merge, part, mesh, seq_dims, pl)
+
+
+def _gather_seq(buf, mesh, seq_dims):
+    """buf (...) of every rank that splits the sequence over seq_dims,
+    stacked (M, ...) in the order of the ranks' sequence offsets: one
+    functional all-gather a mesh dim, the minor dim first."""
+    buf = buf[None]
+    c10d = torch.ops._c10d_functional
+    for i in reversed(seq_dims):
+        grp = mesh.get_group(i)
+        buf = c10d.wait_tensor(c10d.all_gather_into_tensor(
+            buf.contiguous(), grp.size(), grp.group_name))
+    return buf
+
+
+def _merged_partials(merge, part, mesh, seq_dims, pl):
+    """This rank's Partial merged with those of the other ranks that split
+    the sequence (their (o, m, l) packed into one f32 tensor, gathered and
+    merged with merge), each leaf a DTensor laid out as pl."""
+    from torch.distributed.tensor import DTensor
     if seq_dims:
         d_v = part.o.shape[-1]
-        buf = torch.cat([part.o, part.m[..., None], part.l[..., None]],
-                        dim=-1)[None]
-        c10d = torch.ops._c10d_functional
-        for i in reversed(seq_dims):       # the minor dim first: rank order
-            grp = mesh.get_group(i)
-            buf = c10d.wait_tensor(c10d.all_gather_into_tensor(
-                buf.contiguous(), grp.size(), grp.group_name))
+        buf = _gather_seq(torch.cat([part.o, part.m[..., None],
+                                     part.l[..., None]], dim=-1),
+                          mesh, seq_dims)
         part = merge(buf[..., :d_v].contiguous(), buf[..., d_v].contiguous(),
                      buf[..., d_v + 1].contiguous())
     return type(part)(*(DTensor.from_local(t, mesh, pl, run_check=False)
                         for t in part))
+
+
+def top_k_lowest_first(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest scores along the last axis, ties broken
+    toward the lower index (as lax.top_k breaks them)."""
+    return torch.sort(scores, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+
+
+def shard_candidates(scores: torch.Tensor, k: int, off: int):
+    """A sequence shard's candidates for a global top-k: its top min(k, n)
+    scores (B, n) and their global ids off + i (int64), ordered by score
+    descending, then id ascending. Every member of the global top-k is
+    among its own shard's candidates under that order."""
+    idx = top_k_lowest_first(scores, k)
+    return scores.gather(-1, idx), idx + off
+
+
+def choose_candidates(values: torch.Tensor, ids: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """The global ids (B, k) of the k best candidates (B, C) of all the
+    shards: score descending, ties to the lower global id; equal to
+    top_k_lowest_first over the whole score vector."""
+    by_id = torch.argsort(ids, dim=-1)               # ids are distinct
+    values, ids = values.gather(-1, by_id), ids.gather(-1, by_id)
+    return ids.gather(-1, top_k_lowest_first(values, k))
+
+
+def global_top_k(scores, k: int, mesh=None, seq_dims=(), off: int = 0):
+    """top_k_lowest_first(scores, k) as global ids (int64). With seq_dims
+    (mesh dims that split the sequence, this rank's rows starting at off)
+    scores are this rank's (B, n) and the result the top k over every
+    rank's, the same on each: each rank's candidates (shard_candidates),
+    their scores' bits and ids packed into one integer tensor (the ids
+    exact, never in a float), one all-gather over seq_dims, then
+    choose_candidates."""
+    if not seq_dims:
+        return top_k_lowest_first(scores, k)
+    values, ids = shard_candidates(scores, k, off)
+    wide = values.dtype == torch.float64
+    fdt, idt = ((torch.float64, torch.int64) if wide
+                else (torch.float32, torch.int32))
+    buf = _gather_seq(torch.stack([values.to(fdt).view(idt), ids.to(idt)]),
+                      mesh, seq_dims)                # (M, 2, B, c)
+    flat = lambda t: t.permute(1, 0, 2).reshape(t.shape[1], -1)
+    return choose_candidates(flat(buf[:, 0].contiguous().view(fdt)),
+                             flat(buf[:, 1]).to(torch.int64), k)
+
+
+def local_seq_selected(select, merge, q, qi, cache, k: int):
+    """Selection decode (the DSA regime, §5.4): qi (B, 1, dc), the
+    mean-head query, scores every cache (B, S, D) row by its first dc
+    columns, in the cache's dtype; select(q, cache, ids (B, k) int32, kb)
+    -> Partial attends the rows of the top k (global_top_k), kb (B,) int32
+    the count of ids that hold (None: all). On plain tensors that is the
+    one call, kb None.
+
+    On a DTensor cache laid out as local_seq_partials takes it, the query
+    moves and the cache stays: each rank scores its own rows, the global
+    top k is chosen from every rank's candidates (global_top_k), each rank
+    attends the chosen rows it holds, in score order at their local index
+    (kb = their count, 0 where it holds none: the merge identity), and the
+    partials merge across the ranks as local_seq_partials merges them."""
+    from torch.distributed.tensor import DTensor
+    dc = qi.shape[-1]
+    if not isinstance(cache, DTensor):
+        scores = torch.einsum("bqc,bsc->bqs", qi, cache[..., :dc])[:, 0]
+        sel = global_top_k(scores, k)
+        return select(q, cache, sel.to(torch.int32).contiguous(), None)
+    mesh = cache.device_mesh
+    pl = _batch_placements(cache)
+    seq_dims, off, n = _seq_shard(cache, 1)
+    local = cache.to_local()
+    qil = qi.redistribute(mesh, pl).to_local()
+    scores = torch.einsum("bqc,bsc->bqs", qil, local[..., :dc])[:, 0]
+    sel = global_top_k(scores, k, mesh, seq_dims, off)
+    mine = (sel >= off) & (sel < off + n)
+    order = torch.sort((~mine).to(torch.int8), dim=-1, stable=True).indices
+    held = mine.gather(-1, order)
+    ids = torch.where(held, sel.gather(-1, order) - off, 0)
+    part = select(q.redistribute(mesh, pl).to_local().contiguous(), local,
+                  ids.to(torch.int32).contiguous(),
+                  held.sum(-1).to(torch.int32).contiguous())
+    return _merged_partials(merge, part, mesh, seq_dims, pl)
 
 
 def write_seq_row(cache, widx: int, entry) -> None:
@@ -405,8 +513,7 @@ def local_product(fn, x, w):
     from torch.distributed.tensor import DTensor
     mesh = w.device_mesh
     dp = _fsdp_axes(mesh)
-    spec = (dp_entry(mesh) if dp and x.shape[0] % _axis_size(mesh, dp) == 0
-            else None,)
+    spec = (dp_entry(mesh) if splits(x.shape[0], mesh, dp) else None,)
     xl, wl = local_inputs(mesh, [(x, spec), (w, ())])
     return DTensor.from_local(fn(xl, wl), mesh, placements(spec, mesh),
                               run_check=False)
@@ -468,8 +575,7 @@ def vocab_parallel_embedding(table, tokens):
     mesh = table.device_mesh
     sizes = axis_sizes(mesh)
     dp = _fsdp_axes(mesh)
-    b_entry = dp_entry(mesh) if dp and \
-        tokens.shape[0] % _axis_size(mesh, dp) == 0 else None
+    b_entry = dp_entry(mesh) if splits(tokens.shape[0], mesh, dp) else None
     v_split = "model" in sizes and table.shape[0] % sizes["model"] == 0
     if not isinstance(tokens, DTensor):
         tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,

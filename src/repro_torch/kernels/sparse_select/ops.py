@@ -137,12 +137,14 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
     nothing selected is the merge identity. q and ckv may be bf16 or f16:
     they are cast to f32 first, as the reference's kernel casts them. CPU
     tensors take the plain version. A DTensor raises TypeError: selection
-    over a sequence-sharded cache (a global top-k) is not ported."""
+    over a sequence-sharded cache goes through
+    repro_torch.distributed.sharding.local_seq_selected, which passes each
+    rank's chosen rows as local tensors."""
     build.refuse_dtensor(
-        "sparse_select", "selection over a sequence-sharded cache is not "
-        "ported (a global top-k over the shards); the dense decode on a mesh "
-        "goes through repro_torch.distributed.sharding.local_seq_partials",
-        q, ckv, block_idx, kb, lengths)
+        "sparse_select", "selection over a sequence-sharded cache goes "
+        "through repro_torch.distributed.sharding.local_seq_selected (a "
+        "global top-k over the shards, each rank's chosen rows attended on "
+        "its local tensors)", q, ckv, block_idx, kb, lengths)
     _check(q, ckv, block_idx, kb, lengths, d_v, block_tokens)
     q, ckv = build.as_f32("sparse_select", q, ckv)
     if q.device.type == "cpu":

@@ -11,7 +11,7 @@ import torch
 from repro_torch.configs import ShapeSpec
 from repro_torch.distributed.sharding import (NamedSharding, _axis_size,
                                               _fsdp_axes, axis_sizes,
-                                              dp_entry)
+                                              dp_entry, splits)
 from repro_torch.models import model as MD
 
 
@@ -71,7 +71,7 @@ def _seq_axes(mesh, batch: int, seq: int):
     cannot use (long_500k batch=1 => the whole mesh shards the sequence —
     the paper's partitioned canonical store)."""
     dp = _fsdp_axes(mesh)
-    batch_ok = dp and batch % _axis_size(mesh, dp) == 0
+    batch_ok = splits(batch, mesh, dp)
     axes = tuple() if batch_ok else dp
     if "model" in axis_sizes(mesh):
         axes = axes + ("model",)
@@ -142,7 +142,7 @@ def decode_input_specs(cfg: MD.ModelConfig, shape: ShapeSpec):
 def decode_input_shardings(mesh, batch: int = 0):
     dp = dp_entry(mesh)
     dp_axes = _fsdp_axes(mesh)
-    if dp_axes and batch % _axis_size(mesh, dp_axes) != 0:
+    if dp_axes and not splits(batch, mesh, dp_axes):
         dp = None                              # long_500k: batch=1 replicated
     return (NamedSharding(mesh, (dp, None)),
             NamedSharding(mesh, (dp, None)),

@@ -68,7 +68,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.distributed import policy as POL
 from repro_torch.distributed.sharding import (axis_sizes, copy_seq_prefix,
                                               dp_entry, local_inputs,
-                                              local_seq_partials, placements,
+                                              local_seq_partials,
+                                              local_seq_selected, placements,
+                                              splits, top_k_lowest_first,
                                               write_seq_row)
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
 from repro_torch.kernels.mla_decode import mla_decode, mla_decode_ref
@@ -216,7 +218,7 @@ def _moe_call(p_moe, cfg: ModelConfig, x, routes=None, pinned=None,
     mesh, names = pol.mesh, list(sizes)
     dp = [a for a in ("pod", "data") if a in sizes]
     n_dp = math.prod(sizes[a] for a in dp)
-    split = bool(dp) and x.shape[0] % n_dp == 0   # tokens split over dp
+    split = splits(x.shape[0], mesh, tuple(dp))   # tokens split over dp
     x_spec = (dp_entry(mesh) if split else None, None, None)
     # the block is split over the expert dim (the stacks, the shared
     # FFN's width) and the data dims that split the tokens: the router's
@@ -783,13 +785,6 @@ def fill_decode_state(cfg: ModelConfig, state, caches):
     return state
 
 
-def top_k_lowest_first(scores: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest scores along the last axis, ties broken
-    toward the lower index (as lax.top_k breaks them)."""
-    return torch.sort(scores, dim=-1, descending=True,
-                      stable=True).indices[..., :k]
-
-
 def _mla_decode_cached(p, cfg: ModelConfig, x, cache, positions, widx: int,
                        ops: Ops):
     """Absorbed MLA decode of x (B, 1, D) over the whole static cache
@@ -800,12 +795,13 @@ def _mla_decode_cached(p, cfg: ModelConfig, x, cache, positions, widx: int,
     take the model's dtype and compute in f32.
 
     On a mesh (the cache a DTensor over the sequence, decode_state_shardings)
-    the entry is written by the rank that holds slot widx and the dense
-    attention runs per sequence shard, the partials merged across the
-    shards (sharding.local_seq_partials). Selection over a sequence-sharded
-    cache (a global top-k) is not ported: its branch runs DTensor ops, so
-    only with the PLAIN ops (the dry run's); the kernel wrappers refuse a
-    DTensor."""
+    the entry is written by the rank that holds slot widx and the attention
+    runs per sequence shard, the partials merged across the shards: dense
+    through sharding.local_seq_partials, selection through
+    sharding.local_seq_selected (each shard scores its rows, one gather of
+    the shards' candidates picks the global top-k, each shard attends the
+    chosen rows it holds). The kernel wrappers take each rank's local
+    tensors."""
     mcfg = cfg.mla
     q_nope, q_rope = MLA.project_q(p, mcfg, x, positions)
     q_abs = MLA.absorb_query(p, mcfg, q_nope, q_rope)       # (B, 1, H, d_qk)
@@ -815,12 +811,11 @@ def _mla_decode_cached(p, cfg: ModelConfig, x, cache, positions, widx: int,
     q = q_abs.reshape(B, H, mcfg.d_qk).contiguous()
     if cfg.selection_k:
         qi = torch.mean(q_abs[..., :mcfg.kv_lora_rank], dim=2)   # (B, 1, dc)
-        scores = torch.einsum("bqc,bsc->bqs", qi,
-                              cache[..., :mcfg.kv_lora_rank])
-        sel = top_k_lowest_first(scores[:, 0], cfg.selection_k)
-        part = ops.sparse_select(q, cache, sel.to(torch.int32).contiguous(),
-                                 None, None, d_v=mcfg.kv_lora_rank,
-                                 scale=mcfg.scale, block_tokens=1)
+        part = local_seq_selected(
+            lambda ql, cl, ids, kb: ops.sparse_select(
+                ql, cl, ids, kb, None, d_v=mcfg.kv_lora_rank,
+                scale=mcfg.scale, block_tokens=1),
+            ops.softmax_merge, q, qi, cache, cfg.selection_k)
     else:
         part = local_seq_partials(
             lambda ql, cl: ops.mla_decode(ql, cl, None, d_v=mcfg.kv_lora_rank,
