@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 4c-4e alone
-    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c3) alone
+    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c4) alone
 
 Needs one CUDA card, nvcc (PATH, $CUDA_HOME or /usr/local/cuda) and the
 repository's src/ beside this file; imports nothing of JAX or of the JAX
@@ -147,7 +147,21 @@ package. Phases, each fatal on failure:
    all three, each kernel's first call on each card held against its plain
    version at TOL on the same inputs (the shapes the shard gives it);
    mla_decode, softmax_merge, flash_prefill (f32 in (c1), bf16 in (c2))
-   and sparse_select ((c1), (c3)) launched on every card;
+   and sparse_select ((c1), (c3)) launched on every card; (c4) the GQA
+   and Mamba2/Zamba2 families sharded, in a process group of their own:
+   (a) Zamba2-7B at full width cut to 7 layers (one group of 6 and 1
+   more) in f32, prefill 2 x 2048 into 4096 slots (ssd_chunk on each
+   card's batch rows and local heads) and 8 decode steps (the shared
+   block's K/V cache over the sequence, each card's rows attended, the
+   partials merged by softmax_merge), on (1, n) and, on four cards, (2, 2)
+   and one row on (2, 2) (its prefill sharded with the batch whole),
+   against the same steps unsharded and the sharded PLAIN ops (1e-4);
+   on two cards or more (b) qwen3-32b at full width cut to 8 of 64 layers
+   in f32 on (1, n), held the same way, and (c) Zamba2-7B as published in
+   bf16 on (1, n): its logits against card 0's unsharded run, top-1,
+   walls, peak memory by card and the merge's share of a decode step,
+   reported; each kernel's first call on each card held at TOL, ssd_chunk
+   and softmax_merge (softmax_merge alone in (b)) launched on every card;
 5f. examples — repro_torch.examples in-process through run():
    quickstart (route+merge and the mla_decode kernel within 1e-5),
    serve_routed, agentic_fanout (routed fork decode within 1e-5),
@@ -169,7 +183,8 @@ package. Phases, each fatal on failure:
    softmax_merge in quickstart and plan_execute, delta_rotate in
    plan_execute where it fetched, and no kernel in the train steps; in
    5e's sharded serve, counted in each rank's process around the sharded
-   run with the kernels ("dist_serve"), its four kernels on every card;
+   run with the kernels ("dist_serve"), its four kernels on every card,
+   and (c4)'s ssd_chunk and softmax_merge;
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -2701,7 +2716,8 @@ DIST_LOSS_RTOL, DIST_PARAM_RTOL = 1e-5, 1e-4
 CM_TOL = 2e-5                                  # the collective matmul
 # seconds, each subprocess: (a), (b), and the sharded serve's (c1), (c2);
 # (c3) runs in (c2)'s process, which gets both parts' seconds
-DIST_TIMEOUT = {"a": 300, "b": 900, "c1": 600, "c2": 600, "c3": 600}
+DIST_TIMEOUT = {"a": 300, "b": 900, "c1": 600, "c2": 600, "c3": 600,
+                "c4": 600}
 DRYRUN_ARCH = "deepseek-v2-236b"
 # (b)'s further cells, each `python -m repro_torch.launch.dryrun` in a
 # subprocess of its own, at full depth, run beside the 236B one: GQA heads
@@ -3173,17 +3189,23 @@ class MergeTimer:
         return [sum(ms[i * k:(i + 1) * k]) for i in range(n_steps)]
 
 
+# the Ops field of a kernel of KERNELS where its name differs
+OPS_FIELD = {"ssd_chunk": "ssd_intra_chunk"}
+
+
 def first_calls(torch, ops):
-    """(ops whose flash_prefill, mla_decode, softmax_merge and
-    sparse_select keep a copy of the arguments of their first call in this
-    process, by the name of KERNELS, and pass every call on; that
+    """(ops whose flash_prefill, mla_decode, softmax_merge, sparse_select
+    and ssd_intra_chunk keep a copy of the arguments of their first call in
+    this process, by the name of KERNELS, and pass every call on; that
     record)."""
     seen = {}
+    names = {f: n for n, f in OPS_FIELD.items()}
 
     def keep(field, fn):
         def call(*args, **kw):
-            name = field + ("_bf16" if field == "flash_prefill"
-                            and args[0].dtype == torch.bfloat16 else "")
+            name = names.get(field, field) + (
+                "_bf16" if field == "flash_prefill"
+                and args[0].dtype == torch.bfloat16 else "")
             if name not in seen:
                 seen[name] = (tuple(a.clone() if torch.is_tensor(a) else a
                                     for a in args), dict(kw))
@@ -3192,7 +3214,7 @@ def first_calls(torch, ops):
     return dataclasses.replace(ops, **{
         f: keep(f, getattr(ops, f))
         for f in ("flash_prefill", "mla_decode", "softmax_merge",
-                  "sparse_select")}), seen
+                  "sparse_select", "ssd_intra_chunk")}), seen
 
 
 def hold_first_calls(torch, M, seen):
@@ -3204,7 +3226,7 @@ def hold_first_calls(torch, M, seen):
     magnitude where it exceeds 1 (check_softmax_merge holds l so)."""
     out = {}
     for name, (args, kw) in sorted(seen.items()):
-        field = name.removesuffix("_bf16")
+        field = OPS_FIELD.get(name, name.removesuffix("_bf16"))
         got = leaves(getattr(M.KERNELS, field)(*args, **kw))
         want = leaves(getattr(M.PLAIN, field)(*args, **kw))
         torch.cuda.synchronize()
@@ -3224,19 +3246,32 @@ def hold_first_calls(torch, M, seen):
     return out
 
 
+def laid_out(tree, shardings):
+    """A tree (dicts, tuples) of whole tensors distributed leaf by leaf as
+    the same tree of NamedShardings says."""
+    from repro_torch.distributed import sharding as SH
+    if isinstance(tree, dict):
+        return {k: laid_out(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(laid_out(v, sh) for v, sh in zip(tree, shardings))
+    return SH.distribute(tree, shardings.mesh, shardings.spec)
+
+
 def serve_sharded(torch, M, params, cfg, mesh, tokens, feed, *, dtype, ops,
                   routes=None, step_cfgs=None, whole_params=None):
     """The sharded serving form through the entry points, on mesh with the
     dry run's placements (the batch as train_batch_shardings, the decode
     state of SERVE_SLOTS slots as decode_state_shardings: the latent
     cache's sequence over `model`, or over both mesh dims for one row;
-    each step's token and position as decode_input_shardings; sp_policy):
-    prefill tokens (B, S) twice (the second for the warm wall), fill the
-    state with the first's caches, then one decode_step per row of feed
-    (steps, B, 1) at slots S, S + 1, ..., step i with step_cfgs[i] (None:
-    cfg). With whole_params (the same weights unsharded) the prefill runs
-    unsharded on every rank and its caches enter the state whole: one row's
-    form, which the data dims do not split. Returns the results (DTensors;
+    each step's token and position as decode_input_shardings; sp_policy,
+    and without whole_params sp_policy(...).for_batch(B): one row the data
+    dims do not split keeps its batch whole): prefill tokens (B, S) twice
+    (the second for the warm wall), fill the state with the first's
+    caches, then one decode_step per row of feed (steps, B, 1) at slots S,
+    S + 1, ..., step i with step_cfgs[i] (None: cfg). With whole_params
+    (the same weights unsharded) the prefill runs unsharded on every rank
+    and its caches enter the state whole, the form (c1) runs its one row
+    in. Returns the results (DTensors;
     "kept_state" a copy of the state after the steps with cfg, where
     others follow) and the walls, each ending in a synchronize."""
     from torch.distributed.tensor.experimental import implicit_replication
@@ -3249,11 +3284,13 @@ def serve_sharded(torch, M, params, cfg, mesh, tokens, feed, *, dtype, ops,
     step_cfgs = step_cfgs or [cfg] * feed.shape[0]
     sync = lambda: torch.cuda.synchronize(dev)
     out = {"decode": [], "decode_s": [], "kept_state": None}
-    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
-            torch.no_grad():
+    pol = POL.sp_policy(mesh)
+    with POL.use_policy(pol if whole_params else pol.for_batch(B)), \
+            implicit_replication(), torch.no_grad():
         if whole_params is None:
-            tk = SH.distribute(tokens, mesh, IS.train_batch_shardings(
-                {"tokens": tokens}, mesh)["tokens"].spec)
+            tk = SH.distribute(tokens, mesh, SH.fit_spec(
+                IS.train_batch_shardings({"tokens": tokens}, mesh)[
+                    "tokens"].spec, tokens.shape, mesh))
             prefill = lambda **kw: M.prefill(params, cfg, {"tokens": tk},
                                              ops=ops, **kw)
         else:
@@ -3274,10 +3311,8 @@ def serve_sharded(torch, M, params, cfg, mesh, tokens, feed, *, dtype, ops,
         out["warm_prefill_s"] = time.perf_counter() - t0
         shard = IS.decode_state_shardings(
             cfg, ShapeSpec("serve", SERVE_SLOTS, B, "decode"), mesh)
-        state = M.fill_decode_state(cfg, {
-            k: SH.distribute(v, mesh, shard[k].spec)
-            for k, v in M.init_decode_state(cfg, B, SERVE_SLOTS, dtype=dtype,
-                                            device=dev).items()}, caches)
+        state = M.fill_decode_state(cfg, laid_out(M.init_decode_state(
+            cfg, B, SERVE_SLOTS, dtype=dtype, device=dev), shard), caches)
         tok_sh, pos_sh, _ = IS.decode_input_shardings(mesh, B)
         for i in range(feed.shape[0]):
             if step_cfgs[i] is not cfg and out["kept_state"] is None:
@@ -3327,8 +3362,10 @@ def serve_unsharded(torch, M, cfg, tokens, n_data, *, dtype, ops, feed=None,
     del params
     torch.cuda.empty_cache()
     cat = lambda xs, d=0: torch.cat(xs, dim=d)
-    batch1 = lambda key: {k: cat([r[key][k] for r in runs], 1)
-                          for k in runs[0][key]}
+    # one run's trees as they are (the hybrid's nest tuples and its group
+    # states hold the batch at dim 2); several runs' MLA caches joined
+    batch1 = lambda key: runs[0][key] if len(runs) == 1 else {
+        k: cat([r[key][k] for r in runs], 1) for k in runs[0][key]}
     out = {"prefill": cat([r["prefill"] for r in runs]),
            "decode": [cat([r["decode"][i] for r in runs])
                       for i in range(len(step_cfgs))],
@@ -3719,6 +3756,168 @@ def serve_bf16(torch, dev, cfg, shape):
     return out, params
 
 
+# ---------------------------------------------------------------------------
+# 5e (c4). the GQA and Mamba2/Zamba2 families' sharded serve over NCCL
+# ---------------------------------------------------------------------------
+
+# (c4a), (c4b): the sharded steps against the same steps unsharded and
+# against the sharded PLAIN ops, f32: 5d (b)'s Zamba2 limit for both
+FAMILY_TOL = MODEL_TOL["zamba2"]
+# the kernels of each (c4) part: each launched on every card (the GQA
+# family runs no kernel but the merge)
+FAMILY_PATH = {"a": ("ssd_chunk", "softmax_merge"),
+               "b": ("softmax_merge",),
+               "c": ("ssd_chunk", "softmax_merge")}
+
+
+def serve_family_f32(torch, dev, cfg, shape, batch=MODEL_BATCH):
+    """(c4a) or (c4b) on one mesh, `batch` rows (1: one row, its K/V cache's
+    sequence over every mesh dim, its prefill sharded with the batch whole):
+    the unsharded steps on rank 0's card with KERNELS, then the sharded ones
+    with KERNELS (counted; each kernel's first call on each card kept and
+    held against its plain version) and with PLAIN, both fed the unsharded
+    run's greedy tokens: prefill MODEL_BATCH x MODEL_PROMPT into SERVE_SLOTS
+    slots, MODEL_STEPS decode steps. Rank 0 holds the KERNELS run against
+    both at FAMILY_TOL."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    rank = dist.get_rank()
+    mesh = make_mesh(shape, ("data", "model"))
+    tokens = _prompt(torch, dev, cfg.vocab, MODEL_PROMPT)[:batch]
+    feed = torch.zeros((MODEL_STEPS, batch, 1), dtype=torch.long,
+                       device=dev)
+    ref = None
+    if rank == 0:
+        ref = serve_unsharded(torch, M, cfg, tokens, 1, dtype=torch.float32,
+                              ops=M.KERNELS)
+        feed.copy_(ref["fed"])
+    dist.broadcast(feed, 0)
+    params = _sharded_params(torch, M, cfg, mesh, dev, torch.float32)
+    ops, seen = first_calls(torch, M.KERNELS)
+    zero, read = _launch_counters()
+    zero()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern = serve_sharded(torch, M, params, cfg, mesh, tokens, feed,
+                         dtype=torch.float32, ops=ops)
+    torch.cuda.synchronize(dev)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    held = hold_first_calls(torch, M, seen)
+    del seen
+    plain = serve_sharded(torch, M, params, cfg, mesh, tokens, feed,
+                          dtype=torch.float32, ops=M.PLAIN)
+    walls = {k: kern[k] for k in ("prefill_s", "warm_prefill_s",
+                                  "decode_s")}
+    kern, plain = _whole(torch, kern), _whole(torch, plain)
+    res = {"mesh": list(shape), "batch": batch, "layers": cfg.n_layers,
+           "name": cfg.name, "walls": walls}
+    if rank == 0:
+        res["unsharded_walls"] = {"prefill_s": ref["prefill_s"],
+                                  "decode_s": ref["decode_s"]}
+        for name, want in (("unsharded", ref), ("plain", plain)):
+            errs, bad = held_errors(torch, kern, want, FAMILY_TOL)
+            res[name] = {"errs": errs, "beyond": bad}
+    del kern, plain, ref
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, {"launches": launches, "peak_gib": peak,
+                                     "held": held})
+    for key in ("launches", "peak_gib", "held"):
+        res[key] = [r[key] for r in by_rank]
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_family_bf16(torch, dev, cfg, shape):
+    """(c4c): cfg as published in bf16 on a (1, n) mesh with KERNELS, fed
+    the greedy tokens of the same steps unsharded on card 0: each kernel's
+    first call on each card held against its plain version at the shapes
+    the shard gives it; rank 0 compares the last-token and decode logits
+    and the top-1 tokens; every card's launches and peak memory; the walls
+    and the cross-card merge's share of a decode step."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    rank = dist.get_rank()
+    mesh = make_mesh(shape, ("data", "model"))
+    tokens = _prompt(torch, dev, cfg.vocab, MODEL_PROMPT)
+    feed = torch.zeros((MODEL_STEPS, MODEL_BATCH, 1), dtype=torch.long,
+                       device=dev)
+    ref, ref_peak = None, None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref = serve_unsharded(torch, M, cfg, tokens, 1,
+                              dtype=torch.bfloat16, ops=M.KERNELS)
+        ref_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        feed.copy_(ref["fed"])
+    dist.broadcast(feed, 0)
+    t0 = time.perf_counter()
+    params = _sharded_params(torch, M, cfg, mesh, dev, torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    ops, seen = first_calls(torch, M.KERNELS)
+    zero, read = _launch_counters()
+    zero()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with MergeTimer(torch, M) as timer:
+        kern = serve_sharded(torch, M, params, cfg, mesh, tokens, feed,
+                             dtype=torch.bfloat16, ops=ops)
+    torch.cuda.synchronize(dev)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    merge_ms = timer.per_step(MODEL_STEPS)
+    held = hold_first_calls(torch, M, seen)
+    del seen
+    lg = _whole(torch, [kern["prefill"]] + kern["decode"])
+    walls = {k: kern[k] for k in ("prefill_s", "warm_prefill_s",
+                                  "decode_s")}
+    del kern
+    del params
+    torch.cuda.empty_cache()
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, {"launches": launches, "peak_gib": peak,
+                                     "merge_ms": merge_ms, "held": held})
+    if rank != 0:
+        return None
+    want = [ref["prefill"]] + ref["decode"]
+    top1 = [[bool(a) for a in (g.argmax(-1) == w.argmax(-1)).flatten()]
+            for g, w in zip(lg, want)]
+    out = {"mesh": list(shape), "layers": cfg.n_layers, "name": cfg.name,
+           "init_s": init_s,
+           "last_token_max_abs_diff": max_err(torch, lg[0].float(),
+                                              want[0].float()),
+           "decode_max_abs_diff": [max_err(torch, g.float(), w.float())
+                                   for g, w in zip(lg[1:], want[1:])],
+           "top1_by_row": top1, "walls": walls,
+           "unsharded_walls": {"prefill_s": ref["prefill_s"],
+                               "decode_s": ref["decode_s"]},
+           "unsharded_peak_gib": ref_peak,
+           "merge_share_card0": [m / (w * 1e3) for m, w in zip(
+               by_rank[0]["merge_ms"], walls["decode_s"])]}
+    for key in ("launches", "peak_gib", "merge_ms", "held"):
+        out[key] = [r[key] for r in by_rank]
+    return out
+
+
+def serve_families(torch, dev, world):
+    """(c4) in one process group of `world` cards: (a) Zamba2-7B at full
+    width cut to hybrid_group + 1 layers in f32 on every mesh of
+    serve_meshes(world); on two cards or more, (b) qwen3-32b at full width
+    cut to 8 of its 64 layers in f32 and (c) Zamba2-7B as published in
+    bf16, each on (1, world)."""
+    from repro_torch.configs import qwen3_32b, zamba2_7b
+    zamba2 = zamba2_7b.config()
+    cut = dataclasses.replace(zamba2, n_layers=zamba2.hybrid_group + 1)
+    out = {"a": [serve_family_f32(torch, dev, cut, shape, batch)
+                 for shape, batch in serve_meshes(world)]}
+    if world >= 2:
+        qwen = dataclasses.replace(qwen3_32b.config(), n_layers=8)
+        out["b"] = serve_family_f32(torch, dev, qwen, (1, world))
+        out["c"] = serve_family_bf16(torch, dev, zamba2, (1, world))
+    return out
+
+
 def _parting(torch, cfg, caches, routes, ref_caches, ref_routes):
     """Where two runs part, layer by layer: each layer's prefill cache
     entries' max|diff|, and each MoE layer's share of prefill tokens whose
@@ -3975,7 +4174,7 @@ def long_decode_bf16(torch, dev, cfg, shape, params):
 
 
 def dist_serve_rank(rank, world, port, part):
-    """One rank of (c1) or (c2) (torch.multiprocessing.spawn's target):
+    """One rank of (c1), (c2) or (c4) (torch.multiprocessing.spawn's target):
     card `rank`, a NCCL group of `world` ranks. Rank 0 prints the part's
     result as one "DIST-SERVE {json}" line."""
     sys.path.insert(0, SRC)
@@ -3993,6 +4192,8 @@ def dist_serve_rank(rank, world, port, part):
         cut = dataclasses.replace(v2_lite, n_layers=4)
         out = [serve_f32_mesh(torch, dev, cut, shape, batch)
                for shape, batch in serve_meshes(world)]
+    elif part == "c4":
+        out = serve_families(torch, dev, world)
     else:
         out, params = serve_bf16(torch, dev, v2_lite, (1, world))
         long = long_decode_bf16(torch, dev, v2_lite, (1, world), params)
@@ -4006,7 +4207,7 @@ def dist_serve_rank(rank, world, port, part):
 
 
 def dist_serve_part(part: str) -> None:
-    """(c1) or (c2) in this process: one rank per visible card, spawned; a
+    """(c1), (c2) or (c4) in this process: one rank per visible card, spawned; a
     rank that fails fails the part."""
     import torch
     import torch.multiprocessing as mp
@@ -4037,7 +4238,8 @@ def _launch_totals(by_rank):
 
 
 def _on_every_card(part, cards, n_cards):
-    missing = [f"{k} on cuda:{c}" for k in SERVE_PATH[part]
+    path = SERVE_PATH[part] if part in SERVE_PATH else FAMILY_PATH[part[2:]]
+    missing = [f"{k} on cuda:{c}" for k in path
                for c in range(n_cards) if cards[k].get(c, 0) <= 0]
     if missing:
         fail(f"(5e) ({part}) not launched: {missing}")
@@ -4045,12 +4247,13 @@ def _on_every_card(part, cards, n_cards):
 
 def run_dist_serve(torch, smi_line):
     """(c1) on every visible card's meshes and, on two cards or more, (c2)
-    and, in its process group, (c3); each part a process group of its own
-    in a subprocess with its timeout. Returns ({part: result}, launches by
+    and, in its process group, (c3); then (c4), (a) on every visible card's
+    meshes and, on two cards or more, (b) and (c); each part a process group
+    of its own in a subprocess with its timeout. Returns ({part: result}, launches by
     kernel, by kernel and card), the launches those of the sharded KERNELS
     runs alone."""
     n_cards = torch.cuda.device_count()
-    parts = ["c1"] + (["c2"] if n_cards >= 2 else [])
+    parts = ["c1"] + (["c2"] if n_cards >= 2 else []) + ["c4"]
     results, total, cards = {}, {k: 0 for k in KERNELS}, \
         {k: {} for k in KERNELS}
     for part in parts:
@@ -4060,12 +4263,19 @@ def run_dist_serve(torch, smi_line):
                                                if part == "c2" else 0))
         r = _serve_result(part, out)
         # each c1 mesh launches its kernels on every card; (c2) and (c3)
-        # together (sparse_select runs in (c3) alone)
-        runs = r if part == "c1" else [
-            {"launches": r["launches"] + r["long"]["launches"]}]
-        for run in runs:
+        # together (sparse_select runs in (c3) alone); each (c4) run its
+        # part's
+        if part == "c1":
+            runs = [(part, x) for x in r]
+        elif part == "c2":
+            runs = [(part, {"launches": r["launches"]
+                            + r["long"]["launches"]})]
+        else:
+            runs = [(f"c4{k}", x) for k in ("a", "b", "c") if k in r
+                    for x in (r[k] if k == "a" else [r[k]])]
+        for label, run in runs:
             t, c = _launch_totals(run["launches"])
-            _on_every_card(part, c, n_cards)
+            _on_every_card(label, c, n_cards)
             for k in KERNELS:
                 total[k] += t[k]
                 for card, n in c[k].items():
@@ -4073,12 +4283,17 @@ def run_dist_serve(torch, smi_line):
         results[part] = {"result": r, "wall_s": wall}
         if part == "c1":
             log_serve_f32(r, wall, n_cards, smi_line)
-        else:
+        elif part == "c2":
             log_serve_bf16(r, wall, n_cards, smi_line)
             log_long(r["long"], smi_line)
+        else:
+            log_families(r, wall, n_cards, smi_line)
     if n_cards == 1:
         log(f"[dist] (c1) on (1, 4), (2, 2) and one row on (2, 2), (c2) and "
             f"(c3) did not run: 1 card visible; on four cards python3 "
+            f"chip_smoke.py --dist-only runs them; {smi_line}")
+        log(f"[dist] (c4a) on (1, 4), (2, 2) and one row on (2, 2), (c4b) "
+            f"and (c4c) did not run: 1 card visible; on four cards python3 "
             f"chip_smoke.py --dist-only runs them; {smi_line}")
     return results, total, cards
 
@@ -4277,6 +4492,66 @@ def log_long(r, smi_line):
     if bad:
         fail(f"(5e) (c3) chosen ids differ from the top k of the gathered "
              f"scores on cards {bad}: {r['exact']}")
+
+
+def log_families(r, wall, n_cards, smi_line):
+    """(c4)'s lines: (a) and (b) a mesh each, each held against the
+    unsharded run and the sharded PLAIN ops at FAMILY_TOL and its kernels'
+    first calls at TOL (fail otherwise); (c)'s numbers reported beside its
+    held first calls."""
+    runs = [("c4a", x) for x in r["a"]] + \
+        ([("c4b", r["b"])] if "b" in r else [])
+    for part, x in runs:
+        shape = tuple(x["mesh"])
+        label = f"{shape}" + (", one row" if x["batch"] == 1 else "")
+        t, c = _launch_totals(x["launches"])
+        parts = [f"against {name} " + ", ".join(
+            f"{k} {v:.3e}" for k, v in x[name]["errs"].items())
+            for name in ("unsharded", "plain")]
+        log(f"[dist] ({part}) {x['name']} at full width cut to {x['layers']}"
+            f" layers in f32, KERNELS, on a {shape} (data, model) NCCL mesh "
+            f"over {n_cards} card(s): prefill {x['batch']} x {MODEL_PROMPT} "
+            f"into {SERVE_SLOTS} slots, {MODEL_STEPS} decode steps at slots "
+            f"{MODEL_PROMPT}-{MODEL_PROMPT + MODEL_STEPS - 1}; "
+            + "; ".join(parts) + f" (atol {FAMILY_TOL[0]:g}, rtol "
+            f"{FAMILY_TOL[1]:g}); sharded {_fmt_walls(x['walls'])}; "
+            f"unsharded {_fmt_walls(x['unsharded_walls'])}; peak GiB by card "
+            f"{[round(p, 2) for p in x['peak_gib']]}; launches {t}, by card "
+            f"{c}; part wall {wall:.1f} s; {smi_line}")
+        _log_held(part, label, x["held"], smi_line)
+        for name in ("unsharded", "plain"):
+            if x[name]["beyond"]:
+                fail(f"(5e) ({part}) {label}: against {name} beyond the "
+                     f"limit in {x[name]['beyond']}: {x[name]['errs']}")
+    if "c" not in r:
+        return
+    x = r["c"]
+    t, c = _launch_totals(x["launches"])
+    rows = [sum(col) for col in zip(*x["top1_by_row"])]
+    shares = x["merge_share_card0"]
+    log(f"[dist] (c4c) {x['name']} as published ({x['layers']} layers) in "
+        f"bf16, KERNELS, on a {tuple(x['mesh'])} (data, model) NCCL mesh, "
+        f"weights from seed 0 (sharded in {x['init_s']:.2f} s): prefill "
+        f"{MODEL_BATCH} x {MODEL_PROMPT} into {SERVE_SLOTS} slots, "
+        f"{MODEL_STEPS} decode steps fed card 0's unsharded greedy tokens; "
+        f"against the unsharded run: last-token logits max|diff| "
+        f"{x['last_token_max_abs_diff']:.4e}, decode logits max|diff| by "
+        f"step {[float(f'{d:.4g}') for d in x['decode_max_abs_diff']]}, "
+        f"top-1 agreement per row {rows} of {len(x['top1_by_row'])} "
+        f"(prefill + {MODEL_STEPS} steps); sharded "
+        f"{_fmt_walls(x['walls'])}; unsharded "
+        f"{_fmt_walls(x['unsharded_walls'])}; peak GiB by card "
+        f"{[round(p, 2) for p in x['peak_gib']]} (unsharded on card 0 "
+        f"{x['unsharded_peak_gib']:.2f}); launches {t}, by card {c}; "
+        f"{smi_line}")
+    log(f"[dist] (c4c) cross-card merge of the shared block's decode "
+        f"attention (all-gather of (o, m, l) over the sequence's ranks + "
+        f"softmax_merge, CUDA events after the shard's attention and after "
+        f"the merge, summed over the block's invocations) ms a decode step "
+        f"by card {[[round(v, 3) for v in m] for m in x['merge_ms']]}; "
+        f"share of card 0's step wall {[round(v, 4) for v in shares]} "
+        f"(median {statistics.median(shares):.4f}); {smi_line}")
+    _log_held("c4c", tuple(x["mesh"]), x["held"], smi_line)
 
 
 # ---------------------------------------------------------------------------
@@ -4557,10 +4832,10 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
                 tot[card] = tot.get(card, 0) + c
         return result, n
 
-    if dist_only:           # phase 5e (c1)-(c3) alone (a run on four cards)
+    if dist_only:           # phase 5e (c1)-(c4) alone (a run on four cards)
         t0 = time.perf_counter()
         _, total, cards = run_dist_serve(torch, smi_line)
-        log(f"[dist] (c1)-(c3) alone: {time.perf_counter() - t0:.1f} s; "
+        log(f"[dist] (c1)-(c4) alone: {time.perf_counter() - t0:.1f} s; "
             f"launches {total}; by card {cards}; {smi_line}")
         print(smi_line)
         print(json.dumps({"ok": True, "device": {
@@ -4749,7 +5024,7 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
     if fam_launches["families_zamba2"]["ssd_chunk"] <= 0:
         missing.append("ssd_chunk (families)")
     missing += [f"{k} (dist_serve)" for k in SERVE_PATH["c1"]
-                if sharded_launches[k] <= 0]
+                + FAMILY_PATH["a"] if sharded_launches[k] <= 0]
     # 5f: the routed decode of the examples on the kernels
     want_ex = {"ex_quickstart": ("mla_decode", "softmax_merge"),
                "ex_agentic_fanout": ("mla_decode",),
@@ -4842,9 +5117,9 @@ if __name__ == "__main__":
         sys.path.insert(0, SRC)
         dist_part_a(torch, *sys.argv[3:4])
         sys.exit(0)
-    if sys.argv[1:2] == ["--dist-part"] and sys.argv[2:3] in (["c1"],
-                                                             ["c2"]):
-        dist_serve_part(sys.argv[2])               # (c1) or (c2)'s ranks
+    if sys.argv[1:2] == ["--dist-part"] and sys.argv[2:3] in (
+            ["c1"], ["c2"], ["c4"]):
+        dist_serve_part(sys.argv[2])               # (c1), (c2) or (c4)'s ranks
         sys.exit(0)
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
                   dist_only=sys.argv[1:2] == ["--dist-only"]))

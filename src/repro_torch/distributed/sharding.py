@@ -314,9 +314,10 @@ def _batch_placements(t) -> list:
 
 
 def local_seq_partials(attend, merge, q, cache):
-    """attend(q, cache) -> Partial (o (B, R, d_v), m (B, R), l (B, R)) for
-    queries q (B, R, D) over a cache (B, S, D), every row attended. On
-    plain tensors it is that one call.
+    """attend(q, cache) -> Partial (o (B, ..., d_v), m, l (B, ...)) for
+    queries q (B, ...) over a cache (B, S, ...), every row attended: one
+    tensor (the MLA latent cache) or a tuple of them split alike (GQA's
+    (k, v)). On plain tensors it is that one call.
 
     On a DTensor cache (decode_state_shardings' layout: the batch over the
     data dims where it divides, the SEQUENCE over `model`, or over the
@@ -327,20 +328,22 @@ def local_seq_partials(attend, merge, q, cache):
     attend on local tensors, and the ranks' partials (o, m, l), packed
     into one f32 tensor, are gathered over the sequence's mesh dims (one
     functional all-gather a dim, the op DTensor issues, which the dry
-    run's step costs count) and merged with merge (o (M, B, R, d_v), m, l
-    (M, B, R)), M the ranks that split the sequence. Every rank holds the
-    merged result, a DTensor over the batch's mesh dims. The rows' global
-    offset does not enter: every row is attended, written or not (ROADMAP
-    C.1), and an exact merge does not depend on which rank holds which
-    rows."""
+    run's step costs count) and merged with merge (o (M, B, ..., d_v), m,
+    l (M, B, ...)), M the ranks that split the sequence. Every rank holds
+    the merged result, a DTensor over the batch's mesh dims. The rows'
+    global offset does not enter: every row is attended, written or not
+    (ROADMAP C.1), and an exact merge does not depend on which rank holds
+    which rows."""
     from torch.distributed.tensor import DTensor
-    if not isinstance(cache, DTensor):
+    members = cache if isinstance(cache, tuple) else (cache,)
+    if not isinstance(members[0], DTensor):
         return attend(q, cache)
-    mesh = cache.device_mesh
-    pl = _batch_placements(cache)
-    seq_dims, _, _ = _seq_shard(cache, 1)
+    mesh = members[0].device_mesh
+    pl = _batch_placements(members[0])
+    seq_dims, _, _ = _seq_shard(members[0], 1)
+    local = tuple(c.to_local() for c in members)
     part = attend(q.redistribute(mesh, pl).to_local().contiguous(),
-                  cache.to_local())
+                  local if isinstance(cache, tuple) else local[0])
     return _merged_partials(merge, part, mesh, seq_dims, pl)
 
 
@@ -458,8 +461,8 @@ def local_seq_selected(select, merge, q, qi, cache, k: int):
 
 
 def write_seq_row(cache, widx: int, entry) -> None:
-    """cache[:, widx] = entry for a cache (B, S, D) and its new entry (B,
-    D), in place. On a DTensor cache sharded over the sequence only the
+    """cache[:, widx] = entry for a cache (B, S, ...) and its new entry (B,
+    ...), in place. On a DTensor cache sharded over the sequence only the
     ranks that hold row widx write it, at their local index; every rank
     first takes the entry's rows of its batch shard (a collective where
     the entry's layout differs, so every rank takes part)."""

@@ -95,7 +95,13 @@ def ssd_intra_chunk(x, dt, A, B, C, *, hb: int = 4):
     (b, nc, Q, H, P), chunk states (b, nc, H, P, N), cum (b, nc, Q, H)), all
     f32. The operands may be bf16 or f16: they are cast to f32 first, as
     the reference's kernel casts them. hb heads share one block's C B^T. CPU
-    tensors take the plain version."""
+    tensors take the plain version. A DTensor raises TypeError (on a mesh:
+    models.ssm.serving_intra runs it on each rank's local heads)."""
+    build.refuse_dtensor(
+        "ssd_intra_chunk", "on a mesh call it through "
+        "repro_torch.models.ssm.serving_intra (each rank's batch rows and "
+        "heads, through repro_torch.distributed.sharding.local_heads)", x,
+        dt, A, B, C)
     _check(x, dt, A, B, C, hb)
     x, dt, A, B, C = build.as_f32("ssd_intra_chunk", x, dt, A, B, C)
     if x.device.type == "cpu":

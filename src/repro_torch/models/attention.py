@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.merge import Partial
 from repro_torch.distributed.sharding import local_heads
 from repro_torch.models import layers as L
 from repro_torch.models.module import param, zeros
@@ -125,6 +126,27 @@ def _sdpa(cfg: AttnConfig, q, k, v, mask):
     # on a mesh: each (batch row, kv head group) on its own shard
     return local_heads(attend, [q.to(ct), k.to(ct), v.to(ct)],
                        (2, 2, 2)).to(q.dtype)
+
+
+def decode_partial(cfg: AttnConfig, q, k, v) -> Partial:
+    """q (B, Sq, H, d) over every row of k/v (B, Sk, Hkv, d), no mask, as
+    an online-softmax partial: o (B, Sq, H, d) normalised, m and l (B, Sq,
+    H), in the compute dtype (f32; f64 for an f64 model). The products are
+    _sdpa's attend's (operands cast, query heads folded into Hkv groups);
+    the max and the sum are kept, so partials over a split of the rows
+    merge (softmax_merge) to _sdpa over all of them. Plain tensors: a
+    sequence shard's local rows (sharding.local_seq_partials)."""
+    ct = L.compute_dtype(q.dtype)
+    B, Sq, H, d = q.shape
+    hkv = k.shape[2]
+    qg = q.to(ct).reshape(B, Sq, hkv, H // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(ct)) * cfg.scale
+    m = torch.amax(logits, dim=-1)
+    w = torch.exp(logits - m[..., None])
+    l = torch.sum(w, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w / l[..., None], v.to(ct))
+    lead = lambda t: t.permute(0, 3, 1, 2).reshape(B, Sq, H)
+    return Partial(o.reshape(B, Sq, H, d), lead(m), lead(l))
 
 
 def attention(p, cfg: AttnConfig, x, positions, x_kv=None, kv_positions=None,

@@ -67,7 +67,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import policy as POL
 from repro_torch.distributed.sharding import (axis_sizes, copy_seq_prefix,
-                                              dp_entry, local_inputs,
+                                              dp_entry, is_dtensor,
+                                              local_inputs,
                                               local_seq_partials,
                                               local_seq_selected, placements,
                                               splits, top_k_lowest_first,
@@ -331,7 +332,7 @@ class _Form:
 def _serving(ops: Ops) -> _Form:
     return _Form(functools.partial(MLA.mla_attention,
                                    prefill_fn=ops.flash_prefill),
-                 ops.ssd_intra_chunk, False)
+                 SSM.serving_intra(ops.ssd_intra_chunk), False)
 
 
 def _training(cfg: ModelConfig) -> _Form:
@@ -826,17 +827,29 @@ def _mla_decode_cached(p, cfg: ModelConfig, x, cache, positions, widx: int,
 
 
 def _gqa_decode_cached(p, acfg: A.AttnConfig, x, cache, positions,
-                       widx: int):
+                       widx: int, ops: Ops):
     """GQA decode of x (B, 1, D) over the whole static cache (k, v) (B, S,
     Hkv, hd), after writing the new entry at widx in place. Like the
     reference, it attends every slot, written or not (ROADMAP C.1): an
     unwritten slot's zero key scores 0 and its zero value takes softmax
-    weight."""
+    weight. The products are einsums (models/attention.py), no kernel.
+
+    On a mesh (k and v DTensors over the sequence, decode_state_shardings)
+    the entry is written by the rank that holds slot widx
+    (sharding.write_seq_row), each rank attends its own rows with every
+    head (attention.decode_partial) and the partials merge across the
+    shards with ops.softmax_merge (sharding.local_seq_partials): the query
+    moves, the K/V cache stays."""
     k_cache, v_cache = cache
     q, k_new, v_new = A._project(p, acfg, x, x, positions, positions)
-    k_cache[:, widx] = k_new[:, 0]
-    v_cache[:, widx] = v_new[:, 0]
-    out = A._sdpa(acfg, q, k_cache, v_cache, None)
+    write_seq_row(k_cache, widx, k_new[:, 0])
+    write_seq_row(v_cache, widx, v_new[:, 0])
+    if not is_dtensor(k_cache):
+        out = A._sdpa(acfg, q, k_cache, v_cache, None)
+    else:
+        out = local_seq_partials(
+            lambda ql, kv: A.decode_partial(acfg, ql, *kv), ops.softmax_merge,
+            q, cache).o.to(x.dtype)
     return L.merge_heads(out, p["o"])
 
 
@@ -861,21 +874,24 @@ def _decode_mamba(stack, cfg: ModelConfig, state, x):
     return x
 
 
-def _decode_hybrid(params, cfg: ModelConfig, state, x, pos, widx: int):
+def _decode_hybrid(params, cfg: ModelConfig, state, x, pos, widx: int,
+                   ops: Ops):
     na = cfg.norm_apply()
     sa = params["shared_attn"]
     hs, convs = state["groups"]
     for gi, gp in enumerate(params["groups"]):
         x = _decode_mamba(gp, cfg, (hs[gi], convs[gi]), x)
         x = x + _gqa_decode_cached(sa["attn"], cfg.attn_cfg, na(sa["ln"], x),
-                                   _layer(state["shared_kv"], gi), pos, widx)
+                                   _layer(state["shared_kv"], gi), pos, widx,
+                                   ops)
         x = x + L.mlp(sa["mlp"], na(sa["ln2"], x), cfg.mlp_kind)
     if "rem" in params:
         x = _decode_mamba(params["rem"], cfg, state["rem"], x)
     return x
 
 
-def _decode_audio(params, cfg: ModelConfig, state, x, pos, widx: int):
+def _decode_audio(params, cfg: ModelConfig, state, x, pos, widx: int,
+                  ops: Ops):
     """The decoder's step: self-attention over state["self"] (written at
     widx), cross-attention over state["cross"] (the prefill's encoder K/V,
     read, never written)."""
@@ -884,7 +900,7 @@ def _decode_audio(params, cfg: ModelConfig, state, x, pos, widx: int):
     for i, lp in enumerate(params["blocks"]):
         x = x + _gqa_decode_cached(lp["attn"], cfg.attn_cfg,
                                    na(lp["ln1"], x),
-                                   _layer(state["self"], i), pos, widx)
+                                   _layer(state["self"], i), pos, widx, ops)
         ck, cv = _layer(state["cross"], i)
         q = L.project_heads(na(lp["lnx"], x), lp["xattn"]["q"])
         xo = A._sdpa(enc_cfg, q, ck, cv, None)
@@ -905,9 +921,9 @@ def decode_step(params, cfg: ModelConfig, state, token, pos, widx: int, *,
     if cfg.family == "ssm":
         x = _decode_mamba(params["blocks"], cfg, state["blocks"], x)
     elif cfg.family == "hybrid":
-        x = _decode_hybrid(params, cfg, state, x, pos, widx)
+        x = _decode_hybrid(params, cfg, state, x, pos, widx, ops)
     elif cfg.family == "audio":
-        x = _decode_audio(params, cfg, state, x, pos, widx)
+        x = _decode_audio(params, cfg, state, x, pos, widx, ops)
     else:
         stacks = [("blocks", cfg.family == "moe")]
         if cfg.family == "moe" and cfg.first_k_dense:
@@ -921,7 +937,7 @@ def decode_step(params, cfg: ModelConfig, state, token, pos, widx: int, *,
                                                pos, widx, ops)
                 else:
                     x = x + _gqa_decode_cached(lp["attn"], cfg.attn_cfg, h,
-                                               cache, pos, widx)
+                                               cache, pos, widx, ops)
                 h = na(lp["ln2"], x)
                 if moe_block:
                     x = x + _moe_call(lp["moe"], cfg, h, routes)[0]

@@ -132,6 +132,28 @@ def _intra_train(x, dt, A, B, C):
     return y_intra, states, cum
 
 
+def serving_intra(kernel):
+    """The serving form's intra-chunk op over `kernel` (the ssd_chunk
+    wrapper or its plain version, (x, dt, A, B, C) -> (y_intra, chunk
+    states, cum)). On plain tensors it is the one kernel call. On DTensors
+    (a sharded prefill) it runs kernel on each rank's local tensors
+    (sharding.local_heads, the layout ssd_intra_chunk_train takes: the
+    batch over the data dims and the heads of x, dt and A over `model`,
+    each where it divides; B and C whole): each (batch row, head) needs no
+    other, and the kernel reads local storage only."""
+    def local(x, dt, A, B, C):
+        return kernel(x.contiguous(), dt.contiguous(), A[0].contiguous(),
+                      B.contiguous(), C.contiguous())
+
+    def intra(x, dt, A, B, C):
+        if not any(is_dtensor(t) for t in (x, dt, A, B, C)):
+            return kernel(x, dt, A, B, C)
+        return local_heads(local, [x, dt, A[None].expand(x.shape[0], -1),
+                                   B, C], (3, 3, 1, None, None),
+                           out_heads=(3, 2, 3))
+    return intra
+
+
 def ssd_chunked(cfg: Mamba2Config, x, dt, A, B, C, h0=None, *,
                 intra=ssd_intra_chunk):
     """Chunked SSD scan.

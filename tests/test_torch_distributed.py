@@ -1,7 +1,8 @@
 """Multi-rank checks of the port's distribution substrate on gloo, on the
 CPU: each prog runs in a subprocess of its own (python <this file> --prog
-<name> <port>) that spawns its ranks, with a timeout; the tests read the
-lines it prints. The counterparts of tests/progs/dist_substrate_prog.py:
+<name> <rendezvous file>) that spawns its ranks, which meet through a file
+in a fresh temporary directory (no TCP port to pick, so no other process
+can take it first), with a timeout; the tests read the lines it prints. The counterparts of tests/progs/dist_substrate_prog.py:
 
 pod8 (8 ranks, one "pod" mesh dim):
 * int8 error-feedback compressed DP on a toy regression, 300 steps,
@@ -60,9 +61,9 @@ not divide its mesh axis:
 
 import os
 import re
-import socket
 import subprocess
 import sys
+import tempfile
 
 import pytest
 
@@ -75,12 +76,12 @@ TIMEOUT = {"pod8": 120, "mesh4": 150, "uneven4": 150}
 # the progs (run in the subprocess's ranks)
 # ---------------------------------------------------------------------------
 
-def _init(rank, world, port):
+def _init(rank, world, rdv):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=world)
 
 
 def _say(rank, msg):
@@ -88,7 +89,7 @@ def _say(rank, msg):
         print(msg, flush=True)
 
 
-def prog_pod8(rank, world, port):
+def prog_pod8(rank, world, rdv):
     import warnings
 
     import torch
@@ -100,7 +101,7 @@ def prog_pod8(rank, world, port):
     warnings.filterwarnings(
         "ignore", message=r".*all_gather_into_tensor.* is deprecated",
         category=FutureWarning)
-    _init(rank, world, port)
+    _init(rank, world, rdv)
     mesh = make_mesh((world,), ("pod",))
     group = mesh.get_group("pod")
 
@@ -227,7 +228,7 @@ def _sharded_steps(rank, mesh, cfg, batches, n_micro):
     return losses, grads, whole, routes
 
 
-def prog_mesh4(rank, world, port):
+def prog_mesh4(rank, world, rdv):
     import dataclasses
     import tempfile
 
@@ -245,7 +246,7 @@ def prog_mesh4(rank, world, port):
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.train.step import (TrainConfig, loss_and_grads,
                                         make_train_step)
-    _init(rank, world, port)
+    _init(rank, world, rdv)
     mesh = make_mesh((2, 2), ("data", "model"))
 
     # -- elastic checkpoint ------------------------------------------------
@@ -379,7 +380,7 @@ def _train_steps(mesh, cfg, batches, n_micro, dtype):
     return losses, grads, params
 
 
-def prog_uneven4(rank, world, port):
+def prog_uneven4(rank, world, rdv):
     import copy
     import dataclasses
 
@@ -393,7 +394,7 @@ def prog_uneven4(rank, world, port):
     from repro_torch.models import model as MD
     from repro_torch.models import ssm as SSM
     from repro_torch.models.module import Tree
-    _init(rank, world, port)
+    _init(rank, world, rdv)
     mesh = make_mesh((2, 2), ("data", "model"))
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
 
@@ -469,18 +470,13 @@ PROGS = {"pod8": (prog_pod8, 8), "mesh4": (prog_mesh4, 4),
 # the tests (pytest side)
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _run(name: str) -> str:
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
                os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, __file__, "--prog", name,
-                          str(_free_port())], capture_output=True, text=True,
-                         timeout=TIMEOUT[name], env=env)
+    with tempfile.TemporaryDirectory(prefix=f"gloo_{name}_") as tmp:
+        res = subprocess.run([sys.executable, __file__, "--prog", name,
+                              os.path.join(tmp, "rdv")], capture_output=True,
+                             text=True, timeout=TIMEOUT[name], env=env)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     assert f"PROG-OK {name}" in res.stdout, res.stdout[-3000:]
     return res.stdout
@@ -586,9 +582,9 @@ def test_ssm_decode_on_a_sharded_state(uneven4, mesh, batch, heads, spec):
 
 def _main():
     import torch.multiprocessing as mp
-    name, port = sys.argv[2], int(sys.argv[3])
+    name, rdv = sys.argv[2], sys.argv[3]
     fn, world = PROGS[name]
-    mp.spawn(fn, args=(world, port), nprocs=world, join=True)
+    mp.spawn(fn, args=(world, rdv), nprocs=world, join=True)
     print(f"PROG-OK {name}", flush=True)
 
 

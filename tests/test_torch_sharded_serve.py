@@ -14,8 +14,9 @@ the shards' candidates picks the global top k, each shard attends the
 chosen rows it holds with sparse_select and the partials merge.
 
 The sharded steps run in a subprocess (python <this file> --prog serve4
-<port> <dir>) that spawns 4 ranks, with a timeout; rank 0 saves what they
-computed, gathered whole, and the tests read it. The parameters, the
+<dir>) that spawns 4 ranks, which meet through a file in <dir> (no TCP
+port to pick), with a timeout; rank 0 saves what they computed, gathered
+whole, and the tests read it. The parameters, the
 prefill batch, the decode state and the decode inputs take the dry run's
 placements (param_shardings, train_batch_shardings,
 decode_state_shardings, decode_input_shardings) under sp_policy, with
@@ -49,7 +50,6 @@ import dataclasses
 import os
 import pickle
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -242,7 +242,7 @@ def _refusals(mesh):
     return out
 
 
-def prog_serve4(rank, world, port, tmp):
+def prog_serve4(rank, world, tmp):
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_smoke_config
@@ -250,8 +250,8 @@ def prog_serve4(rank, world, port, tmp):
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import make_mesh
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "rdv"), rank=rank, world_size=world)
     with open(os.path.join(tmp, "inputs.pkl"), "rb") as fh:
         inputs = pickle.load(fh)
     cfg = get_smoke_config(ARCH)
@@ -338,12 +338,6 @@ def prog_fake():
 # ---------------------------------------------------------------------------
 # the pytest side
 # ---------------------------------------------------------------------------
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
 
 def _inputs():
     """The weight tree in the reference's layout, the prompt, the decode
@@ -478,7 +472,7 @@ def case():
         env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
                    os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
         proc = subprocess.Popen([sys.executable, __file__, "--prog",
-                                 "serve4", str(_free_port()), tmp],
+                                 "serve4", tmp],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True, env=env,
                                 start_new_session=True)
@@ -775,8 +769,7 @@ def test_global_top_k_over_shards(split):
 
 def _main():
     import torch.multiprocessing as mp
-    port, tmp = int(sys.argv[3]), sys.argv[4]
-    mp.spawn(prog_serve4, args=(4, port, tmp), nprocs=4, join=True)
+    mp.spawn(prog_serve4, args=(4, sys.argv[3]), nprocs=4, join=True)
     print("PROG-OK serve4", flush=True)
 
 
