@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 4c-4e alone
-    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c4) alone
+    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c5) alone
 
 Needs one CUDA card, nvcc (PATH, $CUDA_HOME or /usr/local/cuda) and the
 repository's src/ beside this file; imports nothing of JAX or of the JAX
@@ -143,9 +143,13 @@ package. Phases, each fatal on failure:
    steps: the first step's chosen ids, every layer, equal to the top k of
    the all-gathered scores; reported against card 0's unsharded run (and
    its PLAIN control): the chosen sets' overlap by layer, logits, top-1,
-   walls, peak memory, the selection's and the merge's share of a step; in
-   all three, each kernel's first call on each card held against its plain
-   version at TOL on the same inputs (the shapes the shard gives it);
+   walls, peak memory, the selection's and the merge's share of a step;
+   then the sharded steps and the PLAIN control again, both pinned to the
+   unsharded run's MoE routes (decode_step(pinned=...)), and the sharded
+   steps pinned to its routes and chosen sets, their overlaps, logits and
+   written entries by step and layer beside the unpinned ones;
+   in all three, each kernel's first call on each card held against its
+   plain version at TOL on the same inputs (the shapes the shard gives it);
    mla_decode, softmax_merge, flash_prefill (f32 in (c1), bf16 in (c2))
    and sparse_select ((c1), (c3)) launched on every card; (c4) the GQA
    and Mamba2/Zamba2 families sharded, in a process group of their own:
@@ -162,6 +166,20 @@ package. Phases, each fatal on failure:
    walls, peak memory by card and the merge's share of a decode step,
    reported; each kernel's first call on each card held at TOL, ssd_chunk
    and softmax_merge (softmax_merge alone in (b)) launched on every card;
+   (c5) on two cards or more, a process group of its own, ROADMAP C.7's
+   check: (c3)'s long_500k decode in f32 with V2-Lite at full width cut to
+   12 layers, against card 0's unsharded run (its routes, router margins,
+   chosen ids and scores, written entries recorded), the sharded run
+   pinned to the unsharded routes and chosen sets (each layer's own
+   choice recorded and equal but for near-ties: k-th and (k + 1)-th
+   unsharded scores within 1e-5; the unsharded rows attended; logits
+   within 1e-4), pinned to the routes alone (the first differing chosen
+   set a near-tie, the logits before it within 1e-4) and unpinned (routes
+   equal but for at most 4 near-ties, router margin < 1e-3), each by step
+   and layer: overlap, each differing id's score gap, the written entries'
+   error, routes, logits, top-1; peak memory by card; sparse_select and
+   softmax_merge held at TOL, launched on every card and timed at the
+   shard's shapes beside their bounds;
 5f. examples — repro_torch.examples in-process through run():
    quickstart (route+merge and the mla_decode kernel within 1e-5),
    serve_routed, agentic_fanout (routed fork decode within 1e-5),
@@ -2714,10 +2732,10 @@ DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 128, 3   # (a): 4 x 128 tokens, 3 steps
 # bits into parameter steps of up to lr where a gradient is near zero
 DIST_LOSS_RTOL, DIST_PARAM_RTOL = 1e-5, 1e-4
 CM_TOL = 2e-5                                  # the collective matmul
-# seconds, each subprocess: (a), (b), and the sharded serve's (c1), (c2);
-# (c3) runs in (c2)'s process, which gets both parts' seconds
+# seconds, each subprocess: (a), (b), and the sharded serve's (c1), (c2),
+# (c4), (c5); (c3) runs in (c2)'s process, which gets both parts' seconds
 DIST_TIMEOUT = {"a": 300, "b": 900, "c1": 600, "c2": 600, "c3": 600,
-                "c4": 600}
+                "c4": 600, "c5": 600}
 DRYRUN_ARCH = "deepseek-v2-236b"
 # (b)'s further cells, each `python -m repro_torch.launch.dryrun` in a
 # subprocess of its own, at full depth, run beside the 236B one: GQA heads
@@ -3065,11 +3083,17 @@ SEL_NEAR_TIE = 1e-5
 # the latent cache drawn N(0, 1) on the card, LONG_BLOCK slots a seeded
 # draw (seed, layer, block), so that each card draws only its own rows
 LONG_SLOTS, LONG_K, LONG_STEPS, LONG_BLOCK = 524288, 2048, 4, 4096
+# (c5), ROADMAP C.7's check: (c3)'s decode in f32 with V2-Lite at full
+# width cut to C5_LAYERS of its 27 layers (~27 GB of f32 weights and a
+# 14.5 GB cache for the unsharded run on one card; 27 layers would need
+# ~94 GB), the sharded run pinned to the unsharded run's routes and not
+C5_LAYERS = 12
 # the kernels of the sharded serve, by part: each launched on every card
 SERVE_PATH = {"c1": ("flash_prefill", "mla_decode", "softmax_merge",
                      "sparse_select"),
               "c2": ("flash_prefill_bf16", "mla_decode", "softmax_merge",
-                     "sparse_select")}
+                     "sparse_select"),
+              "c5": ("sparse_select", "softmax_merge")}
 # (c1), the sharded steps against the same steps unsharded: the same ops on
 # the same f32 values, a head's attention and a shard's rows summed in
 # another order, the decode's softmax merged across the shards: the model
@@ -3483,6 +3507,30 @@ class ChosenIds:
         """The calls as (offset, rows, ids on the host) for
         all_gather_object."""
         return [(c["off"], c["n"], c["ids"].cpu()) for c in self.calls]
+
+
+class PinnedChosen(ChosenIds):
+    """ChosenIds whose wrapper, while active, returns the next of `ids`
+    (another run's chosen global ids, one (B, k) a call, in call order)
+    in place of the selection it ran and recorded: the sharded run still
+    scores, gathers and chooses (its own ids kept in `calls`, held against
+    the other run's), but attends the other run's rows, so that a near-tie
+    its own choice flips does not carry into the layers after it, as
+    pinned MoE routes keep a router's near-tie from doing."""
+
+    def __init__(self, torch, ids):
+        super().__init__(torch)
+        self.ids = iter(ids)
+
+    def __enter__(self):
+        super().__enter__()
+        record = self.SH.global_top_k
+
+        def pinned(*a, **kw):
+            record(*a, **kw)
+            return next(self.ids)
+        self.SH.global_top_k = pinned
+        return self
 
 
 def chosen_whole(torch, by_rank, batch):
@@ -4000,43 +4048,82 @@ class SelectTimer:
                 for part, (a, b) in span.items()}
 
 
-def long_unsharded(torch, M, cfg, dev, first, ops, feed=None):
-    """(c3)'s steps unsharded on this card with ops, greedy from token
-    first (1, 1) or fed feed's tokens: logits, the tokens fed, the walls,
-    every layer's chosen ids a step, the peak memory."""
+def written_entries(torch, state, widx):
+    """Every layer's latent cache entry at slot widx, (L, B, D) in layer
+    order, whole on every rank: on a state sharded over the sequence the
+    rank that holds slot widx gives its rows and the others zeros, joined
+    by one all-reduce (exact: each element is one value plus zeros; a
+    collective, every rank calls it)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    parts, sharded = [], False
+    for key in ("dense_blocks", "blocks"):
+        t = state.get(key)
+        if t is None:
+            continue
+        if not SH.is_dtensor(t):
+            parts.append(t[:, :, widx].clone())
+            continue
+        sharded = True
+        _, off, n = SH._seq_shard(t, 2)
+        local = t.to_local()
+        parts.append(local[:, :, widx - off].clone() if off <= widx < off + n
+                     else torch.zeros_like(local[:, :, 0]))
+    out = torch.cat(parts)
+    if sharded:
+        dist.all_reduce(out)
+    return out
+
+
+def long_unsharded(torch, M, cfg, dev, first, ops, feed=None, *, dtype,
+                   pinned=None):
+    """(c3)'s or (c5)'s steps unsharded on this card with ops, the weights
+    and the cache in dtype, greedy from token first (1, 1) or fed feed's
+    tokens, step i's MoE layers pinned to pinned[i] where given: logits,
+    the tokens fed, the walls, every layer's ChosenIds record a step
+    ("calls", with its scores) and its chosen ids, each step's routes (one
+    (1, k) a MoE layer) and written entries (written_entries), each MoE
+    call's router margin, the peak memory."""
     torch.cuda.reset_peak_memory_stats(dev)
     params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
-                          device=dev, dtype=torch.bfloat16)
-    state = M.init_decode_state(cfg, 1, LONG_SLOTS, dtype=torch.bfloat16,
-                                device=dev)
+                          device=dev, dtype=dtype)
+    state = M.init_decode_state(cfg, 1, LONG_SLOTS, dtype=dtype, device=dev)
     long_cache(torch, cfg, state, 0)
-    out = {"logits": [], "fed": [], "decode_s": []}
+    out = {"logits": [], "fed": [], "decode_s": [], "routes": [],
+           "entries": []}
     tok = first
-    with ChosenIds(torch) as rec, torch.no_grad():
+    with ChosenIds(torch, keep_scores=True) as rec, \
+            RouterMargins(torch) as rm, torch.no_grad():
         for i in range(LONG_STEPS):
             widx = LONG_SLOTS - LONG_STEPS + i
             tok = tok if feed is None else feed[i]
+            routes = []
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            lg, state = M.decode_step(params, cfg, state, tok,
-                                      torch.full((1, 1), widx, device=dev),
-                                      widx, ops=ops)
+            lg, state = M.decode_step(
+                params, cfg, state, tok, torch.full((1, 1), widx, device=dev),
+                widx, ops=ops, routes=routes,
+                pinned=None if pinned is None else pinned[i])
             torch.cuda.synchronize(dev)
             out["decode_s"].append(time.perf_counter() - t0)
             out["logits"].append(lg)
             out["fed"].append(tok)
+            out["routes"].append(routes)
+            out["entries"].append(written_entries(torch, state, widx))
             tok = lg.argmax(-1)
-    out["ids"] = [c["ids"] for c in rec.calls]
+    out.update(calls=rec.calls, ids=[c["ids"] for c in rec.calls],
+               margins=rm.margins)
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     del params, state
     torch.cuda.empty_cache()
     return out
 
 
-def long_state(torch, M, cfg, mesh, dev):
-    """(c3)'s decode state on mesh, laid out by decode_state_shardings at
-    long_500k (one row: the sequence over the mesh), each card's rows
-    drawn on the card (long_cache) into its local tensors."""
+def long_state(torch, M, cfg, mesh, dev, dtype):
+    """(c3)'s or (c5)'s decode state in dtype on mesh, laid out by
+    decode_state_shardings at long_500k (one row: the sequence over the
+    mesh), each card's rows drawn on the card (long_cache) into its local
+    tensors."""
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import ShapeSpec
     from repro_torch.distributed import sharding as SH
@@ -4051,11 +4138,102 @@ def long_state(torch, M, cfg, mesh, dev):
         for i, p in enumerate(pl):
             if p.is_shard():
                 shape[p.dim] //= mesh.shape[i]
-        local = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        local = torch.empty(shape, dtype=dtype, device=dev)
         state[key] = DTensor.from_local(local, mesh, pl, run_check=False)
         _, off, _ = SH._seq_shard(state[key], 2)
         long_cache(torch, cfg, {key: local}, off)
     return state
+
+
+def long_sharded(torch, M, cfg, mesh, dev, params, feed, ops, *, dtype,
+                 pinned=None, chosen=None):
+    """(c3)'s or (c5)'s sharded steps on mesh: the state drawn anew
+    (long_state), LONG_STEPS decode steps at the last slots fed feed's
+    tokens under sp_policy, step i's MoE layers pinned to pinned[i] where
+    given, and with chosen (another run's chosen ids, one a layer call)
+    every selection attending those rows (PinnedChosen). Returns, on every
+    rank, the logits and each step's routes whole, each step's written
+    entries (written_entries), every layer's ChosenIds record of the run's
+    own choice (step 0's with this rank's scores), the step walls, a step's
+    parts (SelectTimer) and the fill's wall."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import input_specs as IS
+    t0 = time.perf_counter()
+    state = long_state(torch, M, cfg, mesh, dev, dtype)
+    torch.cuda.synchronize(dev)
+    out = {"fill_s": time.perf_counter() - t0, "logits": [], "walls": [],
+           "routes": [], "entries": []}
+    tok_sh, pos_sh, _ = IS.decode_input_shardings(mesh, 1)
+    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
+            torch.no_grad(), SelectTimer(torch, M) as timer, \
+            (ChosenIds(torch) if chosen is None
+             else PinnedChosen(torch, chosen)) as rec:
+        for i in range(LONG_STEPS):
+            rec.keep_scores = i == 0
+            widx = LONG_SLOTS - LONG_STEPS + i
+            tok = SH.distribute(feed[i], mesh, tok_sh.spec)
+            pos = SH.distribute(torch.full((1, 1), widx, device=dev), mesh,
+                                pos_sh.spec)
+            routes = []
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            lg, state = M.decode_step(
+                params, cfg, state, tok, pos, widx, ops=ops, routes=routes,
+                pinned=None if pinned is None else pinned[i])
+            torch.cuda.synchronize(dev)
+            out["walls"].append(time.perf_counter() - t0)
+            out["logits"].append(lg.full_tensor())
+            out["routes"].append([r.full_tensor() for r in routes])
+            out["entries"].append(written_entries(torch, state, widx))
+    del state
+    torch.cuda.empty_cache()
+    out.update(calls=rec.calls, parts=timer.per_step(LONG_STEPS))
+    return out
+
+
+def _unsharded_choices(torch, cfg, dev, ref):
+    """Rank 0's unsharded run's (ref; None elsewhere) MoE routes and chosen
+    ids on every rank: (pinned, one list of (1, k) routes a step, as
+    decode_step takes them; chosen, one (1, LONG_K) a layer call, as
+    PinnedChosen takes them)."""
+    import torch.distributed as dist
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    routes = torch.zeros((LONG_STEPS, n_moe, 1, cfg.moe.top_k),
+                         dtype=torch.long, device=dev)
+    ids = torch.zeros((LONG_STEPS * cfg.n_layers, 1, LONG_K),
+                      dtype=torch.long, device=dev)
+    if ref is not None:
+        routes.copy_(torch.stack([torch.stack(r) for r in ref["routes"]]))
+        ids.copy_(torch.stack(ref["ids"]))
+    dist.broadcast(routes, 0)
+    dist.broadcast(ids, 0)
+    return [list(step) for step in routes], list(ids)
+
+
+def long_overlap(torch, calls, ref_ids):
+    """The chosen sets' overlap with the unsharded run's, by step and
+    layer: the share of each call's ids among the unsharded call's."""
+    n_layers = len(ref_ids) // LONG_STEPS
+    return [[float(torch.isin(calls[i * n_layers + li]["ids"],
+                              ref_ids[i * n_layers + li]).float().mean())
+             for li in range(n_layers)] for i in range(LONG_STEPS)]
+
+
+def long_errors(torch, run, ref):
+    """Logits max|err| by step, within SERVE_TOL by step, top-1 equal by
+    step; the written entries' max|err| by step and layer."""
+    lg = list(zip(run["logits"], ref["logits"]))
+    return {"logits_max_abs_diff": [max_err(torch, g.float(), w.float())
+                                    for g, w in lg],
+            "logits_within": [within(torch, g.double(), w.double(),
+                                     *SERVE_TOL) for g, w in lg],
+            "top1_equal": [bool((g.argmax(-1) == w.argmax(-1)).all())
+                           for g, w in lg],
+            "entry_err_by_step_layer": [
+                [max_err(torch, a.float(), b.float()) for a, b in zip(e, f)]
+                for e, f in zip(run["entries"], ref["entries"])]}
 
 
 def long_decode_bf16(torch, dev, cfg, shape, params):
@@ -4067,12 +4245,13 @@ def long_decode_bf16(torch, dev, cfg, shape, params):
     first step's chosen ids, every layer, against top_k_lowest_first over
     the all-gathered scores (exact); rank 0 reports the chosen sets'
     overlap with the unsharded run by layer, logits and top-1, walls, peak
-    memory by card, the selection's and the merge's share of a step."""
+    memory by card, the selection's and the merge's share of a step. C.7's
+    bf16 split: the sharded steps again and the PLAIN control, both pinned
+    to the unsharded KERNELS run's routes, and the sharded steps pinned to
+    its routes and chosen sets (PinnedChosen), their overlaps, logits and
+    written entries beside the unpinned ones."""
     import torch.distributed as dist
-    from torch.distributed.tensor.experimental import implicit_replication
-    from repro_torch.distributed import policy as POL
     from repro_torch.distributed import sharding as SH
-    from repro_torch.launch import input_specs as IS
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -4084,51 +4263,36 @@ def long_decode_bf16(torch, dev, cfg, shape, params):
         first = torch.randint(0, cfg.vocab, (1, 1), device=dev,
                               generator=torch.Generator(
                                   device=dev).manual_seed(2))
-        ref = long_unsharded(torch, M, cfg, dev, first, M.KERNELS)
+        ref = long_unsharded(torch, M, cfg, dev, first, M.KERNELS,
+                             dtype=torch.bfloat16)
         feed.copy_(torch.stack(ref["fed"]))
         # the control: the same steps unsharded through the PLAIN ops,
         # where the bf16 roundings differ from KERNELS' and the mesh does
-        # not enter
+        # not enter; then pinned to the KERNELS run's routes
         control = long_unsharded(torch, M, cfg, dev, first, M.PLAIN,
-                                 feed=ref["fed"])
+                                 feed=ref["fed"], dtype=torch.bfloat16)
+        pinned_control = long_unsharded(torch, M, cfg, dev, first, M.PLAIN,
+                                        feed=ref["fed"], dtype=torch.bfloat16,
+                                        pinned=ref["routes"])
     dist.broadcast(feed, 0)
-    t0 = time.perf_counter()
-    state = long_state(torch, M, cfg, mesh, dev)
-    torch.cuda.synchronize(dev)
-    fill_s = time.perf_counter() - t0
-    tok_sh, pos_sh, _ = IS.decode_input_shardings(mesh, 1)
+    pins, chosen = _unsharded_choices(torch, cfg, dev, ref)
     ops, seen = first_calls(torch, M.KERNELS)
     zero, read = _launch_counters()
     zero()
     torch.cuda.reset_peak_memory_stats(dev)
-    logits, walls = [], []
-    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
-            torch.no_grad(), SelectTimer(torch, M) as timer, \
-            ChosenIds(torch, keep_scores=True) as rec:
-        for i in range(LONG_STEPS):
-            rec.keep_scores = i == 0
-            widx = LONG_SLOTS - LONG_STEPS + i
-            tok = SH.distribute(feed[i], mesh, tok_sh.spec)
-            pos = SH.distribute(torch.full((1, 1), widx, device=dev), mesh,
-                                pos_sh.spec)
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            lg, state = M.decode_step(params, cfg, state, tok, pos, widx,
-                                      ops=ops)
-            torch.cuda.synchronize(dev)
-            walls.append(time.perf_counter() - t0)
-            logits.append(lg)
+    run = long_sharded(torch, M, cfg, mesh, dev, params, feed, ops,
+                       dtype=torch.bfloat16)
     launches = read()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    parts = timer.per_step(LONG_STEPS)
     held = hold_first_calls(torch, M, seen)
-    del seen, state
+    del seen
     # the first step's chosen ids against the whole score vector
-    n_layers = len(rec.calls) // LONG_STEPS
+    calls = run["calls"]
+    n_layers = len(calls) // LONG_STEPS
     offs = [None] * world
-    dist.all_gather_object(offs, [c["off"] for c in rec.calls[:n_layers]])
+    dist.all_gather_object(offs, [c["off"] for c in calls[:n_layers]])
     exact = []
-    for li, c in enumerate(rec.calls[:n_layers]):
+    for li, c in enumerate(calls[:n_layers]):
         got = [torch.empty_like(c["scores"]) for _ in range(world)]
         dist.all_gather(got, c["scores"].contiguous())
         whole = torch.empty((1, LONG_SLOTS), dtype=c["scores"].dtype,
@@ -4138,10 +4302,15 @@ def long_decode_bf16(torch, dev, cfg, shape, params):
         exact.append(bool(torch.equal(
             SH.top_k_lowest_first(whole, LONG_K), c["ids"])))
         del got, whole
+        c.pop("scores")
     kb = [int(((c["ids"] >= c["off"]) & (c["ids"] < c["off"] + c["n"]))
-              .sum()) for c in rec.calls]
-    logits = [lg.full_tensor() for lg in logits]
-    torch.cuda.empty_cache()
+              .sum()) for c in calls]
+    pinned = long_sharded(torch, M, cfg, mesh, dev, params, feed, M.KERNELS,
+                          dtype=torch.bfloat16, pinned=pins)
+    pinned_all = long_sharded(torch, M, cfg, mesh, dev, params, feed,
+                              M.KERNELS, dtype=torch.bfloat16, pinned=pins,
+                              chosen=chosen)
+    parts = run["parts"]
     by_rank = [None] * world
     dist.all_gather_object(by_rank, {
         "launches": launches, "peak_gib": peak, "held": held,
@@ -4150,22 +4319,30 @@ def long_decode_bf16(torch, dev, cfg, shape, params):
         "merge_ms": parts["merge"]})
     if rank != 0:
         return None
-    overlap = lambda got: [
-        [float(torch.isin(got[i * n_layers + li], ref["ids"][i * n_layers
-                                                             + li])
-               .float().mean()) for li in range(n_layers)]
-        for i in range(LONG_STEPS)]
-    out = {"mesh": list(shape), "layers": cfg.n_layers, "fill_s": fill_s,
-           "overlap_by_step_layer": overlap([c["ids"] for c in rec.calls]),
-           "control_overlap_by_step_layer": overlap(control["ids"]),
-           "control_logits_max_abs_diff": [
-               max_err(torch, g.float(), w.float())
-               for g, w in zip(control["logits"], ref["logits"])],
-           "logits_max_abs_diff": [max_err(torch, g.float(), w.float())
-                                   for g, w in zip(logits, ref["logits"])],
-           "top1_equal": [bool((g.argmax(-1) == w.argmax(-1)).all())
-                          for g, w in zip(logits, ref["logits"])],
-           "walls": walls, "unsharded_walls": ref["decode_s"],
+    errs = long_errors(torch, run, ref)
+    out = {"mesh": list(shape), "layers": cfg.n_layers,
+           "fill_s": run["fill_s"],
+           "overlap_by_step_layer": long_overlap(torch, calls, ref["ids"]),
+           "control_overlap_by_step_layer": long_overlap(
+               torch, control["calls"], ref["ids"]),
+           "control_logits_max_abs_diff": long_errors(
+               torch, control, ref)["logits_max_abs_diff"],
+           "logits_max_abs_diff": errs["logits_max_abs_diff"],
+           "top1_equal": errs["top1_equal"],
+           "entry_err_by_step_layer": errs["entry_err_by_step_layer"],
+           "pinned": {"overlap_by_step_layer": long_overlap(
+                          torch, pinned["calls"], ref["ids"]),
+                      "routes_pinned": route_flips(
+                          torch, sum(pinned["routes"], []),
+                          sum(ref["routes"], [])) == [],
+                      **long_errors(torch, pinned, ref)},
+           "pinned_control": {"overlap_by_step_layer": long_overlap(
+                                  torch, pinned_control["calls"], ref["ids"]),
+                              **long_errors(torch, pinned_control, ref)},
+           "pinned_all": {"overlap_by_step_layer": long_overlap(
+                              torch, pinned_all["calls"], ref["ids"]),
+                          **long_errors(torch, pinned_all, ref)},
+           "walls": run["walls"], "unsharded_walls": ref["decode_s"],
            "unsharded_peak_gib": ref["peak_gib"]}
     for key in ("launches", "peak_gib", "held", "exact", "kb_first_step",
                 "select_ms", "attend_ms", "merge_ms"):
@@ -4173,8 +4350,145 @@ def long_decode_bf16(torch, dev, cfg, shape, params):
     return out
 
 
+def time_first_calls(torch, M, seen):
+    """sparse_select's and softmax_merge's first calls in this process
+    (first_calls' record) timed through its kernel wrapper and its plain version (CUDA
+    events behind a spin, time_ms), beside its bound from the call's inputs
+    (sparse_select's rows the kb it attends): {name: {"shapes", "ms",
+    "host_ms", "plain_ms", "bound_ms", "bound_by"}}."""
+    out = {}
+    for name in ("sparse_select", "softmax_merge"):
+        args, kw = seen[name]
+        kern = lambda: getattr(M.KERNELS, name)(*args, **kw)
+        plain = lambda: getattr(M.PLAIN, name)(*args, **kw)
+        ms, host_ms = time_ms(torch, kern, 100)
+        plain_ms, _ = time_ms(torch, plain, PLAIN_ITERS)
+        if name == "sparse_select":
+            q, ckv, ids, kb = args[:4]
+            B, R, D = q.shape
+            d_v, item = kw["d_v"], q.element_size()
+            rows = ids.numel() if kb is None else int(kb.sum())
+            nbytes = (item * (B * R * D + rows * D) + 4 * B * R * (d_v + 2)
+                      + ids.element_size() * ids.numel() + 4 * B)
+            flops = 2.0 * R * rows * (D + d_v)
+        else:
+            o = args[0]
+            n_m, d_v = o.shape[0], o.shape[-1]
+            n = o[0].numel() // d_v
+            nbytes = 4 * (n_m * n * (d_v + 2) + n * (d_v + 2))
+            flops = float(n_m * n * (3 * d_v + 6))
+        b_ms, b_by = bound(nbytes, flops)
+        out[name] = {"shapes": [list(a.shape) for a in args
+                                if torch.is_tensor(a)],
+                     "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def chosen_differences(torch, calls, ref_calls):
+    """[(step, layer, the unsharded k-th/(k+1)-th gap, [(id, its unsharded
+    score less the k-th, relative to the k-th)])] where a call's chosen
+    set differs from the unsharded call's (whose ChosenIds record kept its
+    scores)."""
+    n_layers = len(ref_calls) // LONG_STEPS
+    out = []
+    for c, (got, want) in enumerate(zip(calls, ref_calls)):
+        a, b = got["ids"][0], want["ids"][0]
+        diff = torch.cat([a[~torch.isin(a, b)], b[~torch.isin(b, a)]])
+        if not diff.numel():
+            continue
+        s = want["scores"][0].double()
+        kth = torch.topk(s, LONG_K).values[-1]
+        rel = (s[diff] - kth) / kth.abs().clamp_min(1e-300)
+        out.append((c // n_layers, c % n_layers, float(want["gap"][0]),
+                    [(int(i), float(r)) for i, r in zip(diff, rel)]))
+    return out
+
+
+def long_decode_f32(torch, dev, cfg, shape):
+    """(c5), C.7's check: (c3)'s long_500k decode in f32 (cfg: V2-Lite at
+    full width cut in depth) on a (1, n) mesh with KERNELS, against card
+    0's unsharded KERNELS run (its routes, router margins, every layer's
+    chosen ids and scores, the entries it writes recorded), fed its greedy
+    tokens, three times: pinned to the unsharded routes and chosen sets
+    (PinnedChosen: each layer's own choice recorded and held, the
+    unsharded rows attended; counted, each kernel's first call on each
+    card held against its plain version at TOL, then timed at the shard's
+    shapes), pinned to the routes alone, and unpinned. Rank 0 reports each
+    run by step and layer: the chosen sets' overlap and each differing id's
+    distance from the unsharded k-th score, the written entries' max|err|,
+    the routes (an unpinned flip with its router margin), logits max|err|,
+    within SERVE_TOL, top-1; the peak memory by card."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = dataclasses.replace(cfg, selection_k=LONG_K)
+    mesh = make_mesh(shape, ("data", "model"))
+    feed = torch.zeros((LONG_STEPS, 1, 1), dtype=torch.long, device=dev)
+    ref = None
+    if rank == 0:
+        first = torch.randint(0, cfg.vocab, (1, 1), device=dev,
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(2))
+        ref = long_unsharded(torch, M, cfg, dev, first, M.KERNELS,
+                             dtype=torch.float32)
+        feed.copy_(torch.stack(ref["fed"]))
+    dist.broadcast(feed, 0)
+    pins, chosen = _unsharded_choices(torch, cfg, dev, ref)
+    t0 = time.perf_counter()
+    params = _sharded_params(torch, M, cfg, mesh, dev, torch.float32)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(math.prod(p.shape)) for p in params.parameters())
+    ops, seen = first_calls(torch, M.KERNELS)
+    zero, read = _launch_counters()
+    zero()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pinned = long_sharded(torch, M, cfg, mesh, dev, params, feed, ops,
+                          dtype=torch.float32, pinned=pins, chosen=chosen)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    held = hold_first_calls(torch, M, seen)
+    timed = time_first_calls(torch, M, seen)
+    del seen
+    routes_only = long_sharded(torch, M, cfg, mesh, dev, params, feed,
+                               M.KERNELS, dtype=torch.float32, pinned=pins)
+    free = long_sharded(torch, M, cfg, mesh, dev, params, feed, M.KERNELS,
+                        dtype=torch.float32)
+    by_rank = [None] * world
+    dist.all_gather_object(by_rank, {
+        "launches": launches, "peak_gib": peak, "held": held,
+        "timed": timed})
+    del params
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return None
+    ref_routes = sum(ref["routes"], [])
+
+    def report(run):
+        flips = route_flips(torch, sum(run["routes"], []), ref_routes,
+                            ref["margins"])
+        return {"overlap_by_step_layer": long_overlap(torch, run["calls"],
+                                                      ref["ids"]),
+                "chosen_flips": chosen_differences(torch, run["calls"],
+                                                   ref["calls"]),
+                "route_flips": flips, "walls": run["walls"],
+                **long_errors(torch, run, ref)}
+    out = {"mesh": list(shape), "layers": cfg.n_layers, "params": n_params,
+           "init_s": init_s, "fill_s": pinned["fill_s"],
+           "routes": len(ref_routes), "pinned": report(pinned),
+           "routes_pinned": report(routes_only), "unpinned": report(free),
+           "unsharded_walls": ref["decode_s"],
+           "unsharded_peak_gib": ref["peak_gib"]}
+    for key in ("launches", "peak_gib", "held", "timed"):
+        out[key] = [r[key] for r in by_rank]
+    return out
+
+
 def dist_serve_rank(rank, world, port, part):
-    """One rank of (c1), (c2) or (c4) (torch.multiprocessing.spawn's target):
+    """One rank of (c1), (c2), (c4) or (c5) (torch.multiprocessing.spawn's
+    target):
     card `rank`, a NCCL group of `world` ranks. Rank 0 prints the part's
     result as one "DIST-SERVE {json}" line."""
     sys.path.insert(0, SRC)
@@ -4194,6 +4508,9 @@ def dist_serve_rank(rank, world, port, part):
                for shape, batch in serve_meshes(world)]
     elif part == "c4":
         out = serve_families(torch, dev, world)
+    elif part == "c5":
+        out = long_decode_f32(torch, dev, dataclasses.replace(
+            v2_lite, n_layers=C5_LAYERS), (1, world))
     else:
         out, params = serve_bf16(torch, dev, v2_lite, (1, world))
         long = long_decode_bf16(torch, dev, v2_lite, (1, world), params)
@@ -4207,8 +4524,8 @@ def dist_serve_rank(rank, world, port, part):
 
 
 def dist_serve_part(part: str) -> None:
-    """(c1), (c2) or (c4) in this process: one rank per visible card, spawned; a
-    rank that fails fails the part."""
+    """(c1), (c2), (c4) or (c5) in this process: one rank per visible card,
+    spawned; a rank that fails fails the part."""
     import torch
     import torch.multiprocessing as mp
     n = torch.cuda.device_count()
@@ -4248,12 +4565,14 @@ def _on_every_card(part, cards, n_cards):
 def run_dist_serve(torch, smi_line):
     """(c1) on every visible card's meshes and, on two cards or more, (c2)
     and, in its process group, (c3); then (c4), (a) on every visible card's
-    meshes and, on two cards or more, (b) and (c); each part a process group
-    of its own in a subprocess with its timeout. Returns ({part: result}, launches by
-    kernel, by kernel and card), the launches those of the sharded KERNELS
-    runs alone."""
+    meshes and, on two cards or more, (b) and (c); then, on two cards or
+    more, (c5); each part a process group of its own in a subprocess with
+    its timeout. Returns
+    ({part: result}, launches by kernel, by kernel and card), the launches
+    those of the sharded KERNELS runs alone."""
     n_cards = torch.cuda.device_count()
-    parts = ["c1"] + (["c2"] if n_cards >= 2 else []) + ["c4"]
+    parts = ["c1"] + (["c2"] if n_cards >= 2 else []) + ["c4"] + (
+        ["c5"] if n_cards >= 2 else [])
     results, total, cards = {}, {k: 0 for k in KERNELS}, \
         {k: {} for k in KERNELS}
     for part in parts:
@@ -4267,6 +4586,8 @@ def run_dist_serve(torch, smi_line):
         # part's
         if part == "c1":
             runs = [(part, x) for x in r]
+        elif part == "c5":
+            runs = [(part, r)]
         elif part == "c2":
             runs = [(part, {"launches": r["launches"]
                             + r["long"]["launches"]})]
@@ -4286,12 +4607,14 @@ def run_dist_serve(torch, smi_line):
         elif part == "c2":
             log_serve_bf16(r, wall, n_cards, smi_line)
             log_long(r["long"], smi_line)
+        elif part == "c5":
+            log_long_f32(r, wall, smi_line)
         else:
             log_families(r, wall, n_cards, smi_line)
     if n_cards == 1:
-        log(f"[dist] (c1) on (1, 4), (2, 2) and one row on (2, 2), (c2) and "
-            f"(c3) did not run: 1 card visible; on four cards python3 "
-            f"chip_smoke.py --dist-only runs them; {smi_line}")
+        log(f"[dist] (c1) on (1, 4), (2, 2) and one row on (2, 2), (c2), "
+            f"(c3) and (c5) did not run: 1 card visible; on four cards "
+            f"python3 chip_smoke.py --dist-only runs them; {smi_line}")
         log(f"[dist] (c4a) on (1, 4), (2, 2) and one row on (2, 2), (c4b) "
             f"and (c4c) did not run: 1 card visible; on four cards python3 "
             f"chip_smoke.py --dist-only runs them; {smi_line}")
@@ -4444,6 +4767,13 @@ def log_serve_bf16(r, wall, n_cards, smi_line):
     _log_held("c2", tuple(r["mesh"]), r["held"], smi_line)
 
 
+def _rounded(x, digits=4):
+    """Nested lists of floats, each to `digits` significant digits."""
+    if isinstance(x, (list, tuple)):
+        return [_rounded(v, digits) for v in x]
+    return float(f"{x:.{digits}g}")
+
+
 def log_long(r, smi_line):
     """(c3)'s lines: its kernels held at its shard shapes on every card and
     the first step's chosen ids exact (fail otherwise); its numbers against
@@ -4487,11 +4817,130 @@ def log_long(r, smi_line):
     log(f"[dist] (c3) step 0, every layer: the chosen ids equal "
         f"top_k_lowest_first over the all-gathered scores, by card "
         f"{[all(e) for e in r['exact']]}; {smi_line}")
+    p, pc, pa = r["pinned"], r["pinned_control"], r["pinned_all"]
+    log(f"[dist] (c3) C.7's bf16 split, by step and layer against the "
+        f"unsharded KERNELS run: chosen-set overlap, the sharded run "
+        f"unpinned {_rounded(r['overlap_by_step_layer'])}, pinned to the "
+        f"unsharded routes {_rounded(p['overlap_by_step_layer'])}, the PLAIN "
+        f"control pinned {_rounded(pc['overlap_by_step_layer'])}; logits "
+        f"max|diff| by step, pinned {_rounded(p['logits_max_abs_diff'])}, "
+        f"the pinned control {_rounded(pc['logits_max_abs_diff'])}; top-1 "
+        f"equal pinned {p['top1_equal']}, the pinned control "
+        f"{pc['top1_equal']}; the written entries' max|diff| by step and "
+        f"layer, unpinned {_rounded(r['entry_err_by_step_layer'])}, pinned "
+        f"{_rounded(p['entry_err_by_step_layer'])}, the pinned control "
+        f"{_rounded(pc['entry_err_by_step_layer'])}; {smi_line}")
+    log(f"[dist] (c3) the sharded run pinned to the unsharded routes and "
+        f"chosen sets (each layer's own choice recorded, the unsharded rows "
+        f"attended): its own chosen sets' overlap by step and layer "
+        f"{_rounded(pa['overlap_by_step_layer'])}; logits max|diff| by step "
+        f"{_rounded(pa['logits_max_abs_diff'])}, top-1 equal "
+        f"{pa['top1_equal']}; the written entries' max|diff| by step and "
+        f"layer {_rounded(pa['entry_err_by_step_layer'])}; {smi_line}")
     _log_held("c3", tuple(r["mesh"]), r["held"], smi_line)
     bad = [card for card, e in enumerate(r["exact"]) if not all(e)]
     if bad:
         fail(f"(5e) (c3) chosen ids differ from the top k of the gathered "
              f"scores on cards {bad}: {r['exact']}")
+    if not p["routes_pinned"]:
+        fail("(5e) (c3) the pinned sharded run's routes are not the "
+             "unsharded run's")
+
+
+def _near_tie(flip):
+    """Whether a chosen-set difference (chosen_differences') is a near-tie:
+    the unsharded k-th and (k + 1)-th scores, and every differing id's
+    score and the k-th, within SEL_NEAR_TIE relative."""
+    return flip[2] <= SEL_NEAR_TIE and all(abs(d) <= SEL_NEAR_TIE
+                                           for _, d in flip[3])
+
+
+def log_long_f32(r, wall, smi_line):
+    """(c5)'s lines; fail unless, pinned to the unsharded routes and chosen
+    sets, each layer's own chosen set equals the unsharded run's but for
+    near-ties (_near_tie) and the logits are within SERVE_TOL every step;
+    unless, pinned to the routes alone, the first chosen set that differs
+    is a near-tie and the logits before its step are within SERVE_TOL;
+    unless the unpinned run's routes equal the unsharded run's but for at
+    most MAX_FLIPS near-ties (router margin < NEAR_TIE); and unless every
+    kernel's first call on each card is within TOL."""
+    t, c = _launch_totals(r["launches"])
+    log(f"[dist] (c5) C.7's check in f32: V2-Lite at full width cut to "
+        f"{r['layers']} of 27 layers ({r['params']} parameters, sharded in "
+        f"{r['init_s']:.2f} s), KERNELS, long_500k's decode: one row on a "
+        f"{tuple(r['mesh'])} (data, model) NCCL mesh, {LONG_SLOTS} slots "
+        f"drawn N(0, 1) on the cards ({r['fill_s']:.2f} s), selection_k "
+        f"{LONG_K}, {LONG_STEPS} steps at slots {LONG_SLOTS - LONG_STEPS}-"
+        f"{LONG_SLOTS - 1} fed card 0's unsharded greedy tokens, "
+        f"{r['routes']} MoE calls; decode steps unsharded "
+        + ", ".join(f"{w * 1e3:.1f}" for w in r["unsharded_walls"])
+        + f" ms; peak GiB by card (the pinned run) "
+        f"{[round(p, 2) for p in r['peak_gib']]}, unsharded on card 0 "
+        f"{r['unsharded_peak_gib']:.2f}; launches {t}, by card {c}; part "
+        f"wall {wall:.1f} s; {smi_line}")
+    runs = {"pinned": "pinned to the unsharded routes and chosen sets (each "
+                      "layer's own choice held, the unsharded rows "
+                      "attended)",
+            "routes_pinned": "pinned to the unsharded routes alone",
+            "unpinned": "unpinned"}
+    for name, what in runs.items():
+        x = r[name]
+        log(f"[dist] (c5) {what}, against the unsharded run: logits "
+            f"max|diff| by step "
+            f"{_rounded(x['logits_max_abs_diff'])} (within atol "
+            f"{SERVE_TOL[0]:g}, rtol {SERVE_TOL[1]:g}: {x['logits_within']})"
+            f", top-1 equal {x['top1_equal']}; chosen-set overlap by step "
+            f"and layer {_rounded(x['overlap_by_step_layer'])}; sets that "
+            f"differ at (step, layer, unsharded k-th/(k+1)-th gap, [(id, "
+            f"its unsharded score less the k-th, relative)]) "
+            f"{x['chosen_flips'] or 'none'}; the written entries' max|diff| "
+            f"by step and layer {_rounded(x['entry_err_by_step_layer'])}; "
+            f"routes " + ("equal" if not x["route_flips"] else
+                          f"flipped at (call, token, router margin) "
+                          f"{x['route_flips']}")
+            + "; decode steps sharded "
+            + ", ".join(f"{w * 1e3:.1f}" for w in x["walls"])
+            + f" ms; {smi_line}")
+    timed = r["timed"]
+    log(f"[dist] (c5) the shard's kernels at the shapes the pinned run gave "
+        f"them (each card's first call), CUDA events behind a spin, ms a "
+        f"call by card: " + "; ".join(
+            f"{k}: " + ", ".join(
+                f"cuda:{i} {tm[k]['shapes']} {tm[k]['ms']:.4f} device, "
+                f"{tm[k]['host_ms']:.4f} as issued, plain "
+                f"{tm[k]['plain_ms']:.4f}, bound {tm[k]['bound_ms']:.5f} by "
+                f"{tm[k]['bound_by']}" for i, tm in enumerate(timed)
+                if k in tm)
+            for k in ("sparse_select", "softmax_merge"))
+        + f"; {smi_line}")
+    _log_held("c5", tuple(r["mesh"]), r["held"], smi_line)
+    p = r["pinned"]
+    far = [f for f in p["chosen_flips"] if not _near_tie(f)]
+    if far:
+        fail(f"(5e) (c5) pinned: chosen sets differ beyond near-ties (gap "
+             f"<= {SEL_NEAR_TIE:g}): {far}")
+    if not all(p["logits_within"]):
+        fail(f"(5e) (c5) pinned: logits beyond atol {SERVE_TOL[0]:g}, rtol "
+             f"{SERVE_TOL[1]:g}: {p['logits_max_abs_diff']}")
+    q = r["routes_pinned"]
+    first = q["chosen_flips"][:1]
+    upto = first[0][0] if first else LONG_STEPS
+    if first and not _near_tie(first[0]):
+        fail(f"(5e) (c5) pinned to the routes: the first chosen set that "
+             f"differs is not a near-tie: {first}")
+    if not all(q["logits_within"][:upto]):
+        fail(f"(5e) (c5) pinned to the routes: logits beyond atol "
+             f"{SERVE_TOL[0]:g}, rtol {SERVE_TOL[1]:g} before the first "
+             f"flip: {q['logits_max_abs_diff']}")
+    for x in (p, q):
+        if x["route_flips"]:
+            fail(f"(5e) (c5) pinned: routes not the unsharded run's: "
+                 f"{x['route_flips']}")
+    flips = r["unpinned"]["route_flips"]
+    ties = [f for f in flips if f[2] is not None and f[2] < NEAR_TIE]
+    if len(ties) < len(flips) or len(ties) > MAX_FLIPS:
+        fail(f"(5e) (c5) unpinned: routes flipped beyond {MAX_FLIPS} "
+             f"near-ties (router margin < {NEAR_TIE:g}): {flips}")
 
 
 def log_families(r, wall, n_cards, smi_line):
@@ -4832,10 +5281,10 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
                 tot[card] = tot.get(card, 0) + c
         return result, n
 
-    if dist_only:           # phase 5e (c1)-(c4) alone (a run on four cards)
+    if dist_only:           # phase 5e (c1)-(c5) alone (a run on four cards)
         t0 = time.perf_counter()
         _, total, cards = run_dist_serve(torch, smi_line)
-        log(f"[dist] (c1)-(c4) alone: {time.perf_counter() - t0:.1f} s; "
+        log(f"[dist] (c1)-(c5) alone: {time.perf_counter() - t0:.1f} s; "
             f"launches {total}; by card {cards}; {smi_line}")
         print(smi_line)
         print(json.dumps({"ok": True, "device": {
@@ -5118,8 +5567,8 @@ if __name__ == "__main__":
         dist_part_a(torch, *sys.argv[3:4])
         sys.exit(0)
     if sys.argv[1:2] == ["--dist-part"] and sys.argv[2:3] in (
-            ["c1"], ["c2"], ["c4"]):
-        dist_serve_part(sys.argv[2])               # (c1), (c2) or (c4)'s ranks
+            ["c1"], ["c2"], ["c4"], ["c5"]):
+        dist_serve_part(sys.argv[2])      # (c1), (c2), (c4) or (c5)'s ranks
         sys.exit(0)
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
                   dist_only=sys.argv[1:2] == ["--dist-only"]))

@@ -206,15 +206,14 @@ def _moe_call(p_moe, cfg: ModelConfig, x, routes=None, pinned=None,
     local tensors, each local gradient declared for what it is (a sum over
     the data shards and the expert dim's ranks, or a shard), the aux term
     averaged over the data shards. Returns (y as a DTensor, aux); `routes`
-    gets this shard's top-k indices as a DTensor over the batch."""
+    gets this shard's top-k indices as a DTensor over the batch. `pinned`
+    (T, k), a plain tensor or a DTensor, gives each data shard its rows,
+    those of its tokens (_token_rows)."""
     pol = POL.current()
     sizes = {} if pol is None else axis_sizes(pol.mesh)
     ep = ep_axis or "model"
     if ep not in sizes:
         return MOE.moe_apply(p_moe, cfg.moe, x, routes, pinned=pinned)
-    if pinned is not None:
-        raise ValueError("pinned routes are not taken under a sharding "
-                         "policy")
     from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh, names = pol.mesh, list(sizes)
     dp = [a for a in ("pod", "data") if a in sizes]
@@ -228,9 +227,11 @@ def _moe_call(p_moe, cfg: ModelConfig, x, routes=None, pinned=None,
     *local, xl = local_inputs(mesh, [(p_moe[k], _moe_spec(k, ep))
                                      for k in keys] + [(x, x_spec)])
     own = []
-    y, aux = MOE.moe_apply(dict(zip(keys, local)), cfg.moe, xl, own,
-                           ep_axis=MOE.ExpertAxis(mesh, ep))
     out_pl = placements(x_spec, mesh)
+    if pinned is not None:
+        pinned = _token_rows(pinned, mesh, out_pl)
+    y, aux = MOE.moe_apply(dict(zip(keys, local)), cfg.moe, xl, own,
+                           pinned=pinned, ep_axis=MOE.ExpertAxis(mesh, ep))
     if routes is not None:
         routes.append(DTensor.from_local(own[0], mesh, out_pl,
                                          run_check=False))
@@ -243,6 +244,20 @@ def _moe_call(p_moe, cfg: ModelConfig, x, routes=None, pinned=None,
          for a in names], run_check=False)
     return (DTensor.from_local(y, mesh, out_pl, run_check=False),
             aux.redistribute(mesh, [Replicate()] * len(names)))
+
+
+def _token_rows(pinned, mesh, pl):
+    """Pinned routes (T, k) brought to the tokens' placements pl (the batch
+    over the data dims where it splits) and taken as this shard's local
+    rows: the rows of the tokens the shard holds, as x (B, S, D) flattens
+    to (T, D). A plain tensor (on the mesh's device) is every shard's
+    whole list (the unsharded run's), a DTensor is redistributed (a run's
+    own recorded routes)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(pinned, DTensor):
+        pinned = DTensor.from_local(pinned, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    return pinned.redistribute(mesh, pl).to_local()
 
 
 # ---------------------------------------------------------------------------
@@ -580,12 +595,14 @@ def forward(params, cfg: ModelConfig, batch, *, return_caches: bool = False,
 
 
 def prefill(params, cfg: ModelConfig, batch, *, ops: Ops = KERNELS,
-            routes: Optional[list] = None):
+            routes: Optional[list] = None, pinned: Optional[list] = None):
     """(last-token logits (B, 1, V), caches): forward with the caches, the
     head applied to the last position only (the reference slices the full
-    logits)."""
+    logits). `pinned`, a list of one (T, k) tensor a MoE layer in layer
+    order (as `routes` records them, another run's), makes each MoE layer
+    take its entry in place of its own top-k: a checking hook."""
     x, caches, _ = _hidden(params, cfg, batch, _serving(ops), routes=routes,
-                           with_caches=True)
+                           pinned=pinned, with_caches=True)
     return _logits(params, cfg, x[:, -1:]), caches
 
 
@@ -607,14 +624,16 @@ def train_forward(params, cfg: ModelConfig, batch, *,
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *,
-            routes: Optional[list] = None, ep_axis: Optional[str] = None):
+            routes: Optional[list] = None,
+            pinned_routes: Optional[list] = None,
+            ep_axis: Optional[str] = None):
     """Mean next-token cross-entropy of batch {"tokens", "targets": (B, S),
     and the family's stub inputs} plus 0.01 x the MoE aux term. The
     cross-entropy runs in chunks of the sequence, the largest chunk of at
     most cfg.loss_chunk that divides S, each chunk's logits in f32 (f64 for
-    an f64 model)."""
+    an f64 model). routes, pinned_routes, ep_axis: train_forward's."""
     logits, aux = train_forward(params, cfg, batch, routes=routes,
-                                ep_axis=ep_axis)
+                                pinned_routes=pinned_routes, ep_axis=ep_axis)
     logits = POL.constrain(logits, "logits")
     targets = batch["targets"].long()
     B, S, _ = logits.shape
@@ -910,12 +929,13 @@ def _decode_audio(params, cfg: ModelConfig, state, x, pos, widx: int,
 
 
 def decode_step(params, cfg: ModelConfig, state, token, pos, widx: int, *,
-                ops: Ops = KERNELS, routes: Optional[list] = None):
+                ops: Ops = KERNELS, routes: Optional[list] = None,
+                pinned: Optional[list] = None):
     """token (B, 1) -> (logits (B, 1, V), state). pos (B, 1) absolute
     positions; widx the cache slot to write. The state is updated in place
     (the caches are written at widx, the SSM states overwritten) and
     returned: a copy per step of the whole cache would cost more than the
-    step."""
+    step. `pinned`: as prefill's, one (B, k) tensor a MoE layer."""
     x = L.embed(params["embed"], token)
     na = cfg.norm_apply()
     if cfg.family == "ssm":
@@ -928,6 +948,7 @@ def decode_step(params, cfg: ModelConfig, state, token, pos, widx: int, *,
         stacks = [("blocks", cfg.family == "moe")]
         if cfg.family == "moe" and cfg.first_k_dense:
             stacks.insert(0, ("dense_blocks", False))
+        pinned = iter(pinned or ())
         for key, moe_block in stacks:
             for i, lp in enumerate(params[key]):
                 h = na(lp["ln1"], x)
@@ -940,7 +961,8 @@ def decode_step(params, cfg: ModelConfig, state, token, pos, widx: int, *,
                                                cache, pos, widx, ops)
                 h = na(lp["ln2"], x)
                 if moe_block:
-                    x = x + _moe_call(lp["moe"], cfg, h, routes)[0]
+                    x = x + _moe_call(lp["moe"], cfg, h, routes,
+                                      next(pinned, None))[0]
                 else:
                     x = x + L.mlp(lp["mlp"], h, cfg.mlp_kind)
     logits = L.unembed(params["embed"], na(params["final_norm"], x))

@@ -22,6 +22,9 @@ mesh4 (4 ranks, a (2, 2) ("data", "model") mesh):
   tokens (the reference's EP form dispatches per data shard, with that
   shard's capacity, and averages aux over the data shards): outputs at
   1e-6, routes equal, aux at 1e-6;
+* one EP train step pinned to the routes it recorded
+  (loss_fn(pinned_routes=...), the DTensor routes brought to each data
+  shard's tokens): loss and every gradient bit for bit the unpinned step;
 * three sharded train steps (param_shardings, sp_policy, ep_axis "model",
   n_micro 2) of the V2-Lite smoke config in f32 against the same steps
   unsharded with n_micro 2 x 2: data parallelism over 2 shards with the
@@ -228,6 +231,37 @@ def _sharded_steps(rank, mesh, cfg, batches, n_micro):
     return losses, grads, whole, routes
 
 
+def _pinned_train_step(mesh, cfg, batch):
+    """One EP train step of cfg from seed 0 on mesh (param_shardings,
+    sp_policy, ep_axis "model"): the loss and every gradient unpinned, its
+    routes recorded (DTensors over the batch), then pinned to those routes
+    (loss_fn(pinned_routes=...)). Returns (loss equal, every gradient
+    equal, bit for bit; the MoE layers pinned)."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as MD
+    from repro_torch.models.module import trainable
+    params = trainable(MD.init_model(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu", dtype=torch.float32))
+    SH.shard_params(params, SH.param_shardings(params, mesh))
+    leaves = list(params.parameters())
+    bs = SH.batch_sharding(mesh)
+    b = {k: SH.distribute(v, mesh, bs.spec) for k, v in batch.items()}
+    routes = []
+    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication():
+        loss = MD.loss_fn(params, cfg, b, routes=routes, ep_axis="model")
+        grads = torch.autograd.grad(loss, leaves)
+        pinned = MD.loss_fn(params, cfg, b, pinned_routes=routes,
+                            ep_axis="model")
+        pinned_grads = torch.autograd.grad(pinned, leaves)
+        same = lambda a, c: torch.equal(a.full_tensor(), c.full_tensor())
+        return (same(loss, pinned),
+                all(same(a, c) for a, c in zip(grads, pinned_grads)),
+                len(routes))
+
+
 def prog_mesh4(rank, world, rdv):
     import dataclasses
     import tempfile
@@ -304,6 +338,9 @@ def prog_mesh4(rank, world, rdv):
                 "targets": torch.randint(0, cfg.vocab, (B, S), generator=g,
                                          dtype=torch.int32)}
                for _ in range(3)]
+    loss_eq, grads_eq, n_pinned = _pinned_train_step(mesh, cfg, batches[0])
+    _say(rank, f"PINNED loss_equal {loss_eq} grads_equal {grads_eq} "
+         f"n_pinned {n_pinned}")
     losses, grads, whole, routes = _sharded_steps(rank, mesh, cfg, batches, 2)
     # unsharded: the same rows as 2 data shards x 2 microbatches
     ref = trainable(MD.init_model(cfg, torch.Generator().manual_seed(0),
@@ -545,6 +582,16 @@ def test_sharded_train_steps_equal_unsharded(mesh4):
     assert m, mesh4
     assert float(m.group(1)) <= 1e-5 and float(m.group(2)) <= 1e-4
     assert m.group(3) == "True" and int(m.group(4)) > 0
+
+
+def test_ep_train_step_pinned_to_its_own_routes(mesh4):
+    """The (2, 2) EP train step pinned to the routes it recorded (DTensors
+    over the batch, brought to each data shard's tokens) is the unpinned
+    step: loss and every gradient bit for bit."""
+    m = re.search(r"PINNED loss_equal (\w+) grads_equal (\w+) n_pinned "
+                  r"(\d+)", mesh4)
+    assert m, mesh4
+    assert m.group(1) == m.group(2) == "True" and int(m.group(3)) > 0
 
 
 @pytest.mark.parametrize("name,rows", [("GQA", 4), ("GQA", 1),

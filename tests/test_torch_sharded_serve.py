@@ -32,6 +32,15 @@ tokens x top_k / experts, 1 at a decode step), as the reference's EP form
 does: two rows picking one expert at capacity 1 drop a pair that two
 shards keep.
 
+Each case runs a second time with every MoE layer pinned to the
+unsharded port's routes on the same rows (prefill(pinned=...),
+decode_step(pinned=...): the expert-parallel form takes each data
+shard's rows of them, as DTensors on the (2, 2) meshes' decode steps),
+held against the unsharded port pinned to the same routes; those routes
+equal the sharded run's own, so the pinned run is also held bit for bit
+against the unpinned one, and the unsharded port pinned to its own
+routes bit for bit against itself.
+
 Limits: the unsharded port at 1e-5 (the same ops, the decode's softmax
 summed per shard and merged), the reference at tests/test_torch_model.py's
 TOL, the MoE routes and every layer's chosen set equal. The unit cases
@@ -91,15 +100,32 @@ SEL_META = (1, 16, 524288, 576, 512, 2048)     # B, H, S, D, d_v, k
 # the prog (run in the subprocess's ranks; imports no JAX)
 # ---------------------------------------------------------------------------
 
+def _by_call(pinned, n_calls, wrap=lambda t: t):
+    """A run's routes (numpy, one (T, k) a MoE layer call, prefill first)
+    as one list a model call: the prefill's, then each decode step's, each
+    entry a tensor through wrap. None without pinned."""
+    import torch
+    if pinned is None:
+        return [None] * n_calls
+    n = len(pinned) // n_calls
+    return [[wrap(torch.tensor(r)) for r in pinned[i * n:(i + 1) * n]]
+            for i in range(n_calls)]
+
+
 def _sharded_run(mesh, params, cfg, inputs, rows=slice(0, B),
-                 prefill_params=None):
+                 prefill_params=None, pinned=None):
     """Prefill, the state filled and STEPS decode steps of the batch rows
     `rows` on mesh (KERNELS ops): every result whole, as numpy, and the
     sequence shard that wrote the decode slots (its index over every mesh
     dim that splits the cache's sequence). With prefill_params (the same
     weights unsharded) the prefill runs unsharded on each rank and its
     caches enter the state replicated: the long-context form, a decode
-    cell alone (long_500k), whose one row the data axis does not split."""
+    cell alone (long_500k), whose one row the data axis does not split.
+    pinned: the unsharded port's routes on the same rows, every MoE layer
+    held on them (prefill(pinned=...), decode_step(pinned=...)); on a
+    mesh with a data dim of 2 the decode steps' entries go in as
+    replicated DTensors, which the EP form redistributes to its tokens'
+    placements, elsewhere as plain tensors."""
     import torch
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs import ShapeSpec
@@ -111,6 +137,10 @@ def _sharded_run(mesh, params, cfg, inputs, rows=slice(0, B),
     shape = ShapeSpec("decode", SLOTS, b, "decode")
     tokens = torch.tensor(inputs["tokens"][rows])
     routes = []
+    as_dt = (lambda t: SH.distribute(t, mesh, ())) if mesh.shape[0] == 2 \
+        else (lambda t: t)
+    pins = _by_call(pinned, 1 + STEPS + SEL_STEPS)
+    steps_pinned = _by_call(pinned, 1 + STEPS + SEL_STEPS, as_dt)[1:]
     with POL.use_policy(POL.sp_policy(mesh)), implicit_replication(), \
             torch.no_grad():
         if prefill_params is None:
@@ -118,11 +148,12 @@ def _sharded_run(mesh, params, cfg, inputs, rows=slice(0, B),
             logits, caches = MD.prefill(
                 params, cfg, {"tokens": SH.distribute(tokens, mesh,
                                                       bsh["tokens"].spec)},
-                routes=routes)
+                routes=routes, pinned=pins[0])
         else:
             with POL.use_policy(None):
                 logits, caches = MD.prefill(prefill_params, cfg,
-                                            {"tokens": tokens}, routes=routes)
+                                            {"tokens": tokens}, routes=routes,
+                                            pinned=pins[0])
             caches = {k: SH.distribute(v, mesh, ()) for k, v in
                       caches.items()}
         st_sh = IS.decode_state_shardings(cfg, shape, mesh)
@@ -136,7 +167,8 @@ def _sharded_run(mesh, params, cfg, inputs, rows=slice(0, B),
             params, c, state, SH.distribute(torch.tensor(tok[rows]), mesh,
                                             tok_sh.spec),
             SH.distribute(torch.full((b, 1), S + i, dtype=torch.int32), mesh,
-                          pos_sh.spec), S + i, routes=routes)
+                          pos_sh.spec), S + i, routes=routes,
+            pinned=steps_pinned[i])
         decode = []
         for i in range(STEPS):
             lg, state = step(cfg, inputs["steps"][i], i)
@@ -261,13 +293,17 @@ def prog_serve4(rank, world, tmp):
         params = model_params_from_numpy(inputs["tree"], cfg, device="cpu")
         SH.shard_params(params, SH.param_shardings(params, mesh))
         out[shape] = _sharded_run(mesh, params, cfg, inputs)
+        out[shape]["pinned"] = _sharded_run(mesh, params, cfg, inputs,
+                                            pinned=inputs["pinned"][shape])
         out[shape]["unit"] = _unit_partials(mesh, inputs)
         if shape == (2, 2):
             out["refusals"] = _refusals(mesh)
         for name in (n for n, m in ONE_ROWS.items() if m == shape):
-            out[name] = _sharded_run(
-                mesh, params, cfg, inputs, ROW0, model_params_from_numpy(
-                    inputs["tree"], cfg, device="cpu"))
+            whole = model_params_from_numpy(inputs["tree"], cfg, device="cpu")
+            out[name] = _sharded_run(mesh, params, cfg, inputs, ROW0, whole)
+            out[name]["pinned"] = _sharded_run(
+                mesh, params, cfg, inputs, ROW0, whole,
+                pinned=inputs["pinned"][name])
             out[name]["unit"] = _unit_partials(mesh, inputs, ROW0)
     if rank == 0:
         with open(os.path.join(tmp, "sharded.pkl"), "wb") as fh:
@@ -395,8 +431,9 @@ def _reference(jcfg, inputs, rows):
             "select_state": np_tree(state)}
 
 
-def _port(inputs, rows):
-    """The port's prefill and decode steps, unsharded, on the rows."""
+def _port(inputs, rows, pinned=None):
+    """The port's prefill and decode steps, unsharded, on the rows; with
+    pinned (a run's routes), every MoE layer held on them."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.convert import model_params_from_numpy
@@ -405,17 +442,19 @@ def _port(inputs, rows):
     params = model_params_from_numpy(inputs["tree"], cfg, device="cpu")
     b = rows.stop - rows.start
     routes = []
+    pins = _by_call(pinned, 1 + STEPS + SEL_STEPS)
     with torch.no_grad():
         logits, caches = MD.prefill(
             params, cfg, {"tokens": torch.tensor(inputs["tokens"][rows])},
-            routes=routes)
+            routes=routes, pinned=pins[0])
         state = MD.fill_decode_state(cfg, MD.init_decode_state(
             cfg, b, SLOTS, dtype=torch.float32, device="cpu"), caches)
         decode = []
         for i in range(STEPS):
             lg, state = MD.decode_step(
                 params, cfg, state, torch.tensor(inputs["steps"][i][rows]),
-                torch.full((b, 1), S + i), S + i, routes=routes)
+                torch.full((b, 1), S + i), S + i, routes=routes,
+                pinned=pins[1 + i])
             decode.append(lg.numpy())
         whole = lambda t: {k: v.numpy().copy() for k, v in t.items()}
         dense_state = whole(state)
@@ -426,7 +465,7 @@ def _port(inputs, rows):
                     params, dataclasses.replace(cfg, selection_k=k), state,
                     torch.tensor(inputs["sel_steps"][j][rows]),
                     torch.full((b, 1), S + STEPS + j), S + STEPS + j,
-                    routes=routes)
+                    routes=routes, pinned=pins[1 + STEPS + j])
                 select.append(lg.numpy())
     return {"prefill": logits.numpy(), "caches": whole(caches),
             "decode": decode, "state": dense_state, "select": select,
@@ -466,6 +505,17 @@ def _row_sets(shape):
 @pytest.fixture(scope="module")
 def case():
     jcfg, inputs = _inputs()
+    # the unsharded port first: its routes pin the sharded runs' second
+    # pass, each case on the rows its data shards dispatch
+    sets = {(r.start, r.stop): r for shape in MESHES
+            for r in _row_sets(shape)}
+    port = {k: _port(inputs, r) for k, r in sets.items()}
+    row0 = (ROW0.start, ROW0.stop)
+    inputs["pinned"] = {shape: _joined([port[(r.start, r.stop)]
+                                        for r in _row_sets(shape)])["routes"]
+                        for shape in MESHES}
+    inputs["pinned"].update({name: port[row0]["routes"]
+                             for name in ONE_ROWS})
     with tempfile.TemporaryDirectory(prefix="sharded_serve_") as tmp:
         with open(os.path.join(tmp, "inputs.pkl"), "wb") as fh:
             pickle.dump(inputs, fh)
@@ -477,11 +527,11 @@ def case():
                                 stderr=subprocess.PIPE, text=True, env=env,
                                 start_new_session=True)
         try:
-            # the references meanwhile: each row set's, run once
-            sets = {(r.start, r.stop): r for shape in MESHES
-                    for r in _row_sets(shape)}
+            # the references meanwhile: each row set's, run once, and the
+            # port pinned to its own routes
             ref = {k: _reference(jcfg, inputs, r) for k, r in sets.items()}
-            port = {k: _port(inputs, r) for k, r in sets.items()}
+            pinned = {k: _port(inputs, r, port[k]["routes"])
+                      for k, r in sets.items()}
             out, err = proc.communicate(timeout=TIMEOUT)
         finally:
             if proc.poll() is None:          # the ranks with it
@@ -495,10 +545,10 @@ def case():
     for shape in MESHES:
         keys = [(r.start, r.stop) for r in _row_sets(shape)]
         by_mesh[shape] = (sharded[shape], _joined([port[k] for k in keys]),
-                          _joined([ref[k] for k in keys]))
-    row0 = (ROW0.start, ROW0.stop)
+                          _joined([ref[k] for k in keys]),
+                          _joined([pinned[k] for k in keys]))
     for name in ONE_ROWS:
-        by_mesh[name] = (sharded[name], port[row0], ref[row0])
+        by_mesh[name] = (sharded[name], port[row0], ref[row0], pinned[row0])
     return inputs, by_mesh, sharded["refusals"]
 
 
@@ -518,7 +568,7 @@ def _held(got, want, tol):
 
 @pytest.mark.parametrize("shape", CASES, ids=IDS)
 def test_sharded_serve_equals_unsharded_port(case, shape):
-    got, port, _ = case[1][shape]
+    got, port, _, _ = case[1][shape]
     _held(got, port, PORT_TOL)
     assert len(got["routes"]) == len(port["routes"]) > 0
     for a, b in zip(got["routes"], port["routes"]):
@@ -527,8 +577,57 @@ def test_sharded_serve_equals_unsharded_port(case, shape):
 
 @pytest.mark.parametrize("shape", CASES, ids=IDS)
 def test_sharded_serve_matches_reference(case, shape):
-    got, _, ref = case[1][shape]
+    got, _, ref, _ = case[1][shape]
     _held(got, ref, TOL)
+
+
+def _pinned_held(got, want, tol):
+    """_held, then the selection steps' logits and state, routes and (for a
+    sharded run, from its ranks' records) every layer's chosen set."""
+    _held(got, want, tol)
+    for i in range(SEL_STEPS):
+        _close(got["select"][i], want["select"][i], tol,
+               f"selection step {i}")
+    for n in got["select_state"]:
+        _close(got["select_state"][n], want["select_state"][n], tol,
+               f"state after the selection steps, {n}")
+    assert len(got["routes"]) == len(want["routes"]) > 0
+    for a, b in zip(got["routes"], want["routes"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("shape", CASES, ids=IDS)
+def test_pinned_sharded_serve_equals_pinned_unsharded_port(case, shape):
+    """The sharded prefill, dense and selection steps pinned to the
+    unsharded port's routes (the EP form takes each data shard's rows of
+    them) against the unsharded port pinned to the same routes: 1e-5,
+    every layer's chosen set equal."""
+    got, _, _, want = case[1][shape]
+    got = got["pinned"]
+    _pinned_held(got, want, PORT_TOL)
+    chosen, _ = _chosen_whole(got["chosen_by_rank"], _batch(shape))
+    assert len(chosen) == len(want["chosen"]) > 0
+    for a, b in zip(chosen, want["chosen"]):
+        np.testing.assert_array_equal(np.sort(a, -1), np.sort(b, -1))
+
+
+@pytest.mark.parametrize("shape", CASES, ids=IDS)
+def test_pinning_own_routes_is_bit_for_bit(case, shape):
+    """A run pinned to its own routes is that run, bit for bit: the
+    unsharded port on its routes, and the sharded run on the same routes
+    (its own: test_sharded_serve_equals_unsharded_port holds them equal,
+    and so does this test first)."""
+    got, port, _, pinned = case[1][shape]
+    exact = dict(atol=0, rtol=0)
+    _pinned_held(pinned, port, exact)
+    for a, b in zip(got["routes"], port["routes"]):
+        np.testing.assert_array_equal(a, b)
+    _pinned_held(got["pinned"], got, exact)
+    for a, b in zip(got["pinned"]["chosen_by_rank"], got["chosen_by_rank"]):
+        assert a[0] == b[0] and len(a[1]) == len(b[1])
+        for (oa, na, ia), (ob, nb, ib) in zip(a[1], b[1]):
+            assert (oa, na) == (ob, nb)
+            np.testing.assert_array_equal(ia, ib)
 
 
 @pytest.mark.parametrize("shape", CASES, ids=IDS)
@@ -688,7 +787,7 @@ def test_sharded_selection_equals_unsharded_port(case, shape):
     each shard's chosen rows, softmax_merge) against the unsharded port:
     logits and the state after them at 1e-5, every layer's chosen set
     equal."""
-    got, port, _ = case[1][shape]
+    got, port, _, _ = case[1][shape]
     for i in range(SEL_STEPS):
         _close(got["select"][i], port["select"][i], PORT_TOL,
                f"selection step {i}")
@@ -703,7 +802,7 @@ def test_sharded_selection_equals_unsharded_port(case, shape):
 
 @pytest.mark.parametrize("shape", CASES, ids=IDS)
 def test_sharded_selection_matches_reference(case, shape):
-    got, _, ref = case[1][shape]
+    got, _, ref, _ = case[1][shape]
     for i in range(SEL_STEPS):
         _close(got["select"][i], ref["select"][i], TOL,
                f"selection step {i}")
