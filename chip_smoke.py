@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 4c-4e alone
-    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c5) alone
+    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c5) and (d) alone
 
 Needs one CUDA card, nvcc (PATH, $CUDA_HOME or /usr/local/cuda) and the
 repository's src/ beside this file; imports nothing of JAX or of the JAX
@@ -179,7 +179,21 @@ package. Phases, each fatal on failure:
    and layer: overlap, each differing id's score gap, the written entries'
    error, routes, logits, top-1; peak memory by card; sparse_select and
    softmax_merge held at TOL, launched on every card and timed at the
-   shard's shapes beside their bounds;
+   shard's shapes beside their bounds; (d) on four cards or more, a
+   process group of its own on the first four, the sharded train step:
+   V2-Lite at full width cut to 4 layers in f32 (and to 2 in f64), 3
+   steps of 4 x 512 tokens, AdamWConfig(), on (2, 2) at n_micro 2 against
+   card 0's unsharded step at n_micro 4 and on (1, 4) against n_micro 2
+   (the same microbatch rows: the EP form dispatches each data shard with
+   its own capacity), pinned to the unsharded routes through the train
+   step's route hook: losses within 1e-5 relative, the first step's
+   gradients within 1e-5 x their leaf's max, one step's parameters within
+   1e-4 x max but the elements whose two first-step gradients differ in
+   sign (counted and printed), in f64 every parameter within 1e-4 x max
+   after 3 steps; unpinned in f32, the first step's routes equal but for
+   at most 4 near-ties (router margin < 1e-3); the step walls, peak memory
+   by card, and one sharded step under the profiler on every card (busy
+   share, NCCL kernels by kind); no kernel launched;
 5f. examples — repro_torch.examples in-process through run():
    quickstart (route+merge and the mla_decode kernel within 1e-5),
    serve_routed, agentic_fanout (routed fork decode within 1e-5),
@@ -202,7 +216,7 @@ package. Phases, each fatal on failure:
    plan_execute where it fetched, and no kernel in the train steps; in
    5e's sharded serve, counted in each rank's process around the sharded
    run with the kernels ("dist_serve"), its four kernels on every card,
-   and (c4)'s ssd_chunk and softmax_merge;
+   and (c4)'s ssd_chunk and softmax_merge; in (d), no kernel on any card;
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -2732,10 +2746,11 @@ DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 128, 3   # (a): 4 x 128 tokens, 3 steps
 # bits into parameter steps of up to lr where a gradient is near zero
 DIST_LOSS_RTOL, DIST_PARAM_RTOL = 1e-5, 1e-4
 CM_TOL = 2e-5                                  # the collective matmul
-# seconds, each subprocess: (a), (b), and the sharded serve's (c1), (c2),
-# (c4), (c5); (c3) runs in (c2)'s process, which gets both parts' seconds
+# seconds, each subprocess: (a), (b), the sharded serve's (c1), (c2),
+# (c4), (c5) and the sharded train step's (d); (c3) runs in (c2)'s
+# process, which gets both parts' seconds
 DIST_TIMEOUT = {"a": 300, "b": 900, "c1": 600, "c2": 600, "c3": 600,
-                "c4": 600, "c5": 600}
+                "c4": 600, "c5": 600, "d": 600}
 DRYRUN_ARCH = "deepseek-v2-236b"
 # (b)'s further cells, each `python -m repro_torch.launch.dryrun` in a
 # subprocess of its own, at full depth, run beside the 236B one: GQA heads
@@ -3410,8 +3425,8 @@ def serve_unsharded(torch, M, cfg, tokens, n_data, *, dtype, ops, feed=None,
 
 class RouterMargins:
     """Records, while active, each MoE call's router margin per token: the
-    gap between its k-th and (k + 1)-th router probabilities (a flip needs
-    the two to swap)."""
+    gap between its k-th and (k + 1)-th router probabilities (a flip of
+    the expert set needs the two to swap)."""
 
     def __init__(self, torch):
         from repro_torch.models import moe as MOE
@@ -3433,12 +3448,15 @@ class RouterMargins:
 
 def route_flips(torch, got, want, margins=None):
     """[(call, token, router margin or None)] where two runs' MoE routes
-    differ (a different number of calls: one entry, call -1)."""
+    choose different expert sets (the order inside the top k moves only
+    the order of the MoE's sum; a different number of calls: one entry,
+    call -1)."""
     if len(got) != len(want):
         return [(-1, -1, None)]
     out = []
     for i, (a, b) in enumerate(zip(got, want)):
-        for t in (a != b).any(-1).nonzero().flatten().tolist():
+        differ = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        for t in differ.nonzero().flatten().tolist():
             m = float(margins[i][t]) if margins and i < len(margins) \
                 else None
             out.append((i, t, m))
@@ -4486,8 +4504,480 @@ def long_decode_f32(torch, dev, cfg, shape):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 5e (d). the sharded train step across cards, held against card 0's
+# unsharded step on the same pinned routes
+# ---------------------------------------------------------------------------
+
+# V2-Lite at full width cut to D_LAYERS (1 dense + 3 MoE) in f32 and to
+# D_F64_LAYERS (1 dense + 1 MoE) in f64; D_STEPS steps of D_BATCH x D_SEQ
+# tokens with AdamWConfig(), the sharded steps at D_MICRO microbatches
+D_LAYERS, D_F64_LAYERS = 4, 2
+D_BATCH, D_SEQ, D_STEPS, D_MICRO = 4, 512, 3, 2
+# (data, model) mesh -> its unsharded twin's n_micro: the EP form
+# dispatches each data shard with its own capacity, so on (2, 2) sharded
+# microbatch i holds the rows of unsharded microbatches 2i and 2i + 1
+D_MESHES = {(2, 2): 4, (1, 4): 2}
+D_CARDS = 4
+
+
+def _host(t):
+    """A copy of t on the host (a copy on the CPU too: the step updates
+    its parameters in place)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _train_params(torch, M, cfg, dev, dtype):
+    """cfg's weights drawn on dev in f32 from seed 0, then every leaf in
+    dtype (the router too: f64 end to end, as 5c (e)), taking
+    gradients."""
+    from repro_torch.models.module import trainable
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.float32)
+    return trainable(params.to(dtype))
+
+
+def _train_cfgs(dtype, n_micro, **kw):
+    """(AdamWConfig(), the TrainConfig of (d)'s steps: gradients
+    accumulated in the parameters' dtype)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainConfig
+    return AdamWConfig(), TrainConfig(n_micro=n_micro, accum_dtype=dtype,
+                                      **kw)
+
+
+def _leaf_diff(torch, dev, got, want):
+    """(|got - want| on dev, max|want| or 1 where want is all zeros)."""
+    want = want.to(dev)
+    return (got.to(dev) - want).abs(), float(want.abs().max()) or 1.0
+
+
+def _leaf_rel(torch, dev, got, want) -> float:
+    """max|got - want| over max|want| (over 1 where want is all zeros)."""
+    diff, scale = _leaf_diff(torch, dev, got, want)
+    return float(diff.max()) / scale
+
+
+def train_twin(torch, M, cfg, dev, batches, n_micro, dtype, margins=False):
+    """(d)'s unsharded twin on card 0: D_STEPS steps of cfg from seed 0 in
+    dtype at n_micro, each recording its routes through the step's hook;
+    with margins, the router margins of the first batch's microbatches
+    (a forward without gradients before the first step). Returns the
+    routes (each step's lists), losses, walls (host clock ending in a
+    synchronize), the first batch's gradients (loss_and_grads) and the
+    parameters after one step and after the last (on the host), the peak
+    memory."""
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = _train_params(torch, M, cfg, dev, dtype)
+    ocfg, tcfg = _train_cfgs(dtype, n_micro)
+    out = {"routes": [], "losses": [], "walls": []}
+    if margins:
+        rows = D_BATCH // n_micro
+        with torch.no_grad(), RouterMargins(torch) as rm:
+            for i in range(n_micro):
+                M.loss_fn(params, cfg, {k: v[i * rows:(i + 1) * rows]
+                                        for k, v in batches[0].items()})
+        out["margins"] = rm.margins
+    _, grads = loss_and_grads(params, cfg, batches[0], tcfg)
+    out["grads"] = [_host(g) for g in grads]
+    del grads
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(cfg, ocfg, tcfg)
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out["routes"].append([])
+        params, opt, mets = step(params, opt, b, routes=out["routes"][-1])
+        out["losses"].append(float(mets["loss"]))
+        torch.cuda.synchronize(dev)
+        out["walls"].append(time.perf_counter() - t)
+        if i == 0:
+            out["after_one"] = [_host(p) for p in params.parameters()]
+    out["after"] = [_host(p) for p in params.parameters()]
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del params, opt, step
+    return out
+
+
+def _joined(torch, lists, k):
+    """Lists of per-layer tensors, one a microbatch, joined k at a time
+    layer by layer: those of a step whose microbatch holds k of these
+    microbatches' rows."""
+    return [[torch.cat([lists[i * k + h][j] for h in range(k)])
+             for j in range(len(lists[0]))]
+            for i in range(len(lists) // k)]
+
+
+def _twin_routes(torch, cfg, dev, twin, n_twin):
+    """Rank 0's twin routes (twin; None elsewhere) on every rank, each
+    step's lists joined for the sharded microbatches (D_MICRO a step)."""
+    import torch.distributed as dist
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    flat = torch.zeros((D_STEPS, n_twin, n_moe, D_BATCH // n_twin * D_SEQ,
+                        cfg.moe.top_k), dtype=torch.long, device=dev)
+    if twin is not None:
+        flat.copy_(torch.stack([torch.stack([torch.stack(lst) for lst in r])
+                                for r in twin["routes"]]))
+    dist.broadcast(flat, 0)
+    return [_joined(torch, [list(mb) for mb in step], n_twin // D_MICRO)
+            for step in flat]
+
+
+class Spread:
+    """Leaves of one run against the twin's: the worst leaf's max|diff| /
+    max and its name, the elements beyond DIST_PARAM_RTOL x their leaf's
+    max over all leaves, and, given both runs' first-step gradients
+    (grads: (got, want)), how many of those have gradients of opposite
+    sign (sign_flips: AdamW's first step moves an element by ~lr sign(g)
+    wherever |g| >> eps)."""
+
+    def __init__(self):
+        self.rel, self.leaf, self.over, self.sign_flips = 0.0, None, 0, 0
+
+    def add(self, torch, dev, name, got, want, grads=None):
+        diff, scale = _leaf_diff(torch, dev, got, want)
+        over = diff > DIST_PARAM_RTOL * scale
+        self.over += int(over.sum())
+        if grads is not None:
+            g1, g0 = (g.to(dev) for g in grads)
+            self.sign_flips += int((over & (torch.sign(g1)
+                                            != torch.sign(g0))).sum())
+        if float(diff.max()) / scale >= self.rel:
+            self.rel, self.leaf = float(diff.max()) / scale, name
+
+
+def profiled_step(torch, fn):
+    """fn() (one train step) under torch.profiler on this rank: its wall
+    (host clock ending in a synchronize), the device-busy ms (the union of
+    the device events' intervals; None where the profiler saw none) and
+    the NCCL kernels by kind, [count, device ms]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans, nccl = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        if "nccl" in e.name.lower():
+            m = re.search(r"AllGather|ReduceScatter|AllReduce|Broadcast|"
+                          r"SendRecv|AllToAll|Reduce", e.name)
+            c = nccl.setdefault(m.group(0) if m else e.name[:40], [0, 0.0])
+            c[0] += 1
+            c[1] += (b - a) / 1e3
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return {"wall_ms": wall * 1e3,
+            "busy_ms": busy / 1e3 if spans else None,
+            "busy_share": busy / 1e3 / (wall * 1e3) if spans else None,
+            "nccl": {k: [n, round(ms, 3)] for k, (n, ms) in nccl.items()}}
+
+
+def train_sharded(torch, M, cfg, mesh, dev, batches, dtype, twin, *,
+                  pinned=None, profile=False):
+    """(d)'s sharded steps on mesh: D_STEPS steps of cfg from seed 0 in
+    dtype (param_shardings, sp_policy, ep_axis "model", D_MICRO
+    microbatches), pinned to `pinned` (each step's lists) or not, each
+    recording its routes through the step's hook; walls on the host clock
+    ending in a synchronize. Rank 0 (twin: the unsharded run; None
+    elsewhere) reports against the twin: losses and walls by step, every
+    step's routes gathered whole, the parameters after the last step
+    (Spread), and where pinned the first batch's gradients (loss_and_grads
+    on the same pinned routes; the three worst leaves as (max|diff| / max,
+    name)) and the parameters after one step. With profile, one more step
+    (the first batch, unpinned) under the profiler on every rank. Returns
+    (rank 0's report or None, this rank's peak GiB in a step (its memory
+    before the step included), its profile or None)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    params = _train_params(torch, M, cfg, dev, dtype)
+    shard = SH.param_shardings(params, mesh)
+    SH.shard_params(params, shard)
+    torch.cuda.empty_cache()
+    ocfg, tcfg = _train_cfgs(dtype, D_MICRO, ep_axis="model")
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(cfg, ocfg, tcfg, param_shardings=shard)
+    bs = SH.batch_sharding(mesh)
+    place = lambda b: {k: SH.distribute(v, mesh, bs.spec)
+                       for k, v in b.items()}
+    names = [k for k, _ in params.named_parameters()]
+    rep = {"losses": [], "walls": [], "routes": []} \
+        if twin is not None else None
+    wholes = lambda: (p.detach().full_tensor() for p in params.parameters())
+    prof, peak, grads = None, 0.0, None
+    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication():
+        if pinned is not None:
+            _, got = loss_and_grads(params, cfg, place(batches[0]), tcfg,
+                                    shard, pinned=pinned[0])
+            grads = []
+            for g in got:
+                whole = g.full_tensor()       # a collective: every rank
+                grads.append(_host(whole) if rep is not None else None)
+                del whole
+            del got
+            if rep is not None:
+                rep["grad_worst"] = sorted(
+                    ((_leaf_rel(torch, dev, a, b), name) for name, a, b
+                     in zip(names, grads, twin["grads"])), reverse=True)[:3]
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            routes = []
+            params, opt, mets = step(
+                params, opt, place(b), routes=routes,
+                pinned=None if pinned is None else pinned[i])
+            loss = float(mets["loss"].full_tensor())
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t
+            peak = max(peak, torch.cuda.max_memory_allocated(dev) / 2**30)
+            routes = [[r.full_tensor().cpu() for r in lst] for lst in routes]
+            if rep is not None:
+                rep["losses"].append(loss)
+                rep["walls"].append(wall)
+                rep["routes"].append(routes)
+            if i == 0 and grads is not None:
+                one = Spread()
+                for k, whole in enumerate(wholes()):
+                    if rep is not None:
+                        one.add(torch, dev, names[k], whole,
+                                twin["after_one"][k],
+                                (grads[k], twin["grads"][k]))
+                    del whole
+                if rep is not None:
+                    rep["one_step"] = vars(one)
+                del grads
+        after = Spread()
+        for k, whole in enumerate(wholes()):
+            if rep is not None:
+                after.add(torch, dev, names[k], whole, twin["after"][k])
+            del whole
+        if rep is not None:
+            rep["after"] = vars(after)
+        if profile:
+            prof = profiled_step(torch, lambda: step(params, opt,
+                                                     place(batches[0])))
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return rep, peak, prof
+
+
+def _flat(lists):
+    return [t for lst in lists for t in lst]
+
+
+def dist_train(torch, dev, world):
+    """(d) in one rank of a NCCL group of D_CARDS: on each mesh of
+    D_MESHES, card 0 runs the unsharded twin (train_twin; the other ranks
+    wait), frees it and broadcasts its routes; then every rank runs the
+    sharded steps pinned to them (held, counted, then one more step under
+    the profiler), and in f32 also unpinned; first with V2-Lite at full
+    width cut to D_LAYERS in f32, then to D_F64_LAYERS in f64. The launch
+    counters are zeroed before and read after. Returns rank 0's report
+    (None elsewhere)."""
+    import torch.distributed as dist
+    from repro_torch.configs import deepseek_v2_lite
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.module import count_params
+    rank = dist.get_rank()
+    full = deepseek_v2_lite.config()
+    cuts = {"f32": (dataclasses.replace(full, n_layers=D_LAYERS),
+                    torch.float32),
+            "f64": (dataclasses.replace(full, n_layers=D_F64_LAYERS),
+                    torch.float64)}
+    g = torch.Generator(device=dev).manual_seed(1)
+    batches = [{k: torch.randint(0, full.vocab, (D_BATCH, D_SEQ),
+                                 generator=g, device=dev, dtype=torch.int32)
+                for k in ("tokens", "targets")} for _ in range(D_STEPS)]
+    zero, read = _launch_counters()
+    zero()
+    runs, mine = [], []
+    for shape, n_twin in D_MESHES.items():
+        mesh = make_mesh(shape, ("data", "model"))
+        run = {"mesh": list(shape), "twin_micro": n_twin}
+        for prec, (cfg, dtype) in cuts.items():
+            twin = None
+            if rank == 0:
+                twin = train_twin(torch, M, cfg, dev, batches, n_twin, dtype,
+                                  margins=prec == "f32")
+                torch.cuda.empty_cache()
+            pinned = _twin_routes(torch, cfg, dev, twin, n_twin)
+            rep, peak, prof = train_sharded(
+                torch, M, cfg, mesh, dev, batches, dtype, twin,
+                pinned=pinned, profile=prec == "f32")
+            mine.append({"mesh": list(shape), "prec": prec, "peak_gib": peak,
+                         "profile": prof})
+            free = None
+            if prec == "f32":
+                free, _, _ = train_sharded(torch, M, cfg, mesh, dev, batches,
+                                           dtype, twin)
+            if twin is not None:
+                want = [[t.cpu() for t in _flat(s)] for s in pinned]
+                rep["routes_pinned"] = all(
+                    torch.equal(a, b) for got, w in
+                    zip(rep.pop("routes"), want)
+                    for a, b in zip(_flat(got), w))
+                run[prec] = {"unsharded": {k: twin[k] for k in (
+                    "losses", "walls", "peak_gib")}, "pinned": rep}
+                if free is not None:
+                    n_moe = cfg.n_layers - cfg.first_k_dense
+                    margins = [t.cpu() for t in _flat(_joined(
+                        torch, [twin["margins"][i * n_moe:(i + 1) * n_moe]
+                                for i in range(n_twin)], n_twin // D_MICRO))]
+                    got = [_flat(s) for s in free.pop("routes")]
+                    free["route_flips"] = route_flips(torch, got[0], want[0],
+                                                      margins)
+                    free["flips_by_step"] = [len(route_flips(torch, a, b))
+                                             for a, b in zip(got, want)]
+                    run[prec]["unpinned"] = free
+                run[prec]["layers"] = cfg.n_layers
+                run[prec]["params"] = count_params(M.init_model(
+                    cfg, device="meta"))
+            del twin, pinned
+            torch.cuda.empty_cache()
+        runs.append(run)
+    launches = read()
+    by_rank = [None] * world
+    dist.all_gather_object(by_rank, {"launches": launches, "runs": mine})
+    if rank != 0:
+        return None
+    return {"runs": runs, "by_rank": by_rank}
+
+
+def _ms(walls):
+    return ", ".join(f"{w * 1e3:.1f}" for w in walls)
+
+
+def log_dist_train(r, wall, smi_line):
+    """(d)'s lines, a mesh and precision each; fail unless, pinned to the
+    twin's routes, every step's loss is within DIST_LOSS_RTOL and the
+    routes each sharded step records are the pinned ones, and, in f64,
+    every parameter after D_STEPS steps is within DIST_PARAM_RTOL x its
+    leaf's max; unless the unpinned f32 run's first step chose the twin's
+    expert sets but for at most MAX_FLIPS near-ties (router margin below
+    NEAR_TIE); and unless no kernel was launched on any card. The f32
+    pinned run's first-step gradients, its parameters after one step and
+    after D_STEPS are printed and not held: which f32 limit holds a
+    sharded step's gradients and AdamW's steps from them is open
+    (ROADMAP C.8)."""
+    launched = {k: n for x in r["by_rank"] for k, c in x["launches"].items()
+                for n in c.values() if n}
+    f32, f64 = r["runs"][0]["f32"], r["runs"][0]["f64"]
+    log(f"[dist] (d) the sharded train step across {D_CARDS} cards: "
+        f"V2-Lite at full width cut to {f32['layers']} layers "
+        f"({f32['params']} parameters) in f32 and to {f64['layers']} "
+        f"({f64['params']}) in f64, weights from seed 0 on each card, "
+        f"{D_STEPS} steps of {D_BATCH} x {D_SEQ} tokens, AdamWConfig(), "
+        f"gradients accumulated in the parameters' dtype, TF32 off; on "
+        f"each (data, model) NCCL mesh param_shardings, sp_policy, ep_axis "
+        f"model, n_micro {D_MICRO}, against card 0's unsharded step with "
+        f"the same microbatch rows; kernels launched in the steps "
+        f"{launched or 'none'}; part wall {wall:.1f} s; {smi_line}")
+    mine = {(tuple(x["mesh"]), x["prec"]): [] for x in r["by_rank"][0]
+            ["runs"]}
+    for x in r["by_rank"]:
+        for y in x["runs"]:
+            mine[(tuple(y["mesh"]), y["prec"])].append(y)
+    bad = []
+    for run in r["runs"]:
+        shape = tuple(run["mesh"])
+        for prec in ("f32", "f64"):
+            x = run[prec]
+            p, u = x["pinned"], x["unsharded"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(p["losses"],
+                                                       u["losses"])]
+            one, after = p["one_step"], p["after"]
+            ranks = mine[(shape, prec)]
+            held = "held" if prec == "f64" else "not held (ROADMAP C.8)"
+            head = (f"[dist] (d) {shape} {prec}, {x['layers']} layers, "
+                    f"sharded n_micro {D_MICRO} against unsharded n_micro "
+                    f"{run['twin_micro']}")
+            log(f"{head}, pinned to the unsharded routes: losses "
+                + ", ".join(f"{a:.9f}/{b:.9f}" for a, b in zip(
+                    p["losses"], u["losses"]))
+                + f" (rel {max(rel):.3e}, rtol {DIST_LOSS_RTOL:g}); routes "
+                f"recorded = pinned {p['routes_pinned']}; first step's "
+                f"gradients, worst leaves (max|diff| / max, leaf) "
+                f"{p['grad_worst']}, not held; after one step worst leaf "
+                f"{one['leaf']} {one['rel']:.3e} of its max, {one['over']} "
+                f"elements beyond {DIST_PARAM_RTOL:g} x max, "
+                f"{one['sign_flips']} of them with first-step gradients of "
+                f"opposite sign, not held; {smi_line}")
+            log(f"{head}, pinned: after {D_STEPS} steps worst leaf "
+                f"{after['leaf']} {after['rel']:.3e} of its max, "
+                f"{after['over']} elements beyond {DIST_PARAM_RTOL:g}, "
+                f"{held}; step walls sharded {_ms(p['walls'][:1])} ms "
+                f"first, then {_ms(p['walls'][1:])} ms; unsharded "
+                f"{_ms(u['walls'][:1])} ms first, then {_ms(u['walls'][1:])}"
+                f" ms; max_memory_allocated GiB by card "
+                f"{[round(y['peak_gib'], 2) for y in ranks]}, unsharded on "
+                f"card 0 {u['peak_gib']:.2f}; {smi_line}")
+            if max(rel) > DIST_LOSS_RTOL:
+                bad.append(f"{shape} {prec} losses rel {max(rel):.3e}")
+            if not p["routes_pinned"]:
+                bad.append(f"{shape} {prec} routes not the pinned ones")
+            if prec == "f64" and (after["over"]
+                                  or after["rel"] > DIST_PARAM_RTOL):
+                bad.append(f"{shape} f64 parameters after {D_STEPS} steps "
+                           f"{after['rel']:.3e} ({after['leaf']}), "
+                           f"{after['over']} elements over")
+            profs = [y["profile"] for y in ranks if y["profile"]]
+            if profs:
+                log(f"{head}: one more sharded step under the profiler, by "
+                    f"card: " + "; ".join(
+                        f"cuda:{i} wall {q['wall_ms']:.1f} ms, busy "
+                        + ("not measured (no device events)"
+                           if q["busy_ms"] is None else
+                           f"{q['busy_ms']:.1f} ms "
+                           f"({100 * q['busy_share']:.1f}%)")
+                        + f", NCCL kernels [count, device ms] {q['nccl']}"
+                        for i, q in enumerate(profs))
+                    + f"; {smi_line}")
+            if "unpinned" not in x:
+                continue
+            f = x["unpinned"]
+            ties = [t for t in f["route_flips"]
+                    if t[2] is not None and t[2] < NEAR_TIE]
+            log(f"{head}, unpinned: first step's expert sets "
+                + ("equal" if not f["route_flips"] else
+                   f"differ at (call, token, router margin) "
+                   f"{f['route_flips']}")
+                + f"; tokens whose sets differ by step {f['flips_by_step']}"
+                f" (later steps follow the flips); losses " + ", ".join(
+                    f"{a:.9f}/{b:.9f}" for a, b in zip(f["losses"],
+                                                       u["losses"]))
+                + f"; after {D_STEPS} steps worst leaf "
+                f"{f['after']['leaf']} {f['after']['rel']:.3e} of its max, "
+                f"{f['after']['over']} elements beyond {DIST_PARAM_RTOL:g};"
+                f" step walls {_ms(f['walls'])} ms; {smi_line}")
+            if len(ties) < len(f["route_flips"]) or len(ties) > MAX_FLIPS:
+                bad.append(f"{shape} unpinned: first-step expert sets differ "
+                           f"beyond {MAX_FLIPS} near-ties (margin < "
+                           f"{NEAR_TIE:g}): {f['route_flips']}")
+    if launched:
+        bad.append(f"kernels launched in the train steps: {launched}")
+    if bad:
+        fail("(5e) (d) " + "; ".join(bad))
+
+
 def dist_serve_rank(rank, world, port, part):
-    """One rank of (c1), (c2), (c4) or (c5) (torch.multiprocessing.spawn's
+    """One rank of (c1), (c2), (c4), (c5) or (d) (torch.multiprocessing.spawn's
     target):
     card `rank`, a NCCL group of `world` ranks. Rank 0 prints the part's
     result as one "DIST-SERVE {json}" line."""
@@ -4511,6 +5001,8 @@ def dist_serve_rank(rank, world, port, part):
     elif part == "c5":
         out = long_decode_f32(torch, dev, dataclasses.replace(
             v2_lite, n_layers=C5_LAYERS), (1, world))
+    elif part == "d":
+        out = dist_train(torch, dev, world)
     else:
         out, params = serve_bf16(torch, dev, v2_lite, (1, world))
         long = long_decode_bf16(torch, dev, v2_lite, (1, world), params)
@@ -4525,10 +5017,15 @@ def dist_serve_rank(rank, world, port, part):
 
 def dist_serve_part(part: str) -> None:
     """(c1), (c2), (c4) or (c5) in this process: one rank per visible card,
-    spawned; a rank that fails fails the part."""
+    spawned; (d) on the first D_CARDS cards; a rank that fails fails the
+    part."""
     import torch
     import torch.multiprocessing as mp
     n = torch.cuda.device_count()
+    if part == "d":
+        if n < D_CARDS:
+            fail(f"(5e) (d) needs {D_CARDS} CUDA cards, {n} visible")
+        n = D_CARDS
     if n < 1:
         fail(f"(5e) ({part}) needs a CUDA card")
     mp.spawn(dist_serve_rank, args=(n, _free_port(), part), nprocs=n,
@@ -4566,13 +5063,15 @@ def run_dist_serve(torch, smi_line):
     """(c1) on every visible card's meshes and, on two cards or more, (c2)
     and, in its process group, (c3); then (c4), (a) on every visible card's
     meshes and, on two cards or more, (b) and (c); then, on two cards or
-    more, (c5); each part a process group of its own in a subprocess with
-    its timeout. Returns
+    more, (c5); then, on D_CARDS cards or more, the sharded train step
+    (d); each part a process group of its own in a subprocess with its
+    timeout. Returns
     ({part: result}, launches by kernel, by kernel and card), the launches
-    those of the sharded KERNELS runs alone."""
+    those of the sharded KERNELS runs alone ((d) launches none)."""
     n_cards = torch.cuda.device_count()
     parts = ["c1"] + (["c2"] if n_cards >= 2 else []) + ["c4"] + (
-        ["c5"] if n_cards >= 2 else [])
+        ["c5"] if n_cards >= 2 else []) + (
+        ["d"] if n_cards >= D_CARDS else [])
     results, total, cards = {}, {k: 0 for k in KERNELS}, \
         {k: {} for k in KERNELS}
     for part in parts:
@@ -4581,6 +5080,10 @@ def run_dist_serve(torch, smi_line):
                    part], DIST_TIMEOUT[part] + (DIST_TIMEOUT["c3"]
                                                if part == "c2" else 0))
         r = _serve_result(part, out)
+        results[part] = {"result": r, "wall_s": wall}
+        if part == "d":
+            log_dist_train(r, wall, smi_line)
+            continue
         # each c1 mesh launches its kernels on every card; (c2) and (c3)
         # together (sparse_select runs in (c3) alone); each (c4) run its
         # part's
@@ -4601,7 +5104,6 @@ def run_dist_serve(torch, smi_line):
                 total[k] += t[k]
                 for card, n in c[k].items():
                     cards[k][card] = cards[k].get(card, 0) + n
-        results[part] = {"result": r, "wall_s": wall}
         if part == "c1":
             log_serve_f32(r, wall, n_cards, smi_line)
         elif part == "c2":
@@ -4618,6 +5120,10 @@ def run_dist_serve(torch, smi_line):
         log(f"[dist] (c4a) on (1, 4), (2, 2) and one row on (2, 2), (c4b) "
             f"and (c4c) did not run: 1 card visible; on four cards python3 "
             f"chip_smoke.py --dist-only runs them; {smi_line}")
+    if n_cards < D_CARDS:
+        log(f"[dist] (d) the sharded train step on (2, 2) and (1, 4) did "
+            f"not run: {n_cards} card(s) visible, {D_CARDS} needed; on four "
+            f"cards python3 chip_smoke.py --dist-only runs it; {smi_line}")
     return results, total, cards
 
 
@@ -5281,10 +5787,11 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
                 tot[card] = tot.get(card, 0) + c
         return result, n
 
-    if dist_only:           # phase 5e (c1)-(c5) alone (a run on four cards)
+    if dist_only:           # phase 5e (c1)-(d) alone (a run on four cards)
         t0 = time.perf_counter()
         _, total, cards = run_dist_serve(torch, smi_line)
-        log(f"[dist] (c1)-(c5) alone: {time.perf_counter() - t0:.1f} s; "
+        log(f"[dist] (c1)-(c5) and (d) alone: "
+            f"{time.perf_counter() - t0:.1f} s; "
             f"launches {total}; by card {cards}; {smi_line}")
         print(smi_line)
         print(json.dumps({"ok": True, "device": {
@@ -5567,8 +6074,8 @@ if __name__ == "__main__":
         dist_part_a(torch, *sys.argv[3:4])
         sys.exit(0)
     if sys.argv[1:2] == ["--dist-part"] and sys.argv[2:3] in (
-            ["c1"], ["c2"], ["c4"], ["c5"]):
-        dist_serve_part(sys.argv[2])      # (c1), (c2), (c4) or (c5)'s ranks
+            ["c1"], ["c2"], ["c4"], ["c5"], ["d"]):
+        dist_serve_part(sys.argv[2])      # (c1)-(c5) or (d)'s ranks
         sys.exit(0)
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
                   dist_only=sys.argv[1:2] == ["--dist-only"]))
