@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 4c-4e alone
-    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c5) and (d) alone
+    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c5), (d), (e) alone
 
 Needs one CUDA card, nvcc (PATH, $CUDA_HOME or /usr/local/cuda) and the
 repository's src/ beside this file; imports nothing of JAX or of the JAX
@@ -181,19 +181,35 @@ package. Phases, each fatal on failure:
    softmax_merge held at TOL, launched on every card and timed at the
    shard's shapes beside their bounds; (d) on four cards or more, a
    process group of its own on the first four, the sharded train step:
-   V2-Lite at full width cut to 4 layers in f32 (and to 2 in f64), 3
-   steps of 4 x 512 tokens, AdamWConfig(), on (2, 2) at n_micro 2 against
-   card 0's unsharded step at n_micro 4 and on (1, 4) against n_micro 2
-   (the same microbatch rows: the EP form dispatches each data shard with
-   its own capacity), pinned to the unsharded routes through the train
-   step's route hook: losses within 1e-5 relative, the first step's
-   gradients within 1e-5 x their leaf's max, one step's parameters within
-   1e-4 x max but the elements whose two first-step gradients differ in
-   sign (counted and printed), in f64 every parameter within 1e-4 x max
-   after 3 steps; unpinned in f32, the first step's routes equal but for
-   at most 4 near-ties (router margin < 1e-3); the step walls, peak memory
-   by card, and one sharded step under the profiler on every card (busy
-   share, NCCL kernels by kind); no kernel launched;
+   V2-Lite at full width cut to 4 layers in f32 (and to 2 in f64), its
+   weights drawn and laid out leaf by leaf, 3 steps of 4 x 512 tokens,
+   AdamWConfig(), on (2, 2) at n_micro 2 against card 0's unsharded step
+   at n_micro 4 and on (1, 4) against n_micro 2 (the same microbatch rows:
+   the EP form dispatches each data shard with its own capacity), pinned
+   to the unsharded routes through the train step's route hook: losses
+   within 1e-5 relative, the first step's gradients within 1e-9 (f64) and
+   1e-4 (f32) x their leaf's max, the parameters after that step within
+   rtol 1e-6 (atol 1e-6 x lr) of adamw_update applied unsharded to the
+   sharded run's own first-step gradients, in f64 every parameter within
+   1e-4 x max after 3 steps (in f32 printed); unpinned in f32, the first
+   step's routes equal but for at most 4 near-ties (router margin <
+   1e-3); the step walls, peak memory by card, and one sharded step under
+   the profiler on every card (busy share, NCCL kernels by kind); no
+   kernel launched; (e) in a process group of its own on the same four
+   cards, V2-Lite as published (27 layers) trained: (e1) in f32, 3 steps
+   of (d)'s batches on (1, 4) at n_micro 2 and on (2, 2) at n_micro 1
+   pinned to (1, 4)'s routes (each EP capacity group the same rows):
+   losses within 1e-5 relative, routes recorded = pinned, the first
+   step's global and per-leaf gradient norms within 1e-4 relative, the
+   gradients of the embedding, the final norm and layers 0, 1 and 26
+   within 1e-4 x their max, an unpinned forward's expert sets (1, 4)'s
+   but in the first MoE call that differs at most 4 near-ties (later
+   calls carry a flip through attention); (e2) bf16 weights and gradients
+   with f32
+   moments on (1, 4), 6 steps on one batch: finite losses and parameters,
+   the last loss below the first; in both, each card's step walls, one
+   profiled step, max_memory_allocated beside the reckoned state of its
+   local shards; no kernel launched;
 5f. examples — repro_torch.examples in-process through run():
    quickstart (route+merge and the mla_decode kernel within 1e-5),
    serve_routed, agentic_fanout (routed fork decode within 1e-5),
@@ -216,7 +232,8 @@ package. Phases, each fatal on failure:
    plan_execute where it fetched, and no kernel in the train steps; in
    5e's sharded serve, counted in each rank's process around the sharded
    run with the kernels ("dist_serve"), its four kernels on every card,
-   and (c4)'s ssd_chunk and softmax_merge; in (d), no kernel on any card;
+   and (c4)'s ssd_chunk and softmax_merge; in (d) and (e), no kernel on
+   any card;
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -2747,10 +2764,10 @@ DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 128, 3   # (a): 4 x 128 tokens, 3 steps
 DIST_LOSS_RTOL, DIST_PARAM_RTOL = 1e-5, 1e-4
 CM_TOL = 2e-5                                  # the collective matmul
 # seconds, each subprocess: (a), (b), the sharded serve's (c1), (c2),
-# (c4), (c5) and the sharded train step's (d); (c3) runs in (c2)'s
-# process, which gets both parts' seconds
+# (c4), (c5) and the sharded train step's (d) and (e); (c3) runs in
+# (c2)'s process, which gets both parts' seconds
 DIST_TIMEOUT = {"a": 300, "b": 900, "c1": 600, "c2": 600, "c3": 600,
-                "c4": 600, "c5": 600, "d": 600}
+                "c4": 600, "c5": 600, "d": 600, "e": 600}
 DRYRUN_ARCH = "deepseek-v2-236b"
 # (b)'s further cells, each `python -m repro_torch.launch.dryrun` in a
 # subprocess of its own, at full depth, run beside the 236B one: GQA heads
@@ -4519,6 +4536,17 @@ D_BATCH, D_SEQ, D_STEPS, D_MICRO = 4, 512, 3, 2
 # microbatch i holds the rows of unsharded microbatches 2i and 2i + 1
 D_MESHES = {(2, 2): 4, (1, 4): 2}
 D_CARDS = 4
+# the first step's gradients against the unsharded run's, each leaf's
+# max|diff| over its max: in f64 the fault detector (a reordering is
+# ~1e-16 relative, a sharding fault shows at >= 1e-6), in f32 the limit of
+# the port's f32 gradients against the JAX package (tests/test_torch_train.py)
+D_GRAD_RTOL = {"f32": 1e-4, "f64": 1e-9}
+# the parameters after one sharded step against adamw_update applied
+# unsharded to the sharded run's own first-step gradients: the optimizer's
+# rtol (tests/test_torch_optim_data_ckpt.py), and 1e-6 of a step (lr) for
+# an element the step takes near zero (the global norm sums in another
+# order: an ulp of the clip scale, an ulp of the element's step)
+ADAMW_RTOL = 1e-6
 
 
 def _host(t):
@@ -4537,13 +4565,36 @@ def _train_params(torch, M, cfg, dev, dtype):
     return trainable(params.to(dtype))
 
 
+def _sharded_train_params(torch, cfg, mesh, dev, dtype):
+    """The weights of _train_params laid out on mesh leaf by leaf as they
+    are drawn (sharding.init_sharded: bit for bit _train_params' tree
+    sharded, and no card ever holds the whole model); in bf16 the
+    published dtype instead, init_model's own (the router in f32)."""
+    from repro_torch.distributed.sharding import init_sharded
+    from repro_torch.models.module import trainable
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if dtype == torch.bfloat16:
+        return trainable(init_sharded(cfg, mesh, gen, device=dev,
+                                      dtype=dtype))
+    return trainable(init_sharded(cfg, mesh, gen, device=dev,
+                                  dtype=torch.float32, cast=dtype))
+
+
 def _train_cfgs(dtype, n_micro, **kw):
-    """(AdamWConfig(), the TrainConfig of (d)'s steps: gradients
+    """(AdamWConfig(), the TrainConfig of (d)'s and (e)'s steps: gradients
     accumulated in the parameters' dtype)."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import TrainConfig
     return AdamWConfig(), TrainConfig(n_micro=n_micro, accum_dtype=dtype,
                                       **kw)
+
+
+def _train_batches(torch, dev, vocab, n):
+    """n batches of D_BATCH x D_SEQ tokens and targets from seed 1."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    return [{k: torch.randint(0, vocab, (D_BATCH, D_SEQ), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "targets")} for _ in range(n)]
 
 
 def _leaf_diff(torch, dev, got, want):
@@ -4565,8 +4616,7 @@ def train_twin(torch, M, cfg, dev, batches, n_micro, dtype, margins=False):
     (a forward without gradients before the first step). Returns the
     routes (each step's lists), losses, walls (host clock ending in a
     synchronize), the first batch's gradients (loss_and_grads) and the
-    parameters after one step and after the last (on the host), the peak
-    memory."""
+    parameters after the last step (on the host), the peak memory."""
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.train.step import loss_and_grads, make_train_step
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4585,7 +4635,7 @@ def train_twin(torch, M, cfg, dev, batches, n_micro, dtype, margins=False):
     del grads
     opt = adamw_init(params, ocfg)
     step = make_train_step(cfg, ocfg, tcfg)
-    for i, b in enumerate(batches):
+    for b in batches:
         torch.cuda.synchronize(dev)
         t = time.perf_counter()
         out["routes"].append([])
@@ -4593,8 +4643,6 @@ def train_twin(torch, M, cfg, dev, batches, n_micro, dtype, margins=False):
         out["losses"].append(float(mets["loss"]))
         torch.cuda.synchronize(dev)
         out["walls"].append(time.perf_counter() - t)
-        if i == 0:
-            out["after_one"] = [_host(p) for p in params.parameters()]
     out["after"] = [_host(p) for p in params.parameters()]
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     del params, opt, step
@@ -4626,24 +4674,16 @@ def _twin_routes(torch, cfg, dev, twin, n_twin):
 
 
 class Spread:
-    """Leaves of one run against the twin's: the worst leaf's max|diff| /
-    max and its name, the elements beyond DIST_PARAM_RTOL x their leaf's
-    max over all leaves, and, given both runs' first-step gradients
-    (grads: (got, want)), how many of those have gradients of opposite
-    sign (sign_flips: AdamW's first step moves an element by ~lr sign(g)
-    wherever |g| >> eps)."""
+    """Leaves of one run against another's: the worst leaf's max|diff| /
+    max and its name, and the elements beyond DIST_PARAM_RTOL x their
+    leaf's max over all leaves."""
 
     def __init__(self):
-        self.rel, self.leaf, self.over, self.sign_flips = 0.0, None, 0, 0
+        self.rel, self.leaf, self.over = 0.0, None, 0
 
-    def add(self, torch, dev, name, got, want, grads=None):
+    def add(self, torch, dev, name, got, want):
         diff, scale = _leaf_diff(torch, dev, got, want)
-        over = diff > DIST_PARAM_RTOL * scale
-        self.over += int(over.sum())
-        if grads is not None:
-            g1, g0 = (g.to(dev) for g in grads)
-            self.sign_flips += int((over & (torch.sign(g1)
-                                            != torch.sign(g0))).sum())
+        self.over += int((diff > DIST_PARAM_RTOL * scale).sum())
         if float(diff.max()) / scale >= self.rel:
             self.rel, self.leaf = float(diff.max()) / scale, name
 
@@ -4685,111 +4725,152 @@ def profiled_step(torch, fn):
             "nccl": {k: [n, round(ms, 3)] for k, (n, ms) in nccl.items()}}
 
 
-def train_sharded(torch, M, cfg, mesh, dev, batches, dtype, twin, *,
-                  pinned=None, profile=False):
-    """(d)'s sharded steps on mesh: D_STEPS steps of cfg from seed 0 in
-    dtype (param_shardings, sp_policy, ep_axis "model", D_MICRO
-    microbatches), pinned to `pinned` (each step's lists) or not, each
-    recording its routes through the step's hook; walls on the host clock
-    ending in a synchronize. Rank 0 (twin: the unsharded run; None
-    elsewhere) reports against the twin: losses and walls by step, every
-    step's routes gathered whole, the parameters after the last step
-    (Spread), and where pinned the first batch's gradients (loss_and_grads
-    on the same pinned routes; the three worst leaves as (max|diff| / max,
-    name)) and the parameters after one step. With profile, one more step
-    (the first batch, unpinned) under the profiler on every rank. Returns
-    (rank 0's report or None, this rank's peak GiB in a step (its memory
-    before the step included), its profile or None)."""
+def train_sharded(torch, M, cfg, mesh, dev, params, batches, *, n_micro,
+                  pinned=None, first=None, last=None, profile=False):
+    """Trains params (laid out on mesh, updated in place) one step a batch
+    of batches: param_shardings, sp_policy, ep_axis "model", n_micro
+    microbatches, AdamWConfig(), pinned to `pinned` (each step's lists) or
+    not, each step recording its routes through the step's hook. The
+    first step runs as train_step does (loss_and_grads, then adamw_update
+    with the model's decay mask), so that first(names, grads, params),
+    called on every rank after it (a gather is a collective), sees the
+    gradients that AdamW took and the parameters it made of them;
+    last(names, params) is called after the last step. With profile, one
+    more step (the first batch, unpinned) under the profiler. Returns this
+    rank's {"losses", "walls" (host clock ending in a synchronize; first's
+    time not in them), "routes" (each step's lists whole, on the host),
+    "peak_gib" (max_memory_allocated in a step, the memory before it
+    included), "profile"}."""
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.distributed import policy as POL
     from repro_torch.distributed import sharding as SH
-    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.adamw import adamw_init, adamw_update, decay_mask
     from repro_torch.train.step import loss_and_grads, make_train_step
-    params = _train_params(torch, M, cfg, dev, dtype)
     shard = SH.param_shardings(params, mesh)
-    SH.shard_params(params, shard)
-    torch.cuda.empty_cache()
-    ocfg, tcfg = _train_cfgs(dtype, D_MICRO, ep_axis="model")
+    ocfg, tcfg = _train_cfgs(params.embed.table.dtype, n_micro,
+                             ep_axis="model")
     opt = adamw_init(params, ocfg)
     step = make_train_step(cfg, ocfg, tcfg, param_shardings=shard)
+    decay = decay_mask(params)
     bs = SH.batch_sharding(mesh)
     place = lambda b: {k: SH.distribute(v, mesh, bs.spec)
                        for k, v in b.items()}
     names = [k for k, _ in params.named_parameters()]
-    rep = {"losses": [], "walls": [], "routes": []} \
-        if twin is not None else None
-    wholes = lambda: (p.detach().full_tensor() for p in params.parameters())
-    prof, peak, grads = None, 0.0, None
+    out = {"losses": [], "walls": [], "routes": [], "peak_gib": 0.0,
+           "profile": None}
     with POL.use_policy(POL.sp_policy(mesh)), implicit_replication():
-        if pinned is not None:
-            _, got = loss_and_grads(params, cfg, place(batches[0]), tcfg,
-                                    shard, pinned=pinned[0])
-            grads = []
-            for g in got:
-                whole = g.full_tensor()       # a collective: every rank
-                grads.append(_host(whole) if rep is not None else None)
-                del whole
-            del got
-            if rep is not None:
-                rep["grad_worst"] = sorted(
-                    ((_leaf_rel(torch, dev, a, b), name) for name, a, b
-                     in zip(names, grads, twin["grads"])), reverse=True)[:3]
         for i, b in enumerate(batches):
+            pin = None if pinned is None else pinned[i]
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             t = time.perf_counter()
             routes = []
-            params, opt, mets = step(
-                params, opt, place(b), routes=routes,
-                pinned=None if pinned is None else pinned[i])
-            loss = float(mets["loss"].full_tensor())
+            if i == 0 and first is not None:
+                loss, grads = loss_and_grads(params, cfg, place(b), tcfg,
+                                             shard, routes=routes,
+                                             pinned=pin)
+                params, opt, mets = adamw_update(params, grads, opt, ocfg,
+                                                 decay=decay)
+                mets["loss"] = loss
+            else:
+                params, opt, mets = step(params, opt, place(b),
+                                         routes=routes, pinned=pin)
+            out["losses"].append(float(mets["loss"].full_tensor()))
             torch.cuda.synchronize(dev)
-            wall = time.perf_counter() - t
-            peak = max(peak, torch.cuda.max_memory_allocated(dev) / 2**30)
-            routes = [[r.full_tensor().cpu() for r in lst] for lst in routes]
-            if rep is not None:
-                rep["losses"].append(loss)
-                rep["walls"].append(wall)
-                rep["routes"].append(routes)
-            if i == 0 and grads is not None:
-                one = Spread()
-                for k, whole in enumerate(wholes()):
-                    if rep is not None:
-                        one.add(torch, dev, names[k], whole,
-                                twin["after_one"][k],
-                                (grads[k], twin["grads"][k]))
-                    del whole
-                if rep is not None:
-                    rep["one_step"] = vars(one)
+            out["walls"].append(time.perf_counter() - t)
+            out["peak_gib"] = max(out["peak_gib"], torch.cuda.
+                                  max_memory_allocated(dev) / 2**30)
+            out["routes"].append([[r.full_tensor().cpu() for r in lst]
+                                  for lst in routes])
+            if i == 0 and first is not None:
+                first(names, grads, params)
                 del grads
-        after = Spread()
-        for k, whole in enumerate(wholes()):
-            if rep is not None:
-                after.add(torch, dev, names[k], whole, twin["after"][k])
-            del whole
-        if rep is not None:
-            rep["after"] = vars(after)
+        if last is not None:
+            last(names, params)
         if profile:
-            prof = profiled_step(torch, lambda: step(params, opt,
-                                                     place(batches[0])))
-    del params, opt, step
+            out["profile"] = profiled_step(
+                torch, lambda: step(params, opt, place(batches[0])))
+    del opt, step
     torch.cuda.empty_cache()
-    return rep, peak, prof
+    return out
 
 
 def _flat(lists):
     return [t for lst in lists for t in lst]
 
 
+class TwinHolds:
+    """(d)'s first and last callbacks of train_sharded on every rank;
+    rank 0 (twin: the unsharded run; None elsewhere) holds the sharded run
+    against it: the first step's gradients, each leaf's max|diff| / max
+    against the twin's ("grad_worst": the three worst (rel, leaf)); the
+    parameters after that step against AdamW's image of those gradients
+    (adamw_update applied unsharded on this card from the same weights:
+    the elements beyond ADAMW_RTOL x (|image| + lr), the worst such ratio
+    and its leaf); the parameters after the last step against the twin's
+    (Spread)."""
+
+    def __init__(self, torch, M, cfg, dev, dtype, twin):
+        self.torch, self.M, self.cfg, self.dev = torch, M, cfg, dev
+        self.dtype, self.twin, self.rep = dtype, twin, {}
+
+    def first(self, names, grads, params):
+        from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                             adamw_update, decay_mask)
+        torch, dev, twin = self.torch, self.dev, self.twin
+        host, rel = [], []
+        for name, g, want in zip(names, grads, twin["grads"] if twin
+                                 else [None] * len(names)):
+            whole = g.full_tensor()       # a collective: every rank
+            if twin is not None:
+                host.append(_host(whole))
+                rel.append((_leaf_rel(torch, dev, whole, want), name))
+            del whole
+        if twin is not None:
+            self.rep["grad_worst"] = sorted(rel, reverse=True)[:3]
+            image = _train_params(torch, self.M, self.cfg, dev, self.dtype)
+            ocfg = AdamWConfig()
+            adamw_update(image, [h.to(dev) for h in host],
+                         adamw_init(image, ocfg), ocfg,
+                         decay=decay_mask(image))
+            del host
+            image = list(image.parameters())
+        worst, leaf, over, lr = 0.0, None, 0, AdamWConfig().lr
+        for k, p in enumerate(params.parameters()):
+            whole = p.detach().full_tensor()
+            if twin is not None:
+                want = image[k].detach()
+                ratio = (whole - want).abs() / (want.abs() + lr)
+                over += int((ratio > ADAMW_RTOL).sum())
+                if float(ratio.max()) >= worst:
+                    worst, leaf = float(ratio.max()), names[k]
+                image[k] = None
+            del whole
+        if twin is not None:
+            self.rep["one_step"] = {"rel": worst, "leaf": leaf,
+                                    "over": over}
+        torch.cuda.empty_cache()
+
+    def last(self, names, params):
+        after = Spread()
+        for k, p in enumerate(params.parameters()):
+            whole = p.detach().full_tensor()
+            if self.twin is not None:
+                after.add(self.torch, self.dev, names[k], whole,
+                          self.twin["after"][k])
+            del whole
+        self.rep["after"] = vars(after)
+
+
 def dist_train(torch, dev, world):
     """(d) in one rank of a NCCL group of D_CARDS: on each mesh of
     D_MESHES, card 0 runs the unsharded twin (train_twin; the other ranks
     wait), frees it and broadcasts its routes; then every rank runs the
-    sharded steps pinned to them (held, counted, then one more step under
-    the profiler), and in f32 also unpinned; first with V2-Lite at full
-    width cut to D_LAYERS in f32, then to D_F64_LAYERS in f64. The launch
-    counters are zeroed before and read after. Returns rank 0's report
-    (None elsewhere)."""
+    sharded steps pinned to them (held through TwinHolds, then one more
+    step under the profiler), and in f32 also unpinned; first with V2-Lite
+    at full width cut to D_LAYERS in f32, then to D_F64_LAYERS in f64, the
+    sharded weights drawn leaf by leaf. The launch counters are zeroed
+    before and read after. Returns rank 0's report (None elsewhere)."""
     import torch.distributed as dist
     from repro_torch.configs import deepseek_v2_lite
     from repro_torch.launch.mesh import make_mesh
@@ -4801,10 +4882,7 @@ def dist_train(torch, dev, world):
                     torch.float32),
             "f64": (dataclasses.replace(full, n_layers=D_F64_LAYERS),
                     torch.float64)}
-    g = torch.Generator(device=dev).manual_seed(1)
-    batches = [{k: torch.randint(0, full.vocab, (D_BATCH, D_SEQ),
-                                 generator=g, device=dev, dtype=torch.int32)
-                for k in ("tokens", "targets")} for _ in range(D_STEPS)]
+    batches = _train_batches(torch, dev, full.vocab, D_STEPS)
     zero, read = _launch_counters()
     zero()
     runs, mine = [], []
@@ -4818,20 +4896,31 @@ def dist_train(torch, dev, world):
                                   margins=prec == "f32")
                 torch.cuda.empty_cache()
             pinned = _twin_routes(torch, cfg, dev, twin, n_twin)
-            rep, peak, prof = train_sharded(
-                torch, M, cfg, mesh, dev, batches, dtype, twin,
-                pinned=pinned, profile=prec == "f32")
-            mine.append({"mesh": list(shape), "prec": prec, "peak_gib": peak,
-                         "profile": prof})
+            holds = TwinHolds(torch, M, cfg, dev, dtype, twin)
+            params = _sharded_train_params(torch, cfg, mesh, dev, dtype)
+            rec = train_sharded(torch, M, cfg, mesh, dev, params, batches,
+                                n_micro=D_MICRO, pinned=pinned,
+                                first=holds.first, last=holds.last,
+                                profile=prec == "f32")
+            del params
+            mine.append({"mesh": list(shape), "prec": prec,
+                         "peak_gib": rec["peak_gib"],
+                         "profile": rec["profile"]})
             free = None
             if prec == "f32":
-                free, _, _ = train_sharded(torch, M, cfg, mesh, dev, batches,
-                                           dtype, twin)
+                free_holds = TwinHolds(torch, M, cfg, dev, dtype, twin)
+                params = _sharded_train_params(torch, cfg, mesh, dev, dtype)
+                free = train_sharded(torch, M, cfg, mesh, dev, params,
+                                     batches, n_micro=D_MICRO,
+                                     last=free_holds.last)
+                del params
             if twin is not None:
                 want = [[t.cpu() for t in _flat(s)] for s in pinned]
+                rep = dict(holds.rep, losses=rec["losses"],
+                           walls=rec["walls"])
                 rep["routes_pinned"] = all(
                     torch.equal(a, b) for got, w in
-                    zip(rep.pop("routes"), want)
+                    zip(rec["routes"], want)
                     for a, b in zip(_flat(got), w))
                 run[prec] = {"unsharded": {k: twin[k] for k in (
                     "losses", "walls", "peak_gib")}, "pinned": rep}
@@ -4840,12 +4929,14 @@ def dist_train(torch, dev, world):
                     margins = [t.cpu() for t in _flat(_joined(
                         torch, [twin["margins"][i * n_moe:(i + 1) * n_moe]
                                 for i in range(n_twin)], n_twin // D_MICRO))]
-                    got = [_flat(s) for s in free.pop("routes")]
-                    free["route_flips"] = route_flips(torch, got[0], want[0],
-                                                      margins)
-                    free["flips_by_step"] = [len(route_flips(torch, a, b))
-                                             for a, b in zip(got, want)]
-                    run[prec]["unpinned"] = free
+                    got = [_flat(s) for s in free["routes"]]
+                    run[prec]["unpinned"] = {
+                        "losses": free["losses"], "walls": free["walls"],
+                        "after": free_holds.rep["after"],
+                        "route_flips": route_flips(torch, got[0], want[0],
+                                                   margins),
+                        "flips_by_step": [len(route_flips(torch, a, b))
+                                          for a, b in zip(got, want)]}
                 run[prec]["layers"] = cfg.n_layers
                 run[prec]["params"] = count_params(M.init_model(
                     cfg, device="meta"))
@@ -4864,31 +4955,61 @@ def _ms(walls):
     return ", ".join(f"{w * 1e3:.1f}" for w in walls)
 
 
+def _profile_line(profs):
+    return "; ".join(
+        f"cuda:{i} wall {q['wall_ms']:.1f} ms, busy "
+        + ("not measured (no device events)" if q["busy_ms"] is None else
+           f"{q['busy_ms']:.1f} ms ({100 * q['busy_share']:.1f}%)")
+        + f", NCCL kernels [count, device ms] {q['nccl']}"
+        for i, q in enumerate(profs))
+
+
+def _first_flips(flips):
+    """route_flips' list in brief: {"first": the flips of the first MoE
+    call that has any, "by_call": {call: tokens whose sets differ}, "rows":
+    the batch rows they lie in}."""
+    by_call = {}
+    for call, _, _ in flips:
+        by_call[call] = by_call.get(call, 0) + 1
+    return {"first": [f for f in flips if f[0] == flips[0][0]] if flips
+            else [], "by_call": by_call,
+            "rows": sorted({t // D_SEQ for _, t, _ in flips})}
+
+
+def _flip_rule(flips):
+    """Whether route flips pass (c1)'s rule: each at a near-tie (router
+    margin below NEAR_TIE), at most MAX_FLIPS of them."""
+    ties = [t for t in flips if t[2] is not None and t[2] < NEAR_TIE]
+    return len(ties) == len(flips) and len(ties) <= MAX_FLIPS
+
+
 def log_dist_train(r, wall, smi_line):
     """(d)'s lines, a mesh and precision each; fail unless, pinned to the
     twin's routes, every step's loss is within DIST_LOSS_RTOL and the
-    routes each sharded step records are the pinned ones, and, in f64,
-    every parameter after D_STEPS steps is within DIST_PARAM_RTOL x its
-    leaf's max; unless the unpinned f32 run's first step chose the twin's
-    expert sets but for at most MAX_FLIPS near-ties (router margin below
-    NEAR_TIE); and unless no kernel was launched on any card. The f32
-    pinned run's first-step gradients, its parameters after one step and
-    after D_STEPS are printed and not held: which f32 limit holds a
-    sharded step's gradients and AdamW's steps from them is open
-    (ROADMAP C.8)."""
+    routes each sharded step records are the pinned ones; the first
+    step's gradients are within D_GRAD_RTOL x each leaf's max of the
+    twin's; the parameters after that step are within ADAMW_RTOL of
+    AdamW's image of those gradients; in f64 every parameter after
+    D_STEPS steps is within DIST_PARAM_RTOL x its leaf's max (in f32
+    printed: AdamW's step lr g / (|g| + eps) turns the last bits of a
+    gradient near eps into a good part of lr, PERF.md section 2); unless
+    the unpinned f32 run's first step chose the twin's expert sets but for
+    at most MAX_FLIPS near-ties (router margin below NEAR_TIE); and unless
+    no kernel was launched on any card."""
     launched = {k: n for x in r["by_rank"] for k, c in x["launches"].items()
                 for n in c.values() if n}
     f32, f64 = r["runs"][0]["f32"], r["runs"][0]["f64"]
     log(f"[dist] (d) the sharded train step across {D_CARDS} cards: "
         f"V2-Lite at full width cut to {f32['layers']} layers "
         f"({f32['params']} parameters) in f32 and to {f64['layers']} "
-        f"({f64['params']}) in f64, weights from seed 0 on each card, "
-        f"{D_STEPS} steps of {D_BATCH} x {D_SEQ} tokens, AdamWConfig(), "
-        f"gradients accumulated in the parameters' dtype, TF32 off; on "
-        f"each (data, model) NCCL mesh param_shardings, sp_policy, ep_axis "
-        f"model, n_micro {D_MICRO}, against card 0's unsharded step with "
-        f"the same microbatch rows; kernels launched in the steps "
-        f"{launched or 'none'}; part wall {wall:.1f} s; {smi_line}")
+        f"({f64['params']}) in f64, weights from seed 0 drawn on each card "
+        f"and laid out leaf by leaf, {D_STEPS} steps of {D_BATCH} x "
+        f"{D_SEQ} tokens, AdamWConfig(), gradients accumulated in the "
+        f"parameters' dtype, TF32 off; on each (data, model) NCCL mesh "
+        f"param_shardings, sp_policy, ep_axis model, n_micro {D_MICRO}, "
+        f"against card 0's unsharded step with the same microbatch rows; "
+        f"kernels launched in the steps {launched or 'none'}; part wall "
+        f"{wall:.1f} s; {smi_line}")
     mine = {(tuple(x["mesh"]), x["prec"]): [] for x in r["by_rank"][0]
             ["runs"]}
     for x in r["by_rank"]:
@@ -4903,8 +5024,8 @@ def log_dist_train(r, wall, smi_line):
             rel = [abs(a - b) / abs(b) for a, b in zip(p["losses"],
                                                        u["losses"])]
             one, after = p["one_step"], p["after"]
+            grad_rel = p["grad_worst"][0][0]
             ranks = mine[(shape, prec)]
-            held = "held" if prec == "f64" else "not held (ROADMAP C.8)"
             head = (f"[dist] (d) {shape} {prec}, {x['layers']} layers, "
                     f"sharded n_micro {D_MICRO} against unsharded n_micro "
                     f"{run['twin_micro']}")
@@ -4914,24 +5035,34 @@ def log_dist_train(r, wall, smi_line):
                 + f" (rel {max(rel):.3e}, rtol {DIST_LOSS_RTOL:g}); routes "
                 f"recorded = pinned {p['routes_pinned']}; first step's "
                 f"gradients, worst leaves (max|diff| / max, leaf) "
-                f"{p['grad_worst']}, not held; after one step worst leaf "
-                f"{one['leaf']} {one['rel']:.3e} of its max, {one['over']} "
-                f"elements beyond {DIST_PARAM_RTOL:g} x max, "
-                f"{one['sign_flips']} of them with first-step gradients of "
-                f"opposite sign, not held; {smi_line}")
-            log(f"{head}, pinned: after {D_STEPS} steps worst leaf "
-                f"{after['leaf']} {after['rel']:.3e} of its max, "
-                f"{after['over']} elements beyond {DIST_PARAM_RTOL:g}, "
-                f"{held}; step walls sharded {_ms(p['walls'][:1])} ms "
-                f"first, then {_ms(p['walls'][1:])} ms; unsharded "
-                f"{_ms(u['walls'][:1])} ms first, then {_ms(u['walls'][1:])}"
-                f" ms; max_memory_allocated GiB by card "
-                f"{[round(y['peak_gib'], 2) for y in ranks]}, unsharded on "
-                f"card 0 {u['peak_gib']:.2f}; {smi_line}")
+                f"{p['grad_worst']}, limit {D_GRAD_RTOL[prec]:g} x max; "
+                f"after one step against adamw_update of the sharded run's "
+                f"own first-step gradients (unsharded, card 0): worst "
+                f"|diff| / (|image| + lr) {one['rel']:.3e} ({one['leaf']}), "
+                f"{one['over']} elements beyond {ADAMW_RTOL:g}; {smi_line}")
+            held = ("held" if prec == "f64" else
+                    "printed, not a limit (PERF.md section 2)")
+            log(f"{head}, pinned: after {D_STEPS} steps against the "
+                f"unsharded run worst leaf {after['leaf']} "
+                f"{after['rel']:.3e} of its max, {after['over']} elements "
+                f"beyond {DIST_PARAM_RTOL:g} x max, {held}; step walls "
+                f"sharded {_ms(p['walls'][:1])} ms first (loss_and_grads "
+                f"and adamw_update), then {_ms(p['walls'][1:])} ms; "
+                f"unsharded {_ms(u['walls'][:1])} ms first, then "
+                f"{_ms(u['walls'][1:])} ms; max_memory_allocated GiB by "
+                f"card {[round(y['peak_gib'], 2) for y in ranks]}, "
+                f"unsharded on card 0 {u['peak_gib']:.2f}; {smi_line}")
             if max(rel) > DIST_LOSS_RTOL:
                 bad.append(f"{shape} {prec} losses rel {max(rel):.3e}")
             if not p["routes_pinned"]:
                 bad.append(f"{shape} {prec} routes not the pinned ones")
+            if grad_rel > D_GRAD_RTOL[prec]:
+                bad.append(f"{shape} {prec} first-step gradients "
+                           f"{p['grad_worst']}")
+            if one["over"]:
+                bad.append(f"{shape} {prec} one step against AdamW's image "
+                           f"{one['rel']:.3e} ({one['leaf']}), "
+                           f"{one['over']} elements over")
             if prec == "f64" and (after["over"]
                                   or after["rel"] > DIST_PARAM_RTOL):
                 bad.append(f"{shape} f64 parameters after {D_STEPS} steps "
@@ -4940,20 +5071,10 @@ def log_dist_train(r, wall, smi_line):
             profs = [y["profile"] for y in ranks if y["profile"]]
             if profs:
                 log(f"{head}: one more sharded step under the profiler, by "
-                    f"card: " + "; ".join(
-                        f"cuda:{i} wall {q['wall_ms']:.1f} ms, busy "
-                        + ("not measured (no device events)"
-                           if q["busy_ms"] is None else
-                           f"{q['busy_ms']:.1f} ms "
-                           f"({100 * q['busy_share']:.1f}%)")
-                        + f", NCCL kernels [count, device ms] {q['nccl']}"
-                        for i, q in enumerate(profs))
-                    + f"; {smi_line}")
+                    f"card: {_profile_line(profs)}; {smi_line}")
             if "unpinned" not in x:
                 continue
             f = x["unpinned"]
-            ties = [t for t in f["route_flips"]
-                    if t[2] is not None and t[2] < NEAR_TIE]
             log(f"{head}, unpinned: first step's expert sets "
                 + ("equal" if not f["route_flips"] else
                    f"differ at (call, token, router margin) "
@@ -4966,7 +5087,7 @@ def log_dist_train(r, wall, smi_line):
                 f"{f['after']['leaf']} {f['after']['rel']:.3e} of its max, "
                 f"{f['after']['over']} elements beyond {DIST_PARAM_RTOL:g};"
                 f" step walls {_ms(f['walls'])} ms; {smi_line}")
-            if len(ties) < len(f["route_flips"]) or len(ties) > MAX_FLIPS:
+            if not _flip_rule(f["route_flips"]):
                 bad.append(f"{shape} unpinned: first-step expert sets differ "
                            f"beyond {MAX_FLIPS} near-ties (margin < "
                            f"{NEAR_TIE:g}): {f['route_flips']}")
@@ -4976,8 +5097,309 @@ def log_dist_train(r, wall, smi_line):
         fail("(5e) (d) " + "; ".join(bad))
 
 
+# ---------------------------------------------------------------------------
+# 5e (e). V2-Lite as published trained across four cards: the f32 step on
+# (2, 2) held against (1, 4), and the published dtype on (1, 4)
+# ---------------------------------------------------------------------------
+
+# (e1): f32 at E_F32_LAYERS of V2-Lite's 27 layers, D_STEPS steps of (d)'s
+# batches; (1, 4) at n_micro 2, (2, 2) at n_micro 1, so that each capacity
+# group of the expert-parallel MoE holds the same rows on both meshes (a
+# data shard's rows, or a microbatch's where the data axis is 1): the
+# EP form drops the pairs past each group's capacity
+E_F32_LAYERS = 27
+E_MICRO = {(1, 4): 2, (2, 2): 1}
+# (e2): the published dtype (bf16 weights and gradients, f32 moments) at
+# 27 layers on (1, 4), E_BF16_STEPS steps on the first batch repeated
+E_BF16_STEPS = 6
+# (e1)'s gradients held elementwise (D_GRAD_RTOL["f32"] x each leaf's max):
+# the embedding (which is also the head), the final norm and every leaf
+# of layers 0, 1 and the last (V2-Lite's first layer is dense)
+E_HELD_LEAVES = ("embed.", "final_norm.", "dense_blocks.0.", "blocks.0.",
+                 f"blocks.{E_F32_LAYERS - 2}.")
+# (e1)'s global and per-leaf gradient norms, relative
+E_NORM_RTOL = 1e-4
+
+
+def state_bytes(params, n_micro, accum_dtype):
+    """This card's reckoned training state, from its local shards:
+    (weights + gradients (the parameters' dtypes) + AdamW's two f32
+    moments, the f32 accumulators where n_micro > 1) in bytes."""
+    base = acc = 0
+    for p in params.parameters():
+        n = p.to_local().numel()
+        base += n * (2 * p.element_size() + 8)
+        acc += n * accum_dtype.itemsize if n_micro > 1 else 0
+    return base, acc
+
+
+def forward_routes(torch, M, cfg, params, mesh, batch, n_micro,
+                   margins=False):
+    """A forward without gradients of batch's n_micro microbatches on mesh
+    (sp_policy, the EP MoE), as the first step's forward computes them:
+    (one list of whole (T, k) routes a microbatch, on the host; with
+    margins, each MoE call's router margins (RouterMargins) on this
+    rank)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    rows = D_BATCH // n_micro
+    spec = SH.batch_sharding(mesh).spec
+    out = []
+    pol = POL.sp_policy(mesh).for_batch(rows)
+    with torch.no_grad(), POL.use_policy(pol), implicit_replication(), \
+            RouterMargins(torch) as rm:
+        for i in range(n_micro):
+            routes = []
+            M.loss_fn(params, cfg, {k: SH.distribute(
+                v[i * rows:(i + 1) * rows], mesh, spec)
+                for k, v in batch.items()}, routes=routes, ep_axis="model")
+            out.append([r.full_tensor().cpu() for r in routes])
+    return out, ([m.cpu() for m in rm.margins] if margins else None)
+
+
+class GradProbe:
+    """(e1)'s first callback of train_sharded: the global gradient norm
+    and each leaf's (every rank), and the leaves whose names start with
+    one of E_HELD_LEAVES gathered whole: kept on the host on rank 0 or,
+    given ref (the other mesh's probe), held there against ref's, each
+    leaf's max|diff| / max."""
+
+    def __init__(self, torch, dev, ref=None):
+        self.torch, self.dev, self.ref = torch, dev, ref
+        self.norms, self.kept, self.rel = {}, {}, {}
+        self.global_norm = None
+
+    def __call__(self, names, grads, params):
+        import torch.distributed as dist
+        from repro_torch.optim.adamw import global_norm
+        rank0 = dist.get_rank() == 0
+        self.global_norm = float(global_norm(grads).full_tensor())
+        for name, g in zip(names, grads):
+            self.norms[name] = float(global_norm([g]).full_tensor())
+            if not name.startswith(E_HELD_LEAVES):
+                continue
+            whole = g.full_tensor()
+            if rank0 and self.ref is None:
+                self.kept[name] = _host(whole)
+            elif rank0:
+                self.rel[name] = _leaf_rel(self.torch, self.dev, whole,
+                                           self.ref.kept[name])
+            del whole
+        self.torch.cuda.empty_cache()
+
+
+def _finite_shards(torch, params) -> bool:
+    """Whether every local shard of params is finite on this rank."""
+    return all(bool(torch.isfinite(p.detach().to_local()).all())
+               for p in params.parameters())
+
+
+def dist_train_full(torch, dev, world):
+    """(e) in one rank of a NCCL group of D_CARDS. (e1) V2-Lite at full
+    width and E_F32_LAYERS layers in f32: on (1, 4) (its routes recorded,
+    the first batch's router margins from a forward without gradients),
+    then on (2, 2) pinned to those routes (after an unpinned forward of
+    the first batch, whose routes are compared), D_STEPS steps each
+    (GradProbe on the first); (e2) V2-Lite as published in bf16 weights
+    with f32 moments on (1, 4), E_BF16_STEPS steps on the first batch.
+    Each run's weights from seed 0, drawn and laid out leaf by leaf
+    (_sharded_train_params); one more step under the profiler; the launch
+    counters zeroed before and read after. Returns rank 0's report (None
+    elsewhere)."""
+    import torch.distributed as dist
+    from repro_torch.configs import deepseek_v2_lite
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.module import count_params
+    rank = dist.get_rank()
+    full = deepseek_v2_lite.config()
+    cut = dataclasses.replace(full, n_layers=E_F32_LAYERS)
+    batches = _train_batches(torch, dev, full.vocab, D_STEPS)
+    meshes = {s: make_mesh(s, ("data", "model")) for s in E_MICRO}
+    zero, read = _launch_counters()
+    zero()
+    mine = {}
+
+    def run(key, shape, cfg, dtype, steps, **kw):
+        t = time.perf_counter()
+        params = _sharded_train_params(torch, cfg, meshes[shape], dev, dtype)
+        init_s = time.perf_counter() - t
+        n_micro = kw.pop("n_micro", E_MICRO[shape])
+        before = kw.pop("before", None)
+        pre = before(params) if before else None
+        rec = train_sharded(torch, M, cfg, meshes[shape], dev, params, steps,
+                            n_micro=n_micro, profile=True, **kw)
+        base, acc = state_bytes(params, n_micro, torch.float32)
+        rec.update(init_s=init_s, state_gib=base / 2**30,
+                   accum_gib=acc / 2**30, finite=_finite_shards(torch,
+                                                                params))
+        del params
+        torch.cuda.empty_cache()
+        mine[key] = {k: rec[k] for k in ("walls", "peak_gib", "profile",
+                                         "init_s", "state_gib", "accum_gib",
+                                         "finite")}
+        return rec, pre
+
+    # (e1) on (1, 4)
+    probe14 = GradProbe(torch, dev)
+    r14, (fwd14, margins) = run(
+        "e1 (1, 4)", (1, 4), cut, torch.float32, batches, first=probe14,
+        before=lambda p: forward_routes(torch, M, cut, p, meshes[(1, 4)],
+                                        batches[0], E_MICRO[(1, 4)],
+                                        margins=True))
+    k = E_MICRO[(1, 4)] // E_MICRO[(2, 2)]
+    pinned = [_joined(torch, step, k) for step in r14["routes"]]
+    # (e1) on (2, 2), pinned to them
+    probe22 = GradProbe(torch, dev, ref=probe14)
+    r22, (fwd22, _) = run(
+        "e1 (2, 2)", (2, 2), cut, torch.float32, batches, first=probe22,
+        pinned=pinned,
+        before=lambda p: forward_routes(torch, M, cut, p, meshes[(2, 2)],
+                                        batches[0], E_MICRO[(2, 2)]))
+    probe14.kept.clear()
+    # (e2) the published dtype on (1, 4)
+    r2, _ = run("e2", (1, 4), full, torch.bfloat16,
+                [batches[0]] * E_BF16_STEPS, n_micro=1)
+    launches = read()
+    by_rank = [None] * world
+    dist.all_gather_object(by_rank, {"launches": launches, "runs": mine})
+    if rank != 0:
+        return None
+    n_moe = cut.n_layers - cut.first_k_dense
+    margins = _flat(_joined(torch, [margins[i * n_moe:(i + 1) * n_moe]
+                                    for i in range(E_MICRO[(1, 4)])], k))
+    want = [_flat(s) for s in pinned]
+    rel = lambda a, b: abs(a - b) / abs(b) if b else abs(a)
+    e1 = {
+        "layers": cut.n_layers,
+        "params": count_params(M.init_model(cut, device="meta")),
+        "losses": {"(1, 4)": r14["losses"], "(2, 2)": r22["losses"]},
+        "routes_pinned": all(torch.equal(a, b) for got, w in zip(
+            r22["routes"], want) for a, b in zip(_flat(got), w)),
+        "forward_is_first_step": all(torch.equal(a, b) for a, b in zip(
+            _flat(fwd14), _flat(r14["routes"][0]))),
+        "route_flips": _first_flips(route_flips(torch, _flat(fwd22), want[0],
+                                                margins)),
+        "global_norm": [probe22.global_norm, probe14.global_norm],
+        "norm_worst": sorted(((rel(probe22.norms[n], v), n) for n, v in
+                              probe14.norms.items()), reverse=True)[:3],
+        "grad_worst": sorted(((r, n) for n, r in probe22.rel.items()),
+                             reverse=True)[:3],
+        "grad_leaves": len(probe22.rel)}
+    e2 = {"layers": full.n_layers,
+          "params": count_params(M.init_model(full, device="meta")),
+          "losses": r2["losses"]}
+    return {"e1": e1, "e2": e2, "by_rank": by_rank}
+
+
+def log_dist_train_full(r, wall, smi_line):
+    """(e)'s lines; fail unless in (e1) (2, 2)'s losses are within
+    DIST_LOSS_RTOL of (1, 4)'s, the routes (2, 2) records are the pinned
+    ones, the first step's global gradient norm and every leaf's are
+    within E_NORM_RTOL and the held leaves' gradients within
+    D_GRAD_RTOL["f32"] x their max, and the first MoE call in which the
+    unpinned forward's expert sets differ from (1, 4)'s differs at no more
+    than MAX_FLIPS near-ties (the later calls carry the change: PERF.md
+    section 2); unless in (e2)
+    every loss and every card's final parameters are finite and the last
+    loss is below the first; and unless no kernel was launched."""
+    launched = {k: n for x in r["by_rank"] for k, c in x["launches"].items()
+                for n in c.values() if n}
+    e1, e2 = r["e1"], r["e2"]
+    by = {key: [x["runs"][key] for x in r["by_rank"]]
+          for key in r["by_rank"][0]["runs"]}
+    log(f"[dist] (e) V2-Lite trained across {D_CARDS} cards (a NCCL group "
+        f"of its own), weights from seed 0 drawn and laid out leaf by leaf "
+        f"on each card, {D_BATCH} x {D_SEQ} tokens a step (seed 1), "
+        f"AdamWConfig(), TF32 off, param_shardings, sp_policy, ep_axis "
+        f"model: (e1) f32 at full width and {e1['layers']} layers "
+        f"({e1['params']} parameters), {D_STEPS} steps on (1, 4) at n_micro "
+        f"{E_MICRO[(1, 4)]} and on (2, 2) at n_micro {E_MICRO[(2, 2)]} "
+        f"(each EP capacity group the same rows); (e2) as published, "
+        f"{e2['layers']} layers ({e2['params']} parameters) in bf16 "
+        f"weights and gradients with f32 moments on (1, 4), "
+        f"{E_BF16_STEPS} steps on one batch; kernels launched in the steps "
+        f"{launched or 'none'}; part wall {wall:.1f} s; {smi_line}")
+    l14, l22 = e1["losses"]["(1, 4)"], e1["losses"]["(2, 2)"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l22, l14))
+    gn22, gn14 = e1["global_norm"]
+    gn_rel = abs(gn22 - gn14) / gn14
+    grad_rel = e1["grad_worst"][0][0]
+    log(f"[dist] (e1) (2, 2) pinned to the routes (1, 4) recorded, "
+        f"{e1['layers']} layers in f32: losses " + ", ".join(
+            f"{a:.9f}/{b:.9f}" for a, b in zip(l22, l14))
+        + f" (rel {loss_rel:.3e}, rtol {DIST_LOSS_RTOL:g}); routes recorded "
+        f"= pinned {e1['routes_pinned']}; first step's global gradient norm "
+        f"{gn22:.9g}/{gn14:.9g} (rel {gn_rel:.3e}, rtol {E_NORM_RTOL:g}), "
+        f"worst leaf norms (rel, leaf) {e1['norm_worst']} (rtol "
+        f"{E_NORM_RTOL:g}); the gradients of {e1['grad_leaves']} leaves (the "
+        f"embedding and head, the final norm, layers 0, 1 and "
+        f"{e1['layers'] - 1}), worst "
+        f"(max|diff| / max, leaf) {e1['grad_worst']}, limit "
+        f"{D_GRAD_RTOL['f32']:g} x max; (1, 4)'s forward without gradients "
+        f"chose its first step's routes {e1['forward_is_first_step']}; "
+        f"{smi_line}")
+    flips = e1["route_flips"]
+    first = flips["first"]
+    log(f"[dist] (e1) (2, 2) unpinned: the first batch's expert sets (a "
+        f"forward without gradients from the same weights) against (1, 4)'s "
+        f"first step " + ("equal" if not first else
+                          f"first differ at (call, token, router margin) "
+                          f"{first}; tokens whose sets differ by MoE call "
+                          f"{flips['by_call']} in rows {flips['rows']}")
+        + f" (let pass: at most {MAX_FLIPS} in the first call that differs, "
+        f"each at a margin below {NEAR_TIE:g}; the later calls follow: a "
+        f"token whose experts change moves its row's later tokens through "
+        f"attention); {smi_line}")
+    for key in ("e1 (1, 4)", "e1 (2, 2)", "e2"):
+        ys = by[key]
+        log(f"[dist] ({key}) by card: step walls ms "
+            + "; ".join(f"cuda:{i} {_ms(y['walls'])}"
+                        for i, y in enumerate(ys))
+            + f"; weights drawn and laid out in "
+            f"{[round(y['init_s'], 1) for y in ys]} s; max_memory_allocated "
+            f"GiB {[round(y['peak_gib'], 2) for y in ys]} against the "
+            f"reckoned state of the card's local shards (weights + gradients"
+            f" + f32 moments) {[round(y['state_gib'], 2) for y in ys]} GiB"
+            + (f" + f32 accumulators {[round(y['accum_gib'], 2) for y in ys]}"
+               f" GiB" if any(y["accum_gib"] for y in ys) else "")
+            + f"; one more step under the profiler: "
+            f"{_profile_line([y['profile'] for y in ys])}; {smi_line}")
+    finite = [y["finite"] for y in by["e2"]]
+    loss_ok = all(math.isfinite(x) for x in e2["losses"])
+    log(f"[dist] (e2) losses " + ", ".join(f"{x:.6f}" for x in e2["losses"])
+        + f" (reported; held: finite {loss_ok}, last below first "
+        f"{e2['losses'][-1] < e2['losses'][0]}); final parameters finite by "
+        f"card {finite}; {smi_line}")
+    bad = []
+    if loss_rel > DIST_LOSS_RTOL:
+        bad.append(f"(e1) losses rel {loss_rel:.3e}")
+    if not e1["routes_pinned"]:
+        bad.append("(e1) routes not the pinned ones")
+    if gn_rel > E_NORM_RTOL or e1["norm_worst"][0][0] > E_NORM_RTOL:
+        bad.append(f"(e1) gradient norms {gn_rel:.3e}, {e1['norm_worst']}")
+    if grad_rel > D_GRAD_RTOL["f32"]:
+        bad.append(f"(e1) gradients {e1['grad_worst']}")
+    if not _flip_rule(first):
+        bad.append(f"(e1) unpinned expert sets first differ beyond "
+                   f"{MAX_FLIPS} near-ties (margin < {NEAR_TIE:g}): {first}")
+    finite_by = {k: [y["finite"] for y in v] for k, v in by.items()}
+    if not (loss_ok and all(all(v) for v in finite_by.values())):
+        bad.append(f"(e) not finite: losses {e2['losses']}, parameters by "
+                   f"card {finite_by}")
+    if not e2["losses"][-1] < e2["losses"][0]:
+        bad.append(f"(e2) the last loss is not below the first: "
+                   f"{e2['losses']}")
+    if launched:
+        bad.append(f"kernels launched in the train steps: {launched}")
+    if bad:
+        fail("(5e) (e) " + "; ".join(bad))
+
+
 def dist_serve_rank(rank, world, port, part):
-    """One rank of (c1), (c2), (c4), (c5) or (d) (torch.multiprocessing.spawn's
+    """One rank of (c1), (c2), (c4), (c5), (d) or (e)
+    (torch.multiprocessing.spawn's
     target):
     card `rank`, a NCCL group of `world` ranks. Rank 0 prints the part's
     result as one "DIST-SERVE {json}" line."""
@@ -5003,6 +5425,8 @@ def dist_serve_rank(rank, world, port, part):
             v2_lite, n_layers=C5_LAYERS), (1, world))
     elif part == "d":
         out = dist_train(torch, dev, world)
+    elif part == "e":
+        out = dist_train_full(torch, dev, world)
     else:
         out, params = serve_bf16(torch, dev, v2_lite, (1, world))
         long = long_decode_bf16(torch, dev, v2_lite, (1, world), params)
@@ -5017,15 +5441,18 @@ def dist_serve_rank(rank, world, port, part):
 
 def dist_serve_part(part: str) -> None:
     """(c1), (c2), (c4) or (c5) in this process: one rank per visible card,
-    spawned; (d) on the first D_CARDS cards; a rank that fails fails the
-    part."""
+    spawned; (d) and (e) on the first D_CARDS cards, (e)'s ranks with the
+    caching allocator's expandable segments (its f32 steps peak at ~73
+    GiB a card); a rank that fails fails the part."""
     import torch
     import torch.multiprocessing as mp
     n = torch.cuda.device_count()
-    if part == "d":
+    if part in ("d", "e"):
         if n < D_CARDS:
-            fail(f"(5e) (d) needs {D_CARDS} CUDA cards, {n} visible")
+            fail(f"(5e) ({part}) needs {D_CARDS} CUDA cards, {n} visible")
         n = D_CARDS
+    if part == "e":
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     if n < 1:
         fail(f"(5e) ({part}) needs a CUDA card")
     mp.spawn(dist_serve_rank, args=(n, _free_port(), part), nprocs=n,
@@ -5064,14 +5491,14 @@ def run_dist_serve(torch, smi_line):
     and, in its process group, (c3); then (c4), (a) on every visible card's
     meshes and, on two cards or more, (b) and (c); then, on two cards or
     more, (c5); then, on D_CARDS cards or more, the sharded train step
-    (d); each part a process group of its own in a subprocess with its
-    timeout. Returns
+    (d) and V2-Lite as published trained (e); each part a process group of
+    its own in a subprocess with its timeout. Returns
     ({part: result}, launches by kernel, by kernel and card), the launches
-    those of the sharded KERNELS runs alone ((d) launches none)."""
+    those of the sharded KERNELS runs alone ((d) and (e) launch none)."""
     n_cards = torch.cuda.device_count()
     parts = ["c1"] + (["c2"] if n_cards >= 2 else []) + ["c4"] + (
         ["c5"] if n_cards >= 2 else []) + (
-        ["d"] if n_cards >= D_CARDS else [])
+        ["d", "e"] if n_cards >= D_CARDS else [])
     results, total, cards = {}, {k: 0 for k in KERNELS}, \
         {k: {} for k in KERNELS}
     for part in parts:
@@ -5081,8 +5508,9 @@ def run_dist_serve(torch, smi_line):
                                                if part == "c2" else 0))
         r = _serve_result(part, out)
         results[part] = {"result": r, "wall_s": wall}
-        if part == "d":
-            log_dist_train(r, wall, smi_line)
+        if part in ("d", "e"):
+            (log_dist_train if part == "d" else log_dist_train_full)(
+                r, wall, smi_line)
             continue
         # each c1 mesh launches its kernels on every card; (c2) and (c3)
         # together (sparse_select runs in (c3) alone); each (c4) run its
@@ -5121,9 +5549,10 @@ def run_dist_serve(torch, smi_line):
             f"and (c4c) did not run: 1 card visible; on four cards python3 "
             f"chip_smoke.py --dist-only runs them; {smi_line}")
     if n_cards < D_CARDS:
-        log(f"[dist] (d) the sharded train step on (2, 2) and (1, 4) did "
-            f"not run: {n_cards} card(s) visible, {D_CARDS} needed; on four "
-            f"cards python3 chip_smoke.py --dist-only runs it; {smi_line}")
+        log(f"[dist] (d) the sharded train step on (2, 2) and (1, 4) and "
+            f"(e) V2-Lite as published trained on four cards did not run: "
+            f"{n_cards} card(s) visible, {D_CARDS} needed; on four cards "
+            f"python3 chip_smoke.py --dist-only runs them; {smi_line}")
     return results, total, cards
 
 
@@ -5787,10 +6216,10 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
                 tot[card] = tot.get(card, 0) + c
         return result, n
 
-    if dist_only:           # phase 5e (c1)-(d) alone (a run on four cards)
+    if dist_only:           # phase 5e (c1)-(e) alone (a run on four cards)
         t0 = time.perf_counter()
         _, total, cards = run_dist_serve(torch, smi_line)
-        log(f"[dist] (c1)-(c5) and (d) alone: "
+        log(f"[dist] (c1)-(c5), (d) and (e) alone: "
             f"{time.perf_counter() - t0:.1f} s; "
             f"launches {total}; by card {cards}; {smi_line}")
         print(smi_line)
@@ -6074,8 +6503,8 @@ if __name__ == "__main__":
         dist_part_a(torch, *sys.argv[3:4])
         sys.exit(0)
     if sys.argv[1:2] == ["--dist-part"] and sys.argv[2:3] in (
-            ["c1"], ["c2"], ["c4"], ["c5"], ["d"]):
-        dist_serve_part(sys.argv[2])      # (c1)-(c5) or (d)'s ranks
+            ["c1"], ["c2"], ["c4"], ["c5"], ["d"], ["e"]):
+        dist_serve_part(sys.argv[2])      # (c1)-(c5), (d) or (e)'s ranks
         sys.exit(0)
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
                   dist_only=sys.argv[1:2] == ["--dist-only"]))

@@ -23,7 +23,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models.module import param_axes
+from repro_torch.models.module import param_axes, placing
 
 Spec = Tuple
 
@@ -220,6 +220,27 @@ def shard_params(tree: nn.Module,
             distribute(p.detach(), sh.mesh, sh.spec),
             requires_grad=p.requires_grad))
     return tree
+
+
+def init_sharded(cfg, mesh, generator: Optional[torch.Generator] = None, *,
+                 device, dtype, cast: Optional[torch.dtype] = None
+                 ) -> nn.Module:
+    """models.model.init_model(cfg, generator, device=device, dtype=dtype)
+    with each parameter, as soon as it is drawn, cast to `cast` (None:
+    kept) and laid out on mesh by param_shardings' rule, before the next
+    is drawn: the whole model never sits on one device, only its largest
+    leaf. Every rank draws every leaf (the generators stay in step) and
+    distribute takes rank 0's. Equal bit for bit to shard_params of
+    init_model's tree cast leaf by leaf (tree.to(cast)), by
+    param_shardings(tree, mesh)."""
+    from repro_torch.models.model import init_model
+
+    def place(t, axes):
+        if cast is not None:
+            t = t.to(cast)
+        return distribute(t, mesh, spec_for(axes, t.shape, mesh))
+    with placing(place):
+        return init_model(cfg, generator, device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

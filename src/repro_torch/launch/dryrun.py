@@ -52,7 +52,8 @@ from repro_torch.launch import input_specs as IS
 from repro_torch.launch.mesh import flatten_dp, make_production_mesh
 from repro_torch.models import model as MD
 from repro_torch.models.module import trainable
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     decay_mask)
 from repro_torch.train.step import (TrainConfig, _microbatches, _pinner,
                                     accumulate, loss_and_grads)
 
@@ -223,8 +224,10 @@ def build_step(arch: str, shape_name: str, mesh, sp_residual: bool = True,
             def micro():
                 accumulate(params, cfg, mb, grads, tcfg, p_shard)
 
+        decay = decay_mask(params)
+
         def update():
-            adamw_update(params, grads, opt_state, ocfg)
+            adamw_update(params, grads, opt_state, ocfg, decay=decay)
 
         meta["n_micro"] = n
         return DryStep(run(micro), n, run(update),

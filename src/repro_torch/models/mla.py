@@ -112,9 +112,10 @@ class MLA(nn.Module):
         for name, (shape, axes) in param_specs(cfg).items():
             self._axes[name] = axes
             if name.endswith("_norm"):
-                t = ones(shape, dtype=dtype, device=device)
+                t = ones(shape, dtype=dtype, device=device, axes=axes)
             else:
-                t = param(shape, generator, dtype=dtype, device=device)
+                t = param(shape, generator, dtype=dtype, device=device,
+                          axes=axes)
             self.register_parameter(name, nn.Parameter(t,
                                                        requires_grad=False))
 

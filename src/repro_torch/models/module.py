@@ -29,6 +29,7 @@ take gradients, which the training path does before its first step.
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -42,17 +43,35 @@ Axes = Tuple[Optional[str], ...]
 # id(tensor) -> (weak reference to it, its logical axes): filled by tag(),
 # read by the Tree that takes the tensor; an entry goes with its tensor
 _TAGS: Dict[int, tuple] = {}
+# while placing(fn) is active: fn, which tag() hands every new leaf to
+_PLACE: list = [None]
+
+
+@contextlib.contextmanager
+def placing(fn: Callable):
+    """While active, tag() replaces each leaf it notes axes for by fn(leaf,
+    axes) (a DTensor laid out on a mesh, say) before it notes them: a tree
+    drawn meanwhile is placed leaf by leaf as it is drawn, each leaf before
+    the next is drawn (distributed.sharding.init_sharded)."""
+    _PLACE[0] = fn
+    try:
+        yield
+    finally:
+        _PLACE[0] = None
 
 
 def tag(t: torch.Tensor, axes: Optional[Sequence[Optional[str]]]):
     """Note t's logical axes (one entry per dim) for the Tree that takes it;
-    returns t. axes None notes nothing."""
+    returns t (under placing(fn), fn(t, axes), noted instead). axes None
+    notes nothing."""
     if axes is None:
         return t
     axes = tuple(axes)
     if len(axes) != t.ndim:
         raise ValueError(f"axes {axes} for a tensor of shape "
                          f"{tuple(t.shape)}")
+    if _PLACE[0] is not None:
+        t = _PLACE[0](t, axes)
     key = id(t)
     _TAGS[key] = (weakref.ref(t, lambda _, k=key: _TAGS.pop(k, None)), axes)
     return t

@@ -6,8 +6,12 @@ update is computed in f32 and rounded back to each parameter's dtype; the
 moments are kept in cfg.state_dtype (bf16 is the memory-relief option). The
 gradient is clipped by its global norm (reported before the clip), the
 moments are bias-corrected, and weight decay is decoupled and applied to
-tensors of two or more axes only. torch.optim.AdamW computes in the
-parameter's dtype and decays every tensor, so it is not used.
+the tensors the reference decays: those of two or more axes in its tree.
+The reference stacks a model's layers over leading layer axes where the
+port keeps a list of layers (nn.ModuleList), so a model's mask counts
+those levels (decay_mask); a flat list of tensors is decayed by its own
+axes. torch.optim.AdamW computes in the parameter's dtype and decays every
+tensor, so it is not used.
 """
 
 from __future__ import annotations
@@ -49,6 +53,23 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
                                 device=leaves[0].device)}
 
 
+def decay_mask(params: nn.Module) -> list:
+    """[whether AdamW decays it, for each of params.parameters()]: its
+    counterpart in the reference's tree has two or more axes, its own
+    ndim plus one for each nn.ModuleList above it (the stacked layer axes:
+    one for "blocks", "dense_blocks", "rem" and "enc_blocks", two for the
+    hybrid's "groups"; the mapping convert.pairs walks). Read from the
+    module tree, so a DTensor's local shard never decides."""
+    out = []
+    for path, p in params.named_parameters():
+        owners = path.split(".")[:-1]
+        stacked = sum(isinstance(params.get_submodule(".".join(owners[:i])),
+                                 nn.ModuleList)
+                      for i in range(1, len(owners) + 1))
+        out.append(p.ndim + stacked >= 2)
+    return out
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32."""
     return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
@@ -57,10 +78,13 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params, grads: Sequence[torch.Tensor], state: dict,
-                 cfg: AdamWConfig, lr=None):
+                 cfg: AdamWConfig, lr=None,
+                 decay: Optional[Sequence[bool]] = None):
     """One step, in place: the parameters and the moments are overwritten
     and state["step"] advanced. Returns (params, state, {"grad_norm", "lr"});
-    lr (a float or a 0-d tensor) overrides cfg.lr."""
+    lr (a float or a 0-d tensor) overrides cfg.lr; decay (decay_mask's list
+    for a model) says which parameters take weight decay, by default those
+    of two or more axes."""
     f32 = torch.float32
     step = state["step"] + 1
     gnorm = global_norm(grads)
@@ -68,13 +92,16 @@ def adamw_update(params, grads: Sequence[torch.Tensor], state: dict,
     lr_t = cfg.lr if lr is None else lr
     t = step.to(f32)
     bc1, bc2 = 1 - cfg.b1 ** t, 1 - cfg.b2 ** t
-    for p, g, m, v in zip(_leaves(params), grads, state["m"], state["v"],
-                          strict=True):
+    leaves = _leaves(params)
+    if decay is None:
+        decay = [p.ndim >= 2 for p in leaves]
+    for p, g, m, v, wd in zip(leaves, grads, state["m"], state["v"], decay,
+                              strict=True):
         g = g.to(f32) * scale
         m_new = cfg.b1 * m.to(f32) + (1 - cfg.b1) * g
         v_new = cfg.b2 * v.to(f32) + (1 - cfg.b2) * torch.square(g)
         delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
-        if p.ndim >= 2:                       # decoupled wd on matrices only
+        if wd:                                # decoupled weight decay
             delta = delta + cfg.weight_decay * p.to(f32)
         p.copy_(p.to(f32) - lr_t * delta)
         m.copy_(m_new)

@@ -6,7 +6,8 @@ gradient (autograd through models.model.loss_fn, the train form) is added
 into accumulators in tcfg.accum_dtype (f32 unless set) and the sum divided
 by n_micro; the loss is the mean
 over microbatches. Then lr_fn(step), with the optimizer's step before its
-increment, and adamw_update, in place.
+increment, and adamw_update, in place, decaying the parameters the
+reference decays (optim.adamw.decay_mask of the model's tree).
 
 On a mesh the parameters are DTensors (distributed.sharding.shard_params)
 and the step runs under a sharding policy (distributed.policy.use_policy,
@@ -30,13 +31,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.distributed import policy as POL
 from repro_torch.models import model as MD
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, decay_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,15 +170,19 @@ def make_train_step(cfg: MD.ModelConfig, opt_cfg: AdamWConfig,
     opt_state in place; metrics holds "loss", "grad_norm" and "lr" as 0-d
     tensors (lr a float without lr_fn); routes and pinned as
     loss_and_grads takes them. The parameters must take gradients
-    (module.trainable)."""
+    (module.trainable). Each model's decay mask is read from its tree
+    once, on its first step."""
+    masks = weakref.WeakKeyDictionary()
 
     def train_step(params, opt_state, batch, *, routes=None, pinned=None):
         loss, grads = loss_and_grads(params, cfg, batch, tcfg,
                                      param_shardings, routes=routes,
                                      pinned=pinned)
         lr = lr_fn(opt_state["step"]) if lr_fn is not None else None
+        if params not in masks:
+            masks[params] = decay_mask(params)
         params, opt_state, mets = adamw_update(params, grads, opt_state,
-                                               opt_cfg, lr)
+                                               opt_cfg, lr, masks[params])
         mets["loss"] = loss
         return params, opt_state, mets
 

@@ -9,6 +9,10 @@ data pipeline and checkpoint format (repro_torch.optim, .data,
   norm sums in another order, one ulp of the clip scale), bf16 results
   within one bf16 ulp (one rounding of a value that may differ by an ulp
   of f32 before it);
+* three AdamW steps with weight decay on a whole model's tree, the JAX
+  package's stacked layers against the port's lists of layers
+  (decay_mask), for a MoE model with a dense first block, Mamba2 and the
+  Zamba2 hybrid (two stacked levels): every leaf within rtol 1e-6;
 * cosine_schedule at every step of a short run, within 1e-7 absolute;
 * the pipeline's properties (the reference's tests/test_substrates.py:
   a deterministic resume, targets equal to the shifted tokens) and its
@@ -171,6 +175,68 @@ def test_adamw_updates_a_module_in_place_without_grad():
     assert all(p.grad is None and p.requires_grad for p in lin.parameters())
     assert all(not torch.equal(a, b) for a, b in zip(before,
                                                      lin.parameters()))
+
+
+DECAY_ARCHS = ("deepseek-v2-lite", "mamba2-370m", "zamba2-7b")
+
+
+@pytest.mark.parametrize("arch", DECAY_ARCHS)
+def test_adamw_decays_what_the_reference_decays(arch):
+    """Three steps of adamw_update with weight decay 0.1 from the same
+    weights and gradients (numpy trees in the reference's layout, carried
+    into the port by model_params_from_numpy): the reference stacks a
+    block's norm scales and SSM vectors over layer axes and decays them as
+    matrices, so the port, whose layers are lists, decays them by
+    decay_mask."""
+    from repro import configs as JC
+    from repro_torch import configs as TC
+    from repro_torch.convert import model_params_from_numpy
+    from torch_parity import numpy_weights
+    jcfg, tcfg = JC.get_smoke_config(arch), TC.get_smoke_config(arch)
+    tree = numpy_weights(jcfg, seed=5)
+    rng = np.random.default_rng(6)
+    grads = [jax.tree.map(lambda x: (1e-3 * rng.standard_normal(x.shape))
+                          .astype(np.float32), tree) for _ in range(3)]
+    port = lambda t: model_params_from_numpy(
+        jax.tree.map(np.asarray, t), tcfg, device="cpu")
+
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jocfg = JA.AdamWConfig(weight_decay=0.1)
+    jstate = JA.adamw_init(jparams, jocfg)
+    for g in grads:
+        jparams, jstate, _ = JA.adamw_update(
+            jparams, jax.tree.map(jnp.asarray, g), jstate, jocfg)
+
+    params = port(tree)
+    decay = TA.decay_mask(params)
+    assert not all(decay) and any(decay)
+    tocfg = TA.AdamWConfig(weight_decay=0.1)
+    state = TA.adamw_init(params, tocfg)
+    for g in grads:
+        TA.adamw_update(params, list(port(g).parameters()), state, tocfg,
+                        decay=decay)
+    for (k, got), want in zip(params.named_parameters(),
+                              port(jparams).parameters()):
+        _close(got.detach(), want.detach().numpy(), k)
+
+
+def test_decay_mask_counts_the_stacked_levels():
+    """A model's 1-D leaves decay under one stacked level ("blocks") or
+    two ("groups"), and not at the top (the final norm) or in the hybrid's
+    shared block."""
+    from repro_torch import configs as TC
+    from repro_torch.models.model import init_model
+    for arch, want in (("deepseek-v2-lite", {"final_norm.scale": False,
+                                             "blocks.0.ln1.scale": True,
+                                             "dense_blocks.0.attn.q_norm":
+                                             True, "embed.table": True}),
+                       ("zamba2-7b", {"groups.0.0.mamba.dt_bias": True,
+                                      "shared_attn.ln.scale": False,
+                                      "shared_attn.mlp.gate.w": True})):
+        model = init_model(TC.get_smoke_config(arch), device="meta")
+        got = dict(zip((k for k, _ in model.named_parameters()),
+                       TA.decay_mask(model)))
+        assert {k: got[k] for k in want} == want, arch
 
 
 def test_cosine_schedule_matches_reference():

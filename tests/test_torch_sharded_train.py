@@ -27,7 +27,15 @@ tokens).
 Held against the unsharded port: the losses at rtol 1e-5; the first
 step's gradients within 1e-5 x their leaf's max; every parameter within
 1e-4 x its leaf's max after the three steps; the routes the sharded steps
-record equal to the pinned ones.
+record equal to the pinned ones. The parameters after the first sharded
+step are held elementwise at rtol 1e-6 (and atol 1e-6 x lr, where the
+step takes an element near zero) against adamw_update applied unsharded
+to the sharded run's own first-step gradients (the rule chip_smoke.py's
+5e (d) holds on the card).
+
+The same ranks hold sharding.init_sharded (the weights drawn and laid out
+leaf by leaf) against init_model's tree drawn whole and sharded by
+shard_params, bit for bit, in f32, in f32 cast to f64 and in bf16.
 
 Held against the JAX package (make_train_step at the unsharded port's
 n_micro, unpinned, the sharded step's counterpart on one device): first
@@ -39,10 +47,9 @@ and the first step's gradients within 1e-4 x their leaf's max and rtol
 step so. As there, the parameters after AdamW are not held against the
 reference: AdamW's first step moves an element by lr g / (|g| + eps), so
 an element whose gradient is near eps (1e-8) moves apart by a good part of
-lr where the two packages' gradients differ in their last bits; and the
-reference decays the norm scales of its layer-stacked blocks (a layer axis
-makes them two-axis tensors), which the port, whose layers are separate
-tensors, does not.
+lr where the two packages' gradients differ in their last bits. (Both
+decay the same tensors: tests/test_torch_optim_data_ckpt.py holds the
+port's decay_mask against the reference's stacked tree.)
 """
 
 import functools
@@ -111,7 +118,8 @@ def _joined(routes, k):
 def _sharded(mesh, cfg, tree, batches, pinned):
     """STEPS sharded train steps on mesh, pinned to `pinned` (each step's
     lists), each recording its routes: (losses, the first step's gradients
-    whole, the parameters whole, each step's routes whole)."""
+    whole, the parameters whole after one step and after STEPS, each
+    step's routes whole)."""
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.distributed import policy as POL
     from repro_torch.distributed import sharding as SH
@@ -138,9 +146,42 @@ def _sharded(mesh, cfg, tree, batches, pinned):
             params, opt, mets = step(params, opt, place(b),
                                      routes=routes[-1], pinned=pin)
             losses.append(float(mets["loss"].full_tensor()))
+            if len(routes) == 1:       # a replicated leaf's own storage
+                one = [p.full_tensor().clone() for p in params.parameters()]
         whole = [p.full_tensor() for p in params.parameters()]
     routes = [[[t.full_tensor() for t in lst] for lst in r] for r in routes]
-    return losses, _numpy(grads), _numpy(whole), routes
+    return losses, _numpy(grads), _numpy(one), _numpy(whole), routes
+
+
+# the leaf-by-leaf sharded init's cases: name -> (init_model's dtype, the
+# cast of each leaf), torch dtype names
+INIT_CASES = {"f32": ("float32", None), "f32_to_f64": ("float32", "float64"),
+              "bf16": ("bfloat16", None)}
+
+
+def _init_equal(mesh, cfg):
+    """{case: whether init_sharded's parameters equal those of init_model's
+    tree (cast) sharded by shard_params, bit for bit, local shards and
+    placements, on this rank}."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model import init_model
+    out = {}
+    for case, (dtype, cast) in INIT_CASES.items():
+        dtype, cast = getattr(torch, dtype), cast and getattr(torch, cast)
+        gen = lambda: torch.Generator().manual_seed(0)
+        got = SH.init_sharded(cfg, mesh, gen(), device="cpu", dtype=dtype,
+                              cast=cast)
+        want = init_model(cfg, gen(), device="cpu", dtype=dtype)
+        if cast is not None:
+            want = want.to(cast)
+        SH.shard_params(want, SH.param_shardings(want, mesh))
+        pairs = list(zip(got.named_parameters(), want.named_parameters()))
+        out[case] = len(pairs) > 0 and all(
+            a == b and x.placements == y.placements and x.dtype == y.dtype
+            and torch.equal(x.to_local(), y.to_local())
+            for (a, x), (b, y) in pairs)
+    return out
 
 
 def prog_train4(rank, world, tmp):
@@ -166,11 +207,14 @@ def prog_train4(rank, world, tmp):
             box = [[_joined(r, n_twin // N_MICRO) for r in ref[3]]]
         dist.broadcast_object_list(box, src=0)
         pinned = box[0]
-        losses, grads, whole, routes = _sharded(mesh, cfg, inputs["tree"],
-                                                batches, pinned)
+        losses, grads, one, whole, routes = _sharded(
+            mesh, cfg, inputs["tree"], batches, pinned)
+        init = [None] * world
+        dist.all_gather_object(init, _init_equal(mesh, cfg))
         if rank == 0:
             out[shape] = {
-                "losses": losses, "grads": grads, "params": whole,
+                "losses": losses, "grads": grads, "one_step": one,
+                "params": whole, "init_equal": init,
                 "routes": [[[t.numpy() for t in lst] for lst in r]
                            for r in routes],
                 "pinned": [[[t.numpy() for t in lst] for lst in r]
@@ -239,7 +283,7 @@ def _grad_fn():
 @pytest.fixture(scope="module")
 def train4():
     """(the prog's results by mesh, the JAX package's by the unsharded
-    twin's n_micro)."""
+    twin's n_micro, the weights)."""
     from repro import configs as JC
     from torch_parity import numpy_weights
     jcfg = JC.get_smoke_config(ARCH)
@@ -268,7 +312,7 @@ def train4():
         assert "PROG-OK train4" in out, out[-3000:]
         with open(os.path.join(tmp, "train4.pkl"), "rb") as fh:
             got = pickle.load(fh)
-    return got, ref
+    return got, ref, inputs["tree"]
 
 
 MESH_IDS = [f"{a}x{b}" for a, b in MESHES]
@@ -299,6 +343,43 @@ def test_pinned_sharded_params_after_three_steps_match_unsharded(train4,
                                                                  shape):
     run = train4[0][shape]
     assert _rel(run["params"], run["unsharded"]["params"]) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", list(MESHES), ids=MESH_IDS)
+def test_sharded_one_step_params_are_adamw_of_their_gradients(train4,
+                                                             shape):
+    """The parameters after the first sharded step, elementwise within
+    rtol 1e-6 (the optimizer's own tolerance) of adamw_update applied
+    unsharded, from the same weights, to the sharded run's first-step
+    gradients gathered whole: the sharded optimizer applies AdamW to the
+    gradients it has. The global norm sums in another order (an ulp of
+    the clip scale, an ulp of an element's step), so an element that the
+    step takes near zero is held to 1e-6 of a step instead: atol 1e-6 x
+    lr."""
+    import torch
+    from repro_torch import configs as TC
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update, decay_mask)
+    run = train4[0][shape]
+    params = model_params_from_numpy(train4[2], TC.get_smoke_config(ARCH),
+                                     device="cpu")
+    ocfg = AdamWConfig()
+    adamw_update(params, [torch.from_numpy(g) for g in run["grads"]],
+                 adamw_init(params, ocfg), ocfg, decay=decay_mask(params))
+    for (k, want), got in zip(params.named_parameters(), run["one_step"]):
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-6,
+                                   atol=1e-6 * ocfg.lr, err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(INIT_CASES))
+@pytest.mark.parametrize("shape", list(MESHES), ids=MESH_IDS)
+def test_init_sharded_equals_the_whole_tree_sharded(train4, shape, case):
+    """sharding.init_sharded (each leaf laid out as it is drawn) against
+    init_model's tree drawn whole from the same seed, cast, then
+    shard_params: every rank's local shards and placements bit for bit."""
+    assert [r[case] for r in train4[0][shape]["init_equal"]] == \
+        [True] * WORLD
 
 
 @pytest.mark.parametrize("shape", list(MESHES), ids=MESH_IDS)

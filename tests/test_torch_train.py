@@ -17,7 +17,9 @@ Tolerances:
   the first step's gradients as above. The parameters after AdamW are not
   compared: the first step moves each parameter by lr * g / (|g| + eps),
   which is +-lr for any |g| >> 1e-8, so a gradient of ~1e-7 whose sign
-  the two packages round apart moves that parameter by 2 lr.
+  the two packages round apart moves that parameter by 2 lr. (Both decay
+  the same tensors: tests/test_torch_optim_data_ckpt.py holds AdamW with
+  weight decay on the two packages' trees.)
 """
 
 import dataclasses

@@ -4,8 +4,8 @@ the DeepSeek-V2-Lite smoke config in f32 at n_micro 1 and 2, three steps
 of 4 x 16 tokens drawn from a seed with numpy:
 
 * a step with neither argument is loss_fn's loss and gradients, averaged
-  over the microbatches in f32 accumulators, then adamw_update: bit for
-  bit, the step as it was before the hook;
+  over the microbatches in f32 accumulators, then adamw_update with the
+  model's decay_mask: bit for bit, the step as it was before the hook;
 * a step that records its routes is bit for bit the plain step (loss,
   every gradient, every parameter after AdamW);
 * a step pinned to the routes it recorded is bit for bit the unpinned
@@ -23,7 +23,8 @@ import torch
 from repro_torch import configs as TC
 from repro_torch.models import model as MD
 from repro_torch.models.module import trainable
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     decay_mask)
 from repro_torch.train.step import (TrainConfig, loss_and_grads,
                                     make_train_step)
 
@@ -84,7 +85,8 @@ def runs(request):
 def test_plain_step_is_loss_fn_accumulated_then_adamw(runs):
     """With neither argument, the step is loss_fn over the microbatches,
     the gradients summed into f32 accumulators and divided by n_micro,
-    then adamw_update: the arithmetic it had before the hook."""
+    then adamw_update with the model's decay_mask: the arithmetic it had
+    before the hook."""
     n, (losses, _, after, _) = runs[0], runs[1]
     params, ocfg = _params(), AdamWConfig()
     opt = adamw_init(params, ocfg)
@@ -107,7 +109,8 @@ def test_plain_step_is_loss_fn_accumulated_then_adamw(runs):
                     a.add_(g)
                 ls.append(loss.detach())
             grads, loss = [a.div_(n) for a in acc], torch.stack(ls).mean()
-        params, opt, _ = adamw_update(params, grads, opt, ocfg, None)
+        params, opt, _ = adamw_update(params, grads, opt, ocfg, None,
+                                      decay_mask(params))
         want.append(loss)
     assert _equal(losses, want)
     assert _equal(after, [p.detach() for p in params.parameters()])
