@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 4c-4e alone
-    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c5), (d), (e) alone
+    python3 chip_smoke.py --dist-only   # phase 5e (c1)-(c5), (d)-(f) alone
+    python3 chip_smoke.py --dist-part f  # 5e (f) alone, with its limits
 
 Needs one CUDA card, nvcc (PATH, $CUDA_HOME or /usr/local/cuda) and the
 repository's src/ beside this file; imports nothing of JAX or of the JAX
@@ -209,7 +210,30 @@ package. Phases, each fatal on failure:
    moments on (1, 4), 6 steps on one batch: finite losses and parameters,
    the last loss below the first; in both, each card's step walls, one
    profiled step, max_memory_allocated beside the reckoned state of its
-   local shards; no kernel launched;
+   local shards; no kernel launched; (f) in a process group of its own on
+   the same four cards, the training substrate, V2-Lite at full width cut
+   to 2 layers in f32, 4 x 512 tokens a step from a SyntheticPipeline:
+   (f1) train_loop driven by a sharded step on (1, 4) at n_micro 2, 6
+   steps, a snapshot every 2, a fault on every rank at step 3, replayed
+   bit for bit against the same loop unbroken (every logged loss and
+   gradient norm, every parameter and moment, one restore at step 2, the
+   same snapshots on disk), ranks 1-3 keeping no host copy in a save
+   (host RSS growth by rank); (f2) a new job on (2, 2) at n_micro 1 with
+   other weights warm-started by train_loop from (f1)'s snapshots up to
+   step 4: the restored state bit for bit on (2, 2)'s placements, steps 4
+   and 5 pinned to the unbroken run's routes (recorded = pinned, losses
+   within 1e-5 relative, the parameters after step 5 within 1e-4 x max);
+   (f3) the compressed all-reduce on a 4-rank NCCL group: the toy
+   regression's convergence, an int32 payload of int8 values and an f32
+   MAX scale, at a gradient's size the mean and the new error bit for
+   bit, device ms and bytes against a plain f32 all-reduce; (f4) the
+   collective matmul on a 4-rank ring at two V2-Lite widths: both forms
+   within 2e-5 of x @ w, 3 point-to-point passes and no all-gather
+   against one all-gather, walls, SendRecv time inside GEMM time; (f5)
+   one step on (2, 2) and one on (1, 4): the collectives NCCL's flight
+   recorder logged, by kind, against step_costs' count of the same step
+   on meta tensors (counts equal, result bytes within 1%), achieved ring
+   rates against 125 GB/s; no kernel launched;
 5f. examples — repro_torch.examples in-process through run():
    quickstart (route+merge and the mla_decode kernel within 1e-5),
    serve_routed, agentic_fanout (routed fork decode within 1e-5),
@@ -232,8 +256,8 @@ package. Phases, each fatal on failure:
    plan_execute where it fetched, and no kernel in the train steps; in
    5e's sharded serve, counted in each rank's process around the sharded
    run with the kernels ("dist_serve"), its four kernels on every card,
-   and (c4)'s ssd_chunk and softmax_merge; in (d) and (e), no kernel on
-   any card;
+   and (c4)'s ssd_chunk and softmax_merge; in (d), (e) and (f), no
+   kernel on any card;
 7. report — a JSON line of the kernels, the nvidia-smi line, and last the
    {"ok": true, "device": ...} line.
 """
@@ -2764,10 +2788,11 @@ DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 128, 3   # (a): 4 x 128 tokens, 3 steps
 DIST_LOSS_RTOL, DIST_PARAM_RTOL = 1e-5, 1e-4
 CM_TOL = 2e-5                                  # the collective matmul
 # seconds, each subprocess: (a), (b), the sharded serve's (c1), (c2),
-# (c4), (c5) and the sharded train step's (d) and (e); (c3) runs in
+# (c4), (c5), the sharded train step's (d) and (e) and the training
+# substrate's (f); (c3) runs in
 # (c2)'s process, which gets both parts' seconds
 DIST_TIMEOUT = {"a": 300, "b": 900, "c1": 600, "c2": 600, "c3": 600,
-                "c4": 600, "c5": 600, "d": 600, "e": 600}
+                "c4": 600, "c5": 600, "d": 600, "e": 600, "f": 600}
 DRYRUN_ARCH = "deepseek-v2-236b"
 # (b)'s further cells, each `python -m repro_torch.launch.dryrun` in a
 # subprocess of its own, at full depth, run beside the 236B one: GQA heads
@@ -5397,8 +5422,854 @@ def log_dist_train_full(r, wall, smi_line):
         fail("(5e) (e) " + "; ".join(bad))
 
 
+# (f): the training substrate across D_CARDS cards. V2-Lite at full width
+# cut to F_LAYERS (1 dense + 1 MoE) in f32, D_BATCH x D_SEQ tokens a step
+# from a SyntheticPipeline (seed 1) at V2-Lite's vocab. (f1) train_loop on
+# (1, 4) at E_MICRO's n_micro, F_STEPS steps, a snapshot every
+# F_CKPT_EVERY, a fault on every rank at F_FAULT_AT, against the same loop
+# unbroken; (f2) a new job on (2, 2) with weights from F_ELASTIC_SEED warm-
+# starts from (f1)'s snapshots up to F_FROM; (f3) the compressed
+# all-reduce on a 4-rank "pod" group; (f4) the collective matmul on a
+# 4-rank "tp" ring; (f5) one step's collectives against step_costs'
+# count
+F_LAYERS = D_F64_LAYERS
+F_STEPS, F_CKPT_EVERY, F_FAULT_AT, F_FROM = 6, 2, 3, 4
+F_ELASTIC_SEED = 7
+F_KEEP = 2             # snapshots kept a directory (10.5 GB each)
+# (f3): the reference's toy regression (tests/test_torch_distributed.py)
+F_DP_STEPS, F_DP_LOSS, F_DP_W = 300, 1e-3, 0.05
+F_TIME_ITERS = 3       # timed calls of the gradient-sized reductions
+# (f4): x is D_BATCH x D_SEQ tokens x d_model, w (d_model, n) over the ring
+F_CM_COLS = {"expert up": 4 * 1408, "dense mlp": 10944}
+F_CM_REPS = 20
+# (f5): counts by kind equal, result bytes by kind within this share
+F_BYTES_RTOL = 0.01
+# the profiler's NCCL kernel kinds (profiled_step), by collective
+F_KERNEL_KIND = {"all_gather_into_tensor": "AllGather",
+                 "reduce_scatter_tensor": "ReduceScatter",
+                 "all_reduce": "AllReduce", "all_to_all_single": "SendRecv"}
+
+
+def _rss_bytes() -> int:
+    """This process's resident set size, from /proc/self/status."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed_ckpt(directory, keep):
+    """A CheckpointManager that notes each save's host RSS growth (this
+    rank, just after save() returns: the host copies it keeps for the
+    write) and gather wall, each write's wall (save() returning to the
+    rename; its _gc runs last in the write) and each restore's wall."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def __init__(self):
+            super().__init__(directory, keep=keep)
+            self.saves, self.restores = [], []
+
+        def save(self, step, tree, blocking=False):
+            self.wait()
+            rss, t = _rss_bytes(), time.perf_counter()
+            super().save(step, tree, blocking)
+            now = time.perf_counter()
+            self.saves.append({"step": step, "gather_s": now - t,
+                               "rss_growth": _rss_bytes() - rss,
+                               "returned": now})
+
+        def _gc(self):
+            if self.saves:
+                self.saves[-1]["write_s"] = (time.perf_counter()
+                                             - self.saves[-1]["returned"])
+            super()._gc()
+
+        def restore(self, step, target_tree, shardings=None):
+            t = time.perf_counter()
+            out = super().restore(step, target_tree, shardings)
+            self.restores.append({"step": step,
+                                  "wall_s": time.perf_counter() - t})
+            return out
+
+    return Timed()
+
+
+def _loop_step(torch, cfg, mesh, params, n_micro, routes, losses,
+               pinned=None, first=None):
+    """A sharded train step as train_loop calls it (params, opt, batch):
+    the batch laid out with batch_sharding, then train_step
+    (param_shardings, ep_axis "model", AdamWConfig()) under sp_policy and
+    implicit_replication. Keyed by i, the optimizer's step count before
+    the step: routes[i] gets its routes (whole, on the host), losses[i]
+    its loss (whole) and wall (host clock ending in a synchronize);
+    pinned[i], where given, pins it; first(params, opt) runs once, before
+    the first step."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.train.step import make_train_step
+    ocfg, tcfg = _train_cfgs(torch.float32, n_micro, ep_axis="model")
+    step = make_train_step(cfg, ocfg, tcfg,
+                           param_shardings=SH.param_shardings(params, mesh))
+    spec = SH.batch_sharding(mesh).spec
+    dev = params.embed.table.to_local().device
+    pending = [first]
+
+    def train_step(params, opt, batch):
+        i = int(opt["step"])
+        if pending[0] is not None:
+            pending.pop()(params, opt)
+            pending.append(None)
+        _sync(torch, dev)
+        t = time.perf_counter()
+        own = []
+        with POL.use_policy(POL.sp_policy(mesh)), implicit_replication():
+            placed = {k: SH.distribute(v, mesh, spec)
+                      for k, v in batch.items()}
+            out = step(params, opt, placed, routes=own,
+                       pinned=None if pinned is None else pinned[i])
+        loss = float(out[2]["loss"].full_tensor())
+        _sync(torch, dev)
+        losses[i] = (loss, time.perf_counter() - t)
+        routes[i] = [[r.full_tensor().cpu() for r in lst] for lst in own]
+        return out
+    return train_step
+
+
+def _loop_tree(params, opt):
+    return {"params": params, "opt": opt}
+
+
+def _same_state(torch, dev, a, b) -> dict:
+    """Two runs' trees ({"params", "opt"}) gathered leaf by leaf (a
+    collective): on rank 0 the leaves that differ in any bit, and the
+    leaf count."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import _flatten
+    la, lb = _flatten(a), _flatten(b)
+    differ = []
+    for i, (x, y) in enumerate(zip(la, lb)):
+        wx, wy = _whole_leaf(x), _whole_leaf(y)
+        if dist.get_rank() == 0 and not torch.equal(wx, wy.to(wx.device)):
+            differ.append(i)
+        del wx, wy
+    return {"leaves": len(la), "differ": differ}
+
+
+def _whole_leaf(t):
+    from torch.distributed.tensor import DTensor
+    t = t.detach()
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _snapshot_equal(torch, tree, path) -> dict:
+    """tree's leaves gathered (a collective) against a snapshot's on disk,
+    bit for bit, on rank 0: {"leaves", "differ"}."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import _DTYPES, _flatten
+    leaves = _flatten(tree)
+    differ = []
+    man = json.loads((path / "manifest.json").read_text())
+    data = np.load(path / "leaves.npz") if dist.get_rank() == 0 else None
+    for i, t in enumerate(leaves):
+        whole = _whole_leaf(t)
+        if data is not None:
+            want = torch.from_numpy(data[f"leaf_{i}"]).view(
+                _DTYPES[man["dtypes"][i]]).reshape(man["shapes"][i])
+            if whole.dtype != want.dtype or not torch.equal(
+                    whole.cpu(), want):
+                differ.append(i)
+        del whole
+    if data is not None:
+        data.close()
+    return {"leaves": len(leaves), "differ": differ}
+
+
+def _placed_as(params, opt, shard, mesh) -> bool:
+    """Whether every parameter and moment lies on mesh with its
+    param_shardings placements."""
+    names = [k for k, _ in params.named_parameters()]
+    ps = list(params.parameters())
+    return all(
+        t.device_mesh == mesh
+        and tuple(t.placements) == tuple(shard[n].placements)
+        for n, p, m, v in zip(names, ps, opt["m"], opt["v"])
+        for t in (p, m, v))
+
+
+def _after_spread(torch, dev, params, ref) -> dict:
+    """params against ref (another run's, any mesh), leaf by leaf gathered
+    (a collective): Spread's worst leaf and the elements beyond
+    DIST_PARAM_RTOL x their leaf's max (rank 0)."""
+    import torch.distributed as dist
+    spread = Spread()
+    for (name, p), q in zip(params.named_parameters(), ref.parameters()):
+        a, b = _whole_leaf(p), _whole_leaf(q)
+        if dist.get_rank() == 0:
+            spread.add(torch, dev, name, a, b)
+        del a, b
+    return vars(spread)
+
+
+def elastic_loop(torch, dev, world, cfg, root):
+    """(f1) and (f2) in one rank, their snapshots under root. Returns
+    this rank's report (rank 0's holds the comparisons)."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.loop import LoopConfig, train_loop
+    rank = dist.get_rank()
+    pipe = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=D_SEQ,
+                                        global_batch=D_BATCH, seed=1),
+                             device=dev)
+    mesh14 = make_mesh((1, 4), ("data", "model"))
+    loop_cfg = LoopConfig(total_steps=F_STEPS, ckpt_every=F_CKPT_EVERY,
+                          log_every=1)
+    out = {}
+
+    def f1(name, fault_hook=None):
+        params = _sharded_train_params(torch, cfg, mesh14, dev,
+                                       torch.float32)
+        opt = adamw_init(params, AdamWConfig())
+        routes, losses = {}, {}
+        step = _loop_step(torch, cfg, mesh14, params, E_MICRO[(1, 4)],
+                          routes, losses)
+        ckpt = _timed_ckpt(root / name, F_KEEP)
+        t = time.perf_counter()
+        params, opt, log_ = train_loop(step, params, opt, pipe, ckpt,
+                                       loop_cfg, fault_hook=fault_hook)
+        wall = time.perf_counter() - t
+        out[name] = {"log": [{k: v for k, v in e.items() if k != "t"}
+                             for e in log_],
+                     "wall_s": wall, "saves": ckpt.saves,
+                     "restores": ckpt.restores,
+                     "step_walls": {i: w for i, (_, w) in losses.items()},
+                     "whole_losses": {i: x for i, (x, _) in losses.items()},
+                     "on_disk": ckpt.all_steps()}
+        return params, opt, routes
+
+    p_u, o_u, routes_u = f1("unbroken")
+    fired = []
+
+    def fault(step):
+        if step == F_FAULT_AT and not fired:
+            fired.append(step)
+            raise RuntimeError(f"induced fault at step {step}")
+
+    p_b, o_b, _ = f1("broken", fault)
+    out["replay"] = _same_state(torch, dev, _loop_tree(p_u, o_u),
+                                _loop_tree(p_b, o_b))
+    del p_b, o_b
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (f2): a directory holding the broken run's snapshots up to F_FROM
+    elastic = root / "elastic"
+    if rank == 0:
+        elastic.mkdir()
+        for s in out["broken"]["on_disk"]:
+            if s <= F_FROM:
+                src, dst = root / "broken" / f"step_{s:08d}", \
+                    elastic / f"step_{s:08d}"
+                dst.mkdir()
+                for f in src.iterdir():       # hard links: no copy
+                    os.link(f, dst / f.name)
+    dist.barrier()
+    mesh22 = make_mesh((2, 2), ("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(F_ELASTIC_SEED)
+    params = SH.init_sharded(cfg, mesh22, gen, device=dev,
+                             dtype=torch.float32)
+    from repro_torch.models.module import trainable
+    params = trainable(params)
+    shard22 = SH.param_shardings(params, mesh22)
+    opt = adamw_init(params, AdamWConfig())
+    k = E_MICRO[(1, 4)] // E_MICRO[(2, 2)]
+    pinned = {i: [[t.to(dev) for t in lst] for lst in _joined(torch, r, k)]
+              for i, r in routes_u.items()}
+    routes_e, losses_e, held = {}, {}, {}
+
+    def first(params, opt):
+        held["placed"] = _placed_as(params, opt, shard22, mesh22)
+        held["restored"] = _snapshot_equal(
+            torch, _loop_tree(params, opt),
+            root / "unbroken" / f"step_{F_FROM:08d}")
+
+    step = _loop_step(torch, cfg, mesh22, params, E_MICRO[(2, 2)],
+                      routes_e, losses_e, pinned=pinned, first=first)
+    ckpt = _timed_ckpt(elastic, F_KEEP)
+    t = time.perf_counter()
+    params, opt, log_e = train_loop(
+        step, params, opt, pipe, ckpt,
+        LoopConfig(total_steps=F_STEPS, ckpt_every=F_STEPS + 1,
+                   log_every=1))
+    out["elastic"] = {
+        "log": [{k: v for k, v in e.items() if k != "t"} for e in log_e],
+        "wall_s": time.perf_counter() - t, "restores": ckpt.restores,
+        "step_walls": {i: w for i, (_, w) in losses_e.items()},
+        "routes_pinned": all(
+            torch.equal(a, b.cpu()) for i, r in routes_e.items()
+            for a, b in zip(_flat(r), _flat(pinned[i]))),
+        "routes_steps": sorted(routes_e), **held,
+        "after": _after_spread(torch, dev, params, p_u)}
+    del params, opt, p_u, o_u
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def compressed_toy(torch, dev, group):
+    """(f3) the reference's toy regression, F_DP_STEPS steps of compressed
+    and of full-precision DP over group (8 rows a rank): {"loss": {mode:
+    final loss}, "w_diff", "payload_ok" (every SUM an int32 payload of
+    int8 values), "scale_max_f32" (every MAX an f32 scalar)}."""
+    import torch.distributed as dist
+    from repro_torch.optim import compress
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn(8 * n, 16, generator=g, device=dev)
+    y = X @ torch.randn(16, 1, generator=g, device=dev)
+    xb, yb = X[r * 8:(r + 1) * 8], y[r * 8:(r + 1) * 8]
+    seen, real = [], dist.all_reduce
+
+    def spy(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        seen.append((t.dtype, op, t.numel(),
+                     None if t.is_floating_point() else
+                     int(t.abs().max())))
+        return real(t, op=op, group=group, async_op=async_op)
+
+    loss = lambda w, xx, yy: torch.mean(torch.square(xx @ w - yy))
+    ws, losses = {}, {}
+    for mode in (False, True):
+        w, e = torch.zeros(16, 1, device=dev), torch.zeros(16, 1, device=dev)
+        dist.all_reduce = spy if mode else real
+        try:
+            for _ in range(F_DP_STEPS):
+                wg = w.clone().requires_grad_(True)
+                (gr,) = torch.autograd.grad(loss(wg, xb, yb), wg)
+                if mode:
+                    (gr,), (e,) = compress.compressed_psum_with_feedback(
+                        [gr], [e], group)
+                else:
+                    dist.all_reduce(gr, group=group)
+                    gr = gr / n
+                w = w - 0.05 * gr
+        finally:
+            dist.all_reduce = real
+        ws[mode], losses[mode] = w, float(loss(w, X, y))
+    sums = [s for s in seen if s[1] == dist.ReduceOp.SUM]
+    maxes = [s for s in seen if s[1] == dist.ReduceOp.MAX]
+    return {"loss": {"compressed": losses[True], "full": losses[False]},
+            "w_diff": float((ws[True] - ws[False]).abs().max()),
+            "payload_ok": len(sums) == F_DP_STEPS and all(
+                d == torch.int32 and m <= 127 for d, _, _, m in sums),
+            "scale_max_f32": len(maxes) == F_DP_STEPS and all(
+                d == torch.float32 and k == 1 for d, _, k, _ in maxes)}
+
+
+def compressed_at_size(torch, dev, group, shapes):
+    """(f3) at a gradient's size: one f32 tensor a shape drawn from seed
+    (rank), compressed once with zero error (the whole list). Held on
+    rank 0, bit for bit: the mean against sum_r q_r * s / n from the
+    gathered int8 q's (q and s recomputed on each rank as compress does,
+    s from the gathered max|g|); on each rank the new error against
+    g - q * s. The compressed call's and a plain f32 all_reduce's device
+    ms over the same leaves (time_ms: CUDA events behind a spin) and
+    bytes as the flight recorder logged them."""
+    import torch.distributed as dist
+    from repro_torch.distributed import flight
+    from repro_torch.optim import compress
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    gen = torch.Generator(device=dev).manual_seed(r)
+    grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    zeros = [torch.zeros_like(x) for x in grads]
+    mark = flight.last_id()
+    means, errs = compress.compressed_psum_with_feedback(grads, zeros, group)
+    _sync(torch, dev)
+    comp_log = flight.by_kind(flight.since(mark))
+    mean_bad = err_bad = 0
+    for g, mean, err in zip(grads, means, errs):
+        amax = torch.max(torch.abs(g)).reshape(1)
+        every = torch.empty(n, device=dev)
+        dist.all_gather_into_tensor(every, amax, group=group)
+        s = every.max() / 127.0 + 1e-12
+        q = torch.clamp(torch.round(g / s), -127, 127).to(torch.int8)
+        err_bad += int(not torch.equal(err, g - q.to(torch.float32) * s))
+        qs = torch.empty(n * q.numel(), dtype=torch.int8, device=dev)
+        dist.all_gather_into_tensor(qs, q.reshape(-1), group=group)
+        want = (qs.view(n, -1).to(torch.int32).sum(0).to(torch.float32)
+                * s / n).view(q.shape)
+        mean_bad += int(not torch.equal(mean, want))
+        del qs, want, q
+    del means, errs
+    plain = [x.clone() for x in grads]
+    mark = flight.last_id()
+    for x in plain:
+        dist.all_reduce(x, group=group)
+    _sync(torch, dev)
+    plain_log = flight.by_kind(flight.since(mark))
+    timing = {"compressed_ms": None, "plain_ms": None}
+    if dev.type == "cuda":
+        def comp():
+            compress.compressed_psum_with_feedback(grads, zeros, group)
+
+        def full():
+            for x in plain:
+                dist.all_reduce(x, group=group)
+        timing = {"compressed_ms": time_ms(torch, comp, F_TIME_ITERS,
+                                           warmup=1)[0],
+                  "plain_ms": time_ms(torch, full, F_TIME_ITERS,
+                                      warmup=1)[0]}
+    bad = [None] * n
+    dist.all_gather_object(bad, err_bad, group=group)
+    del grads, zeros, plain
+    return dict(timing, elements=sum(math.prod(s) for s in shapes),
+                leaves=len(shapes), mean_differ=mean_bad, err_differ=bad,
+                compressed_log=comp_log, plain_log=plain_log)
+
+
+def collective_matmul_ring(torch, dev, group, d_model):
+    """(f4) on group (the "tp" ring): for each width of F_CM_COLS, x (D_BATCH
+    x D_SEQ, d_model) row-sharded and w (d_model, n) in column blocks,
+    both forms against x @ w on this rank's rows (max|diff| / max), the
+    passes each makes (a spy on batch_isend_irecv and
+    all_gather_into_tensor), each one's wall (the median of F_CM_REPS,
+    host clock ending in a synchronize) and, on the card, the share of the
+    overlapped form's SendRecv kernel time that overlaps its GEMM
+    kernels (torch.profiler)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collective_matmul as CM
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    rows = D_BATCH * D_SEQ // n
+    calls = {"p2p": 0, "all_gather": 0}
+    real_p2p, real_ag = dist.batch_isend_irecv, dist.all_gather_into_tensor
+
+    def p2p(ops):
+        calls["p2p"] += 1
+        return real_p2p(ops)
+
+    def ag(*a, **k):
+        calls["all_gather"] += 1
+        return real_ag(*a, **k)
+
+    out = {}
+    for name, cols in F_CM_COLS.items():
+        g = torch.Generator(device=dev).manual_seed(2)
+        x = torch.randn(D_BATCH * D_SEQ, d_model, generator=g, device=dev)
+        w = torch.randn(d_model, cols, generator=g, device=dev)
+        nb = cols // n
+        xs, wb = x[r * rows:(r + 1) * rows], \
+            w[:, r * nb:(r + 1) * nb].contiguous()
+        want = xs @ w
+        rec = {}
+        for fn in (CM.allgather_matmul_overlapped,
+                   CM.allgather_matmul_barrier):
+            before = dict(calls)
+            dist.batch_isend_irecv, dist.all_gather_into_tensor = p2p, ag
+            try:
+                got = fn(xs, wb, group)
+            finally:
+                dist.batch_isend_irecv = real_p2p
+                dist.all_gather_into_tensor = real_ag
+            walls = []
+            for _ in range(F_CM_REPS):
+                _sync(torch, dev)
+                t = time.perf_counter()
+                fn(xs, wb, group)
+                _sync(torch, dev)
+                walls.append(time.perf_counter() - t)
+            rec[fn.__name__] = {
+                "rel": float((got - want).abs().max() / want.abs().max()),
+                "passes": {k: calls[k] - before[k] for k in calls},
+                "wall_ms": statistics.median(walls) * 1e3}
+        rec["overlap"] = (cm_overlap(torch, lambda: CM.
+                                     allgather_matmul_overlapped(xs, wb,
+                                                                 group))
+                          if dev.type == "cuda" else None)
+        out[name] = dict(rec, shape={"x": [D_BATCH * D_SEQ, d_model],
+                                     "w": [d_model, cols]})
+        del x, w, xs, wb, want, got
+    return out
+
+
+def cm_overlap(torch, fn):
+    """fn() under torch.profiler: {"sendrecv_ms", "gemm_ms", "overlap_ms"
+    (the SendRecv kernels' time inside the union of the GEMM kernels'),
+    "share"}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    send, gemm = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        low = e.name.lower()
+        if "sendrecv" in low:
+            send.append(span)
+        elif "nccl" not in low and re.search(r"gemm|xmma|cutlass", low):
+            gemm.append(span)
+    merged = []
+    for a, b in sorted(gemm):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    inside = sum(max(0, min(b, d) - max(a, c)) for a, b in send
+                 for c, d in merged)
+    total = sum(b - a for a, b in send)
+    return {"sendrecv_ms": total / 1e3,
+            "gemm_ms": sum(b - a for a, b in merged) / 1e3,
+            "overlap_ms": inside / 1e3,
+            "share": inside / total if total else None,
+            "kernels": {"sendrecv": len(send), "gemm": len(gemm)}}
+
+
+def step_collectives(torch, dev, cfg, shape, batch):
+    """(f5) one f32 train step of cfg on a shape mesh at E_MICRO[shape],
+    after one warm step: the collectives the flight recorder logged in it
+    (distributed.flight.by_kind) and, on the card, the same step under
+    the profiler (profiled_step: wall, busy, NCCL kernels by kind)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import flight
+    from repro_torch.distributed import policy as POL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+    mesh = make_mesh(shape, ("data", "model"))
+    params = _sharded_train_params(torch, cfg, mesh, dev, torch.float32)
+    ocfg, tcfg = _train_cfgs(torch.float32, E_MICRO[shape], ep_axis="model")
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(cfg, ocfg, tcfg,
+                           param_shardings=SH.param_shardings(params, mesh))
+    spec = SH.batch_sharding(mesh).spec
+    rec = {}
+    with POL.use_policy(POL.sp_policy(mesh)), implicit_replication():
+        placed = {k: SH.distribute(v, mesh, spec) for k, v in batch.items()}
+        step(params, opt, placed)
+        _sync(torch, dev)
+        mark = flight.last_id()
+        run = lambda: step(params, opt, placed)
+        if dev.type == "cuda":
+            rec["profile"] = profiled_step(torch, run)
+        else:
+            run()
+        rec["log"] = flight.by_kind(flight.since(mark))
+    del params, opt, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def dist_elastic(torch, dev, world, cfg=None):
+    """(f) in one rank of a group of D_CARDS (NCCL on the cards; gloo on
+    the host when dev is the CPU, a rehearsal at a smaller cfg): (f1),
+    (f2), (f3), (f4), (f5) in order, the launch counters zeroed before
+    and read after. Returns rank 0's report (None elsewhere)."""
+    import pathlib
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs import deepseek_v2_lite
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.module import count_params
+    rank = dist.get_rank()
+    cfg = cfg or dataclasses.replace(deepseek_v2_lite.config(),
+                                     n_layers=F_LAYERS)
+    zero, read = _launch_counters()
+    zero()
+    box = [tempfile.mkdtemp(prefix="chip_smoke_f_") if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    root = pathlib.Path(box[0])
+    rep = {"layers": cfg.n_layers,
+           "params": count_params(M.init_model(cfg, device="meta")),
+           "root": str(root), "disk_free": shutil.disk_usage(root).free}
+    try:
+        t = time.perf_counter()
+        rep["loop"] = elastic_loop(torch, dev, world, cfg, root)
+        rep["loop_s"] = time.perf_counter() - t
+        if rank == 0:
+            rep["snapshot_bytes"] = sum(
+                f.stat().st_size for f in
+                (root / "unbroken" / f"step_{F_FROM:08d}").iterdir())
+    finally:
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+    pod = make_mesh((world,), ("pod",)).get_group("pod")
+    t = time.perf_counter()
+    rep["toy"] = compressed_toy(torch, dev, pod)
+    shapes = [tuple(p.shape) for p in M.init_model(cfg, device="meta")
+              .parameters()]
+    rep["at_size"] = compressed_at_size(torch, dev, pod, shapes)
+    rep["compress_s"] = time.perf_counter() - t
+    tp = make_mesh((world,), ("tp",)).get_group("tp")
+    t = time.perf_counter()
+    rep["cm"] = collective_matmul_ring(torch, dev, tp, cfg.d_model)
+    rep["cm_s"] = time.perf_counter() - t
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    batch = SyntheticPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=D_SEQ, global_batch=D_BATCH, seed=1),
+        device=dev).batch_at(0)
+    t = time.perf_counter()
+    rep["steps"] = {str(list(s)): step_collectives(torch, dev, cfg, s,
+                                                   batch)
+                    for s in E_MICRO}
+    rep["steps_s"] = time.perf_counter() - t
+    mine = {"launches": read(), "rss": [s["rss_growth"] for s in
+                                        rep["loop"]["unbroken"]["saves"]],
+            "steps": {k: v.get("profile") for k, v in rep["steps"].items()},
+            "logs": {k: v["log"] for k, v in rep["steps"].items()}}
+    by_rank = [None] * world
+    dist.all_gather_object(by_rank, mine)
+    if rank != 0:
+        return None
+    rep["by_rank"] = by_rank
+    return rep
+
+
+def meta_step_collectives(cfg, shape, n_micro):
+    """step_costs' count of one f32 train step of cfg on a shape mesh at
+    n_micro (launch.dryrun.build_step over its fake_group, D_BATCH x D_SEQ
+    tokens): {kind: {"count", "result_bytes", "wire_bytes"}}."""
+    import torch
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    with D.fake_group(math.prod(shape)):
+        mesh = make_mesh(shape, ("data", "model"))
+        step, _ = D.build_step("deepseek-v2-lite", "train", mesh,
+                               n_micro=n_micro, cfg=cfg,
+                               shape=ShapeSpec("5e (f5)", D_SEQ, D_BATCH,
+                                               "train"),
+                               dtype=torch.float32)
+        costs = D.step_costs.measure(step.micro, step.n_micro, step.update)
+    return costs.by_kind()
+
+
+def _by_step(log_):
+    """{step: (loss, grad_norm)} of a loop's log, the last entry a step."""
+    return {e["step"]: (e["loss"], e["grad_norm"]) for e in log_
+            if "event" not in e}
+
+
+def _gb(n):
+    return f"{n / 1e9:.2f} GB"
+
+
+def log_dist_elastic(r, wall, smi_line):
+    """(f)'s lines; fail unless every limit of (f1)-(f5) holds (see the
+    constants above) and no kernel was launched."""
+    bad = []
+    launched = {k: n for x in r["by_rank"] for k, c in x["launches"].items()
+                for n in c.values() if n}
+    loop, snap = r["loop"], r["snapshot_bytes"]
+    u, b, e = loop["unbroken"], loop["broken"], loop["elastic"]
+    log(f"[dist] (f) the training substrate across {D_CARDS} cards (a NCCL "
+        f"group of its own): V2-Lite at full width cut to {r['layers']} "
+        f"layers ({r['params']} parameters) in f32, TF32 off, "
+        f"AdamWConfig(), {D_BATCH} x {D_SEQ} tokens a step "
+        f"(SyntheticPipeline, seed 1), param_shardings, sp_policy, ep_axis "
+        f"model, weights drawn leaf by leaf (init_sharded); kernels "
+        f"launched {launched or 'none'}; part wall {wall:.1f} s ((f1)+(f2) "
+        f"{r['loop_s']:.1f} s, (f3) {r['compress_s']:.1f} s, (f4) "
+        f"{r['cm_s']:.1f} s, (f5) {r['steps_s']:.1f} s); {smi_line}")
+    # (f1)
+    want, got = _by_step(u["log"]), _by_step(b["log"])
+    events = [(x["event"], x["step"]) for x in b["log"] if "event" in x]
+    rss = [x["rss"] for x in r["by_rank"]]
+    log(f"[dist] (f1) train_loop on (1, 4) at n_micro {E_MICRO[(1, 4)]}, "
+        f"{F_STEPS} steps, a snapshot every {F_CKPT_EVERY} (keep "
+        f"{F_KEEP}), a fault on every rank at step {F_FAULT_AT}: events "
+        f"{events}; losses (unbroken) " + ", ".join(
+            f"{want[s][0]:.7f}" for s in sorted(want))
+        + f"; replayed = unbroken: logs {got == want}, parameters and "
+        f"moments {len(loop['replay']['differ'])} of "
+        f"{loop['replay']['leaves']} leaves differ; on disk {b['on_disk']} "
+        f"/ {u['on_disk']}; snapshot {_gb(snap)} ({_gb(r['disk_free'])} "
+        f"free at the start); loop walls unbroken "
+        f"{u['wall_s']:.1f} s, broken {b['wall_s']:.1f} s; step walls "
+        f"(unbroken) " + _ms([u["step_walls"][s] for s in
+                              sorted(u["step_walls"])]) + " ms; writes "
+        + ", ".join(f"step {x['step']} gather {x['gather_s']:.2f} s write "
+                    f"{x.get('write_s', float('nan')):.2f} s "
+                    f"({snap / 1e9 / x['write_s']:.2f} GB/s)"
+                    for x in u["saves"] + b["saves"] if x.get("write_s"))
+        + "; restores " + ", ".join(
+            f"step {x['step']} {x['wall_s']:.2f} s "
+            f"({snap / 1e9 / x['wall_s']:.2f} GB/s)"
+            for x in b["restores"] + e["restores"])
+        + "; host RSS growth across a save, by rank (the unbroken run's "
+        "saves): " + "; ".join(
+            f"rank {i} " + ", ".join(_gb(x) for x in g)
+            for i, g in enumerate(rss)) + f"; {smi_line}")
+    if got != want:
+        bad.append(f"(f1) the replayed log differs: {got} vs {want}")
+    logged = {s: x[0] for run in (u, b) for s, x in _by_step(
+        run["log"]).items() if x[0] != run["whole_losses"][str(s)]}
+    if logged:        # the loop logs float() of the loss, a DTensor
+        bad.append(f"(f1) logged losses are not the whole loss: {logged}")
+    if loop["replay"]["differ"] or not loop["replay"]["leaves"]:
+        bad.append(f"(f1) leaves differ after the replay: "
+                   f"{loop['replay']}")
+    if events != [("restored", F_FAULT_AT - F_FAULT_AT % F_CKPT_EVERY)]:
+        bad.append(f"(f1) restore events {events}")
+    if b["on_disk"] != u["on_disk"] or not u["on_disk"]:
+        bad.append(f"(f1) snapshots on disk {b['on_disk']} vs "
+                   f"{u['on_disk']}")
+    kept = [max(g) for g in rss[1:]]
+    if max(kept) > 0.05 * snap or rss[0][0] < 0.5 * snap:
+        bad.append(f"(f1) host RSS growth across a save by rank {rss} "
+                   f"(snapshot {snap} bytes): ranks 1-3 must keep no copy")
+    # (f2)
+    lu = {s: l for s, (l, _) in want.items()}
+    le = _by_step(e["log"])
+    rel = {s: abs(le[s][0] - lu[s]) / abs(lu[s]) for s in le}
+    aft = e["after"]
+    log(f"[dist] (f2) a new job on (2, 2) at n_micro {E_MICRO[(2, 2)]}, "
+        f"weights from seed {F_ELASTIC_SEED}, warm-started by train_loop "
+        f"from (f1)'s snapshots up to step {F_FROM}: restored state "
+        f"{len(e['restored']['differ'])} of {e['restored']['leaves']} "
+        f"leaves differ from the unbroken run's step {F_FROM} (bit for "
+        f"bit), on param_shardings' (2, 2) placements {e['placed']}; steps "
+        f"{sorted(le)} pinned to the unbroken routes, recorded = pinned "
+        f"{e['routes_pinned']}; losses " + ", ".join(
+            f"{le[s][0]:.7f} / {lu[s]:.7f} ({rel[s]:.3e})" for s in sorted(le))
+        + f" (limit {DIST_LOSS_RTOL}); after step {F_STEPS - 1} against "
+        f"the unbroken run: worst leaf {aft['rel']:.3e} ({aft['leaf']}), "
+        f"{aft['over']} elements beyond {DIST_PARAM_RTOL} x their leaf's "
+        f"max; restore {e['restores'][0]['wall_s']:.2f} s, step walls "
+        + _ms([e["step_walls"][s] for s in sorted(e["step_walls"])])
+        + f" ms; {smi_line}")
+    if e["restored"]["differ"] or not e["placed"]:
+        bad.append(f"(f2) restored state: {e['restored']}, placed "
+                   f"{e['placed']}")
+    if not e["routes_pinned"] or e["routes_steps"] != list(
+            range(F_FROM, F_STEPS)):
+        bad.append(f"(f2) routes pinned {e['routes_pinned']} at steps "
+                   f"{e['routes_steps']}")
+    if sorted(le) != list(range(F_FROM, F_STEPS)) or \
+            max(rel.values()) > DIST_LOSS_RTOL:
+        bad.append(f"(f2) losses {le} against {lu}")
+    if aft["over"]:
+        bad.append(f"(f2) {aft['over']} elements beyond {DIST_PARAM_RTOL} "
+                   f"x their leaf's max after step {F_STEPS - 1}")
+    # (f3)
+    toy, big = r["toy"], r["at_size"]
+    cb = sum(v["result_bytes"] for v in big["compressed_log"].values())
+    pb = sum(v["result_bytes"] for v in big["plain_log"].values())
+    fmt = lambda x: "not measured" if x is None else f"{x:.3f} ms"
+    log(f"[dist] (f3) the compressed all-reduce on a {D_CARDS}-rank pod "
+        f"group: toy regression, {F_DP_STEPS} steps, final loss compressed "
+        f"{toy['loss']['compressed']:.3e} / full {toy['loss']['full']:.3e} "
+        f"(limit {F_DP_LOSS}), |w_c - w_f| {toy['w_diff']:.3e} (limit "
+        f"{F_DP_W}), SUM payload int32 of int8 values {toy['payload_ok']}, "
+        f"scale an f32 MAX {toy['scale_max_f32']}; at a gradient's size "
+        f"({big['leaves']} leaves, {big['elements']} f32 elements a rank, "
+        f"seed = rank): mean = sum_r q_r s / {D_CARDS} bit for bit on "
+        f"{big['leaves'] - big['mean_differ']} of {big['leaves']} leaves, "
+        f"new error = g - q s on every rank but {big['err_differ']} "
+        f"leaves; device ms compressed {fmt(big['compressed_ms'])}, plain "
+        f"f32 all_reduce {fmt(big['plain_ms'])}; bytes as NCCL logged "
+        f"them (flight recorder, results) compressed {cb} ("
+        + ", ".join(f"{k} {v['count']} x {v['dtypes']}"
+                    for k, v in big["compressed_log"].items())
+        + f"), plain {pb}: ratio {cb / pb:.4f} against wire_bytes_ratio() "
+        f"0.25; {smi_line}")
+    if not (toy["loss"]["compressed"] < F_DP_LOSS
+            and toy["loss"]["full"] < F_DP_LOSS
+            and toy["w_diff"] < F_DP_W and toy["payload_ok"]
+            and toy["scale_max_f32"]):
+        bad.append(f"(f3) toy regression {toy}")
+    if big["mean_differ"] or any(big["err_differ"]):
+        bad.append(f"(f3) at size: mean differs on {big['mean_differ']} "
+                   f"leaves, errors on {big['err_differ']}")
+    # (f4)
+    want_passes = {"allgather_matmul_overlapped": {"p2p": D_CARDS - 1,
+                                                   "all_gather": 0},
+                   "allgather_matmul_barrier": {"p2p": 0, "all_gather": 1}}
+    for name, c in r["cm"].items():
+        ov = c["overlap"]
+        log(f"[dist] (f4) the collective matmul on a {D_CARDS}-rank tp "
+            f"ring, {name}: x {c['shape']['x']} x w {c['shape']['w']} f32 "
+            + "; ".join(f"{fn} max|diff|/max {c[fn]['rel']:.3e} (limit "
+                        f"{CM_TOL}), passes {c[fn]['passes']}, wall "
+                        f"{c[fn]['wall_ms']:.3f} ms (median of {F_CM_REPS})"
+                        for fn in want_passes)
+            + "; SendRecv time inside GEMM time "
+            + ("not measured" if ov is None else
+               f"{ov['overlap_ms']:.3f} of {ov['sendrecv_ms']:.3f} ms ("
+               + ("n/a" if ov["share"] is None else
+                  f"{100 * ov['share']:.1f}%")
+               + f"; GEMM {ov['gemm_ms']:.3f} ms, kernels {ov['kernels']})")
+            + f"; {smi_line}")
+        for fn, p in want_passes.items():
+            if c[fn]["rel"] > CM_TOL or c[fn]["passes"] != p:
+                bad.append(f"(f4) {name} {fn}: {c[fn]}")
+    # (f5)
+    for shape_s, st in r["steps"].items():
+        shape = tuple(json.loads(shape_s))
+        n_micro = E_MICRO[shape]
+        cfg = _f_cfg(r["layers"])
+        dry = meta_step_collectives(cfg, shape, n_micro)
+        card = st["log"]
+        prof = [x["steps"][shape_s] for x in r["by_rank"]]
+        rows = []
+        for k in sorted(set(card) | set(dry)):
+            c, m = card.get(k, {}), dry.get(k, {})
+            ms = [p["nccl"].get(F_KERNEL_KIND.get(k), [0, 0.0])[1]
+                  for p in prof if p]
+            rate = (c.get("wire_bytes", 0) / (max(ms) / 1e3) / 1e9
+                    if ms and max(ms) else None)
+            rows.append(
+                f"{k}: card {c.get('count', 0)} / meta "
+                f"{m.get('count', 0):g}, result bytes "
+                f"{c.get('result_bytes', 0)} / {m.get('result_bytes', 0):g}"
+                f", card elements {c.get('elements', 0)} dtypes "
+                f"{c.get('dtypes', {})} groups "
+                f"{c.get('groups', {})}, ring wire "
+                f"{c.get('wire_bytes', 0) / 1e9:.4f} GB over NCCL "
+                + (f"{max(ms):.1f} ms (waits included): {rate:.2f} GB/s "
+                   f"against 125" if rate else "ms not measured"))
+            if c.get("count", 0) != m.get("count", 0) or abs(
+                    c.get("result_bytes", 0) - m.get("result_bytes", 0)) \
+                    > F_BYTES_RTOL * max(m.get("result_bytes", 0), 1):
+                bad.append(f"(f5) {shape} {k}: card {c.get('count', 0)} "
+                           f"collectives, {c.get('result_bytes', 0)} bytes; "
+                           f"step_costs {m.get('count', 0):g}, "
+                           f"{m.get('result_bytes', 0):g}")
+        log(f"[dist] (f5) one f32 step on {shape} at n_micro {n_micro}, "
+            f"its collectives as NCCL's flight recorder logged them (card) "
+            f"against step_costs.measure of the same step on meta over "
+            f"the dry run's fake group (meta): " + "; ".join(rows)
+            + "; " + (_profile_line(prof) if all(prof) else
+                      "the step's profile not measured") + f"; {smi_line}")
+    if launched:
+        bad.append(f"kernels launched in (f): {launched}")
+    if bad:
+        fail("(5e) (f) " + "; ".join(bad))
+
+
+def _f_cfg(layers):
+    from repro_torch.configs import deepseek_v2_lite
+    return dataclasses.replace(deepseek_v2_lite.config(), n_layers=layers)
+
+
 def dist_serve_rank(rank, world, port, part):
-    """One rank of (c1), (c2), (c4), (c5), (d) or (e)
+    """One rank of (c1), (c2), (c4), (c5), (d), (e) or (f)
     (torch.multiprocessing.spawn's
     target):
     card `rank`, a NCCL group of `world` ranks. Rank 0 prints the part's
@@ -5411,6 +6282,9 @@ def dist_serve_rank(rank, world, port, part):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", rank)
     torch.cuda.set_device(dev)
+    if part == "f":             # (f5) reads NCCL's flight recorder
+        from repro_torch.distributed import flight
+        flight.enable()
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     v2_lite = deepseek_v2_lite.config()
@@ -5427,6 +6301,8 @@ def dist_serve_rank(rank, world, port, part):
         out = dist_train(torch, dev, world)
     elif part == "e":
         out = dist_train_full(torch, dev, world)
+    elif part == "f":
+        out = dist_elastic(torch, dev, world)
     else:
         out, params = serve_bf16(torch, dev, v2_lite, (1, world))
         long = long_decode_bf16(torch, dev, v2_lite, (1, world), params)
@@ -5441,13 +6317,13 @@ def dist_serve_rank(rank, world, port, part):
 
 def dist_serve_part(part: str) -> None:
     """(c1), (c2), (c4) or (c5) in this process: one rank per visible card,
-    spawned; (d) and (e) on the first D_CARDS cards, (e)'s ranks with the
-    caching allocator's expandable segments (its f32 steps peak at ~73
+    spawned; (d), (e) and (f) on the first D_CARDS cards, (e)'s ranks with
+    the caching allocator's expandable segments (its f32 steps peak at ~73
     GiB a card); a rank that fails fails the part."""
     import torch
     import torch.multiprocessing as mp
     n = torch.cuda.device_count()
-    if part in ("d", "e"):
+    if part in ("d", "e", "f"):
         if n < D_CARDS:
             fail(f"(5e) ({part}) needs {D_CARDS} CUDA cards, {n} visible")
         n = D_CARDS
@@ -5486,31 +6362,56 @@ def _on_every_card(part, cards, n_cards):
         fail(f"(5e) ({part}) not launched: {missing}")
 
 
+def dist_part_f() -> int:
+    """python3 chip_smoke.py --dist-part f: (f) alone, its ranks in a
+    subprocess (--dist-part f-ranks) with DIST_TIMEOUT["f"], then its
+    lines and limits; exits 2 without a card, as main does."""
+    import torch
+    if torch.cuda.device_count() < D_CARDS:
+        print(f"[chip_smoke] FAIL: (5e) (f) needs {D_CARDS} CUDA cards, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    smi_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    out, wall = run_subprocess_part(
+        "f", [sys.executable, os.path.abspath(__file__), "--dist-part",
+              "f-ranks"])
+    log_dist_elastic(_serve_result("f", out), wall, smi_line)
+    print(smi_line)
+    return 0
+
+
 def run_dist_serve(torch, smi_line):
     """(c1) on every visible card's meshes and, on two cards or more, (c2)
     and, in its process group, (c3); then (c4), (a) on every visible card's
     meshes and, on two cards or more, (b) and (c); then, on two cards or
     more, (c5); then, on D_CARDS cards or more, the sharded train step
-    (d) and V2-Lite as published trained (e); each part a process group of
-    its own in a subprocess with its timeout. Returns
-    ({part: result}, launches by kernel, by kernel and card), the launches
-    those of the sharded KERNELS runs alone ((d) and (e) launch none)."""
+    (d), V2-Lite as published trained (e) and the training substrate (f);
+    each part a process group of its own in a subprocess with its
+    timeout. Returns ({part: result}, launches by kernel, by kernel and
+    card), the launches those of the sharded KERNELS runs alone ((d), (e)
+    and (f) launch none)."""
     n_cards = torch.cuda.device_count()
     parts = ["c1"] + (["c2"] if n_cards >= 2 else []) + ["c4"] + (
         ["c5"] if n_cards >= 2 else []) + (
-        ["d", "e"] if n_cards >= D_CARDS else [])
+        ["d", "e", "f"] if n_cards >= D_CARDS else [])
     results, total, cards = {}, {k: 0 for k in KERNELS}, \
         {k: {} for k in KERNELS}
     for part in parts:
+        # (f)'s ranks alone: --dist-part f would log and hold it itself
+        ranks = part + "-ranks" if part == "f" else part
         out, wall = run_subprocess_part(
             part, [sys.executable, os.path.abspath(__file__), "--dist-part",
-                   part], DIST_TIMEOUT[part] + (DIST_TIMEOUT["c3"]
-                                               if part == "c2" else 0))
+                   ranks], DIST_TIMEOUT[part] + (DIST_TIMEOUT["c3"]
+                                                if part == "c2" else 0))
         r = _serve_result(part, out)
         results[part] = {"result": r, "wall_s": wall}
-        if part in ("d", "e"):
-            (log_dist_train if part == "d" else log_dist_train_full)(
-                r, wall, smi_line)
+        if part in ("d", "e", "f"):
+            {"d": log_dist_train, "e": log_dist_train_full,
+             "f": log_dist_elastic}[part](r, wall, smi_line)
             continue
         # each c1 mesh launches its kernels on every card; (c2) and (c3)
         # together (sparse_select runs in (c3) alone); each (c4) run its
@@ -5549,8 +6450,9 @@ def run_dist_serve(torch, smi_line):
             f"and (c4c) did not run: 1 card visible; on four cards python3 "
             f"chip_smoke.py --dist-only runs them; {smi_line}")
     if n_cards < D_CARDS:
-        log(f"[dist] (d) the sharded train step on (2, 2) and (1, 4) and "
-            f"(e) V2-Lite as published trained on four cards did not run: "
+        log(f"[dist] (d) the sharded train step on (2, 2) and (1, 4), "
+            f"(e) V2-Lite as published trained on four cards and (f) the "
+            f"training substrate across four cards did not run: "
             f"{n_cards} card(s) visible, {D_CARDS} needed; on four cards "
             f"python3 chip_smoke.py --dist-only runs them; {smi_line}")
     return results, total, cards
@@ -6216,10 +7118,10 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
                 tot[card] = tot.get(card, 0) + c
         return result, n
 
-    if dist_only:           # phase 5e (c1)-(e) alone (a run on four cards)
+    if dist_only:           # phase 5e (c1)-(f) alone (a run on four cards)
         t0 = time.perf_counter()
         _, total, cards = run_dist_serve(torch, smi_line)
-        log(f"[dist] (c1)-(c5), (d) and (e) alone: "
+        log(f"[dist] (c1)-(c5), (d), (e) and (f) alone: "
             f"{time.perf_counter() - t0:.1f} s; "
             f"launches {total}; by card {cards}; {smi_line}")
         print(smi_line)
@@ -6502,9 +7404,12 @@ if __name__ == "__main__":
         sys.path.insert(0, SRC)
         dist_part_a(torch, *sys.argv[3:4])
         sys.exit(0)
+    if sys.argv[1:3] == ["--dist-part", "f"]:     # (f) with its lines
+        sys.exit(dist_part_f())
     if sys.argv[1:2] == ["--dist-part"] and sys.argv[2:3] in (
-            ["c1"], ["c2"], ["c4"], ["c5"], ["d"], ["e"]):
-        dist_serve_part(sys.argv[2])      # (c1)-(c5), (d) or (e)'s ranks
+            ["c1"], ["c2"], ["c4"], ["c5"], ["d"], ["e"], ["f-ranks"]):
+        # (c1)-(c5), (d), (e) or (f)'s ranks
+        dist_serve_part(sys.argv[2].removesuffix("-ranks"))
         sys.exit(0)
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
                   dist_only=sys.argv[1:2] == ["--dist-only"]))

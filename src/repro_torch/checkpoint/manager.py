@@ -12,8 +12,10 @@ bytes one way and a view back the other, with no numpy dtype for bf16.
 
 Sharded state: a DTensor leaf is saved whole (full_tensor, a gather that
 every rank of the process group joins), and in a process group rank 0
-alone writes; a blocking save and wait() end at a barrier, so every rank
-may read the snapshot after. restore(..., shardings=...) places each leaf
+alone keeps the gathered leaves and writes (the other ranks drop each
+gather's result, so a snapshot has one host copy, not one a rank); a
+blocking save and wait() end at a barrier, so every rank may read the
+snapshot after. restore(..., shardings=...) places each leaf
 on a mesh (a DTensor with the given placements), which need not be the
 mesh it was saved from: the elastic restore onto another topology.
 """
@@ -107,12 +109,14 @@ class CheckpointManager:
         value) happens here, before returning (so the caller may overwrite
         the tensors); the write runs on a thread unless blocking."""
         self.wait()
-        host = [_whole(t).detach().to("cpu", copy=True)
-                for t in _flatten(tree)]
         if _in_group() and dist.get_rank() != 0:
+            for t in _flatten(tree):    # join each leaf's gather, keep none
+                _whole(t)
             if blocking:
                 dist.barrier()
             return
+        host = [_whole(t).detach().to("cpu", copy=True)
+                for t in _flatten(tree)]
 
         def write():
             tmp = self.dir / f"step_{step:08d}.tmp"

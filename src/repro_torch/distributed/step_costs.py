@@ -13,8 +13,9 @@ those and counts, per device:
   a gather or an index reads its slice (2 x its result), an indexed write
   its update (2 x the update), as the reference counts dynamic-slice,
   gather and dynamic-update-slice;
-* collectives by kind (the same ops CommDebugMode counts) and their result
-  bytes;
+* collectives by kind (the same ops CommDebugMode counts, and DTensor's
+  shard_dim_alltoall as the all-to-all it issues on the card) and their
+  result bytes, in all and by kind and group size;
 * ring-model wire bytes (hlo_analysis.py:53-74): all-gather, reduce-scatter
   and all-to-all B (n - 1) / n, all-reduce 2 B (n - 1) / n, a point-to-point
   transfer B, with B the collective's result bytes. n is the collective's
@@ -75,6 +76,10 @@ def _tensors(tree) -> list:
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
+def _by_group():
+    return defaultdict(lambda: defaultdict(lambda: [0.0, 0.0]))
+
+
 @dataclasses.dataclass
 class StepCosts:
     flops: float = 0.0
@@ -83,6 +88,9 @@ class StepCosts:
         default_factory=lambda: defaultdict(float))
     collective_result_bytes: float = 0.0
     collective_wire_bytes: float = 0.0
+    # {kind: {group size: [count, result bytes]}}
+    collective_groups: Dict[str, Dict[int, list]] = dataclasses.field(
+        default_factory=_by_group)
 
     def add(self, other: "StepCosts", mult: float = 1.0) -> None:
         self.flops += other.flops * mult
@@ -91,6 +99,19 @@ class StepCosts:
         self.collective_wire_bytes += other.collective_wire_bytes * mult
         for k, v in other.collective_counts.items():
             self.collective_counts[k] += v * mult
+        for k, by_n in other.collective_groups.items():
+            for n, (c, b) in by_n.items():
+                mine = self.collective_groups[k][n]
+                mine[0] += c * mult
+                mine[1] += b * mult
+
+    def by_kind(self) -> Dict[str, dict]:
+        """{kind: {"count", "result_bytes", "wire_bytes"}}."""
+        return {k: {"count": sum(c for c, _ in by_n.values()),
+                    "result_bytes": sum(b for _, b in by_n.values()),
+                    "wire_bytes": sum(wire_bytes(k, b, n)
+                                      for n, (_, b) in by_n.items())}
+                for k, by_n in self.collective_groups.items()}
 
 
 class _Counter(TorchDispatchMode):
@@ -119,7 +140,12 @@ class _Counter(TorchDispatchMode):
     def _count(self, func, args, kwargs, ins, outs) -> None:
         c = self.costs
         name = func._overloadpacket.__name__
-        if func.namespace in ("_c10d_functional", "c10d"):
+        if func.namespace == "_dtensor" and name == "shard_dim_alltoall":
+            # DTensor's Shard(i) -> Shard(j) on a card's mesh: one
+            # all-to-all on NCCL (on meta its fake form runs, which issues
+            # nothing below it)
+            name = "all_to_all_single"
+        if func.namespace in ("_c10d_functional", "c10d", "_dtensor"):
             if name in _RING:
                 res = _nbytes(outs)
                 n = _group_size(args, kwargs)
@@ -128,6 +154,8 @@ class _Counter(TorchDispatchMode):
             else:                           # wait_tensor and the like
                 return
             c.collective_counts[name] += 1
+            c.collective_groups[name][n][0] += 1
+            c.collective_groups[name][n][1] += res
             c.collective_result_bytes += res
             c.collective_wire_bytes += wire_bytes(name, res, n)
             c.traffic_bytes += res + _nbytes(ins)

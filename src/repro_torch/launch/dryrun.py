@@ -38,11 +38,13 @@ import subprocess
 import sys
 import time
 import traceback
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import (ALIASES, SHAPES, all_cells, get_config)
+from repro_torch.configs import (ALIASES, SHAPES, ShapeSpec, all_cells,
+                                 get_config)
 from repro_torch.core.constants import FABRICS
 from repro_torch.distributed import policy as POL
 from repro_torch.distributed import step_costs
@@ -160,7 +162,10 @@ def _leaves(tree) -> list:
 
 def build_step(arch: str, shape_name: str, mesh, sp_residual: bool = True,
                n_micro: int = 0, no_expert_fsdp: bool = False,
-               no_remat: bool = False, n_layers: int = 0):
+               no_remat: bool = False, n_layers: int = 0, *,
+               cfg: Optional[MD.ModelConfig] = None,
+               shape: Optional[ShapeSpec] = None,
+               dtype: torch.dtype = torch.bfloat16):
     """Build one cell's step on mesh (on the fake group the mesh lives on),
     its tensors on the meta device. Returns (DryStep, meta). A (pod, data,
     model) mesh runs as its (pod x data, model) view (mesh.flatten_dp).
@@ -169,16 +174,19 @@ def build_step(arch: str, shape_name: str, mesh, sp_residual: bool = True,
     expert stacks over `model` only (no per-microbatch all-gather of
     experts over `data`); no_remat drops the recompute of each block in
     backward; n_layers > 0 cuts the depth to n_layers (the widths stay),
-    and the record says so."""
-    cfg = _arch_cfg(arch, shape_name)
+    and the record says so. cfg and shape, where given, stand in for the
+    arch's config and shape_name's shape, and dtype is the parameters'
+    (the published bf16 unless set): a step that ran on cards, counted
+    the same way (chip_smoke.py's 5e (f5))."""
+    cfg = cfg or _arch_cfg(arch, shape_name)
     if no_remat:
         cfg = dataclasses.replace(cfg, remat=False)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    shape = SHAPES[shape_name]
+    shape = shape or SHAPES[shape_name]
     no_fsdp = ("expert",) if no_expert_fsdp else ()
     run_mesh = flatten_dp(mesh)
-    params = MD.init_model(cfg, device="meta")
+    params = MD.init_model(cfg, device="meta", dtype=dtype)
     p_shard = param_shardings(params, run_mesh, no_fsdp_with=no_fsdp)
     policy = POL.sp_policy(run_mesh, seq_shard=sp_residual)
     meta = {"arch": ALIASES.get(arch, arch), "shape": shape_name,

@@ -3,8 +3,11 @@ module constants, so importing touches no process group.
 
 Each builds a DeviceMesh with named dims on the process group that is up
 (torch.distributed initialised by the caller; the dry run brings up a fake
-group of the mesh's size): on the card for an NCCL group, on the host
-otherwise.
+group of the mesh's size): on the card for an NCCL group and for the
+fake group, which stands for cards, on the host otherwise. The device
+type decides DTensor's collectives: on the host a Shard(i) -> Shard(j)
+redistribute is an all-gather of n times the bytes (gloo has no
+all-to-all), on the card an all-to-all, so the dry run counts the card's.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch.distributed as dist
 
 
 def _device_type() -> str:
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return "cuda" if dist.get_backend() in ("nccl", "fake") else "cpu"
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -7,7 +7,17 @@ max|g|, / 127), quantize to int8, all-reduce (SUM) the int8 values as an
 int32 payload over the pod group, dequantize (mean = sum * s / n); the
 quantization residual feeds back into the next step's gradient (error
 feedback keeps SGD convergence: the tests hold it to full-precision DP).
-4x wire reduction vs f32 (2x vs bf16) on the pod axis.
+
+What the wire carries: the int8 values travel in an int32 payload (an
+all-reduce SUM of int8 would overflow), so the bytes on the wire are an
+f32 all-reduce's, plus one f32 scalar a tensor for the scale; the
+reference sums an int32 payload too. wire_bytes_ratio() is the
+reference's nominal 0.25 (int8 against f32), not what either package
+sends: on four H100s NCCL logged 3 502 289 008 bytes for V2-Lite's
+gradients cut to 2 layers against 3 502 288 896 for a plain f32
+all-reduce of them, a ratio of 1.0000 (chip_smoke.py 5e (f3)). A payload
+of int8 on the wire (an all-gather of the int8 values, summed locally)
+would send a quarter.
 
 The group is a mesh dim's process group (mesh.get_group("pod")); the
 in-pod reduction stays full-precision.
@@ -56,5 +66,6 @@ def compressed_psum_with_feedback(grads: Sequence[torch.Tensor],
 
 
 def wire_bytes_ratio() -> float:
-    """int8 vs f32 gradient payload on the pod axis."""
+    """int8 vs f32 gradient values on the pod axis: the reference's
+    nominal ratio (the payload on the wire is int32; module docstring)."""
     return 0.25
