@@ -422,6 +422,70 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_F32_S):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# the cache types the decode kernels read in place, beside f32
+CACHE_DTYPES = ("bfloat16", "float16")
+
+
+def typed_caches(torch, dev, what, tag, ckv, call, out_bytes, iters):
+    """ckv in bf16 and in f16 through `call` (a decode kernel's wrapper on a
+    cache): each held bit for bit (o, m, l) against the f32 kernel on the
+    cache cast to f32, its allocator growth over one call (less out_bytes,
+    the outputs and span partials the call returns or merges) held below
+    the cache's f32 bytes (no f32 copy of it is made), and timed. Returns
+    {dtype: {"ms", "growth_bytes", "f32_cache_bytes"}}."""
+    out = {}
+    f32_bytes = 4 * ckv.numel()
+    for name in CACHE_DTYPES:
+        c16 = ckv.to(getattr(torch, name))
+        want = call(c16.float())
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = call(c16)
+        torch.cuda.synchronize(dev)
+        growth = torch.cuda.max_memory_allocated(dev) - base
+        bits = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        ms = time_ms(torch, lambda: call(c16), iters)[0]
+        log(f"[kernels] {what} {tag} {name} cache: o, m, l "
+            f"{'bit for bit' if bits else 'NOT EQUAL to'} the f32 kernel on "
+            f"its f32 cast; {ms:.4f} ms device; allocator growth over one "
+            f"call {growth} B ({out_bytes} B of outputs and span partials, "
+            f"the cache in f32 {f32_bytes} B)")
+        if not bits:
+            fail(f"{what} {tag}: the {name} cache differs from the f32 "
+                 f"kernel on its f32 cast")
+        if growth - out_bytes >= f32_bytes:
+            fail(f"{what} {tag}: one call on the {name} cache grew the "
+                 f"allocator by {growth} B, past its outputs by the cache's "
+                 f"f32 size or more: a copy of the cache")
+        out[name] = {"ms": ms, "growth_bytes": growth,
+                     "f32_cache_bytes": f32_bytes}
+        del c16, want, got
+    return out
+
+
+def partial_bytes(plan, B, R, d_v):
+    """Bytes of a decode call's o, m, l and its span partials under plan."""
+    one = 4 * (B * R * d_v + 2 * B * R)
+    return one * (1 + (plan.n_split if plan.n_split > 1 else 0))
+
+
+def stamp_split(torch, stamps, phases):
+    """The mean ms a block of a stamped launch spends in each phase, its
+    wall (%globaltimer, end - start) and the SM clock it ran at; each
+    block's clock64 cycles by phase turned into ns at its own
+    globaltimer-ns a cycle."""
+    st = stamps.double().cpu()
+    ns = st[:, 1] - st[:, 0]
+    per_cycle = ns / st[:, 2].clamp(min=1)
+    out = {name: float((st[:, 3 + i] * per_cycle).mean()) / 1e6
+           for i, name in enumerate(phases)}
+    out["block_ms"] = float(ns.mean()) / 1e6
+    out["launch_ms"] = float(st[:, 1].max() - st[:, 0].min()) / 1e6
+    out["sm_ghz"] = float((st[:, 2] / ns).mean())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -500,19 +564,78 @@ def check_mla_decode(torch, dev, cfg):
         b_ms, b_by = bound(nbytes, flops)
         split = device_split_us(
             torch, lambda: mla_decode(q, ckv, d_v=d_v, scale=scale))
+        typed = typed_caches(
+            torch, dev, "mla_decode", tag, ckv,
+            lambda c: mla_decode(q, c, d_v=d_v, scale=scale),
+            partial_bytes(plan, B, R, d_v), iters)
+        # the bytes a bf16 cache needs read: the bound of that call
+        b16_ms, b16_by = bound(nbytes - 2 * B * S * D, flops)
         cases.append({"shape": f"q({B},{R},{D}) ckv({B},{S},{D})",
                       "loop": plan.loop, "n_split": plan.n_split,
                       "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms,
                       "bound_ms": b_ms, "bound_by": b_by,
-                      "device_us_by_kernel": split, "loops_ms": loops_ms})
+                      "bf16_bound_ms": b16_ms, "bf16_bound_by": b16_by,
+                      "device_us_by_kernel": split, "loops_ms": loops_ms,
+                      "caches": typed})
         log(f"[kernels] mla_decode {tag}: loop {plan.loop} x "
             f"{plan.n_split} spans, {ms:.4f} ms device, "
             f"{host_ms:.4f} ms as issued (plain "
             f"{plain_ms:.4f}, sdpa {lib_ms}, bound {b_ms:.5f} by {b_by}); "
             + "".join(f"{k} {v:.4f} ms; " for k, v in loops_ms.items())
+            + "".join(f"{k} cache {v['ms']:.4f} ms; "
+                      for k, v in typed.items())
+            + f"bf16 bound {b16_ms:.5f} by {b16_by}; "
             + "profiler µs/call " + ", ".join(f"{k} {v:.1f}"
                                               for k, v in split.items()))
+
+    # the group loops' time split at the ROUTE groups of 4096 and 16 384
+    # rows: per-block %globaltimer / clock64 stamps of a measurement
+    # launch (held against the plain version too), each loop under the
+    # split it would take
+    for R in (H * 256, H * 1024):
+        q = torch.randn((1, R, D), device=dev, generator=g)
+        ckv = torch.randn((1, CHUNK, D), device=dev, generator=g)
+        want = mla_decode_ref(q, ckv, None, d_v, scale)
+        for name in ("group", "group32"):
+            p = mla_ops.loop_plan(name, 1, R, CHUNK, build.sm_count(dev))
+            got, stamps = mla_ops.stamped(q, ckv, d_v, scale, p)
+            compare(f"stamped {name} x {p.n_split} spans q(1,{R},{D})", got,
+                    want)
+            sp = stamp_split(torch, stamps, mla_ops.STAMP_PHASES)
+            log(f"[kernels] mla_decode {name} q(1,{R},{D}) "
+                f"ckv(1,{CHUNK},{D}) x {p.n_split} spans, time split a "
+                f"block (ms, %globaltimer and clock64 stamps, "
+                f"{stamps.shape[0]} blocks): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sp.items()))
+            cases.append({"shape": f"q(1,{R},{D}) ckv(1,{CHUNK},{D})",
+                          "stamped": True, "loop": name,
+                          "n_split": p.n_split, "split_ms": sp})
+
+    # decode_plan's group rule over rows and cache length: the loop it
+    # picks beside both group loops' times
+    for B, R, S in ((1, 256, CHUNK), (1, 512, CHUNK), (1, 1024, CHUNK),
+                    (1, 2048, CHUNK), (2, 256, CHUNK), (1, 256, 8192)):
+        q = torch.randn((B, R, D), device=dev, generator=g)
+        ckv = torch.randn((B, S, D), device=dev, generator=g)
+        want = mla_decode_ref(q, ckv, None, d_v, scale)
+        plan = mla_ops.decode_plan(B, R, S, build.sm_count(dev))
+        loops_ms = {}
+        for name in ("group", "group32"):
+            p = mla_ops.loop_plan(name, B, R, S, build.sm_count(dev))
+            run = lambda: mla_ops._launch(q, ckv, None, d_v, scale, p)
+            compare(f"group rule q({B},{R},{D}) ckv({B},{S},{D}) through "
+                    f"{name} x {p.n_split} spans", run(), want)
+            loops_ms[name] = time_ms(torch, run, 20)[0]
+        faster = min(loops_ms, key=loops_ms.get)
+        log(f"[kernels] mla_decode group rule q({B},{R},{D}) "
+            f"ckv({B},{S},{D}): plan {plan.loop}, "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in loops_ms.items())
+            + f"; {'the faster' if plan.loop == faster else 'NOT the faster'}")
+        cases.append({"shape": f"q({B},{R},{D}) ckv({B},{S},{D})",
+                      "rule_sweep": True, "loop": plan.loop,
+                      "n_split": plan.n_split, "ms": loops_ms[plan.loop],
+                      "loops_ms": loops_ms})
 
     # decode_plan's 16-row rule over batch, rows and cache length: the
     # loop it picks beside both loops' times
@@ -1072,6 +1195,11 @@ def check_sparse_select(torch, dev, cfg):
                       + idx.numel() + (0 if kb is None else B))
         flops = 2.0 * R * t_sel * (D + d_v)
         b_ms, b_by = bound(nbytes, flops)
+        typed = typed_caches(
+            torch, dev, "sparse_select", tag, ckv,
+            lambda c: sparse_select(q, c, idx, kbt, d_v=d_v, scale=scale,
+                                    block_tokens=bt),
+            partial_bytes(plan, B, R, d_v), 100 if R < 256 else 20)
         cases.append({"shape": f"q({B},{R},{D}) ckv({B},{S},{D}) "
                                f"{tag}, {t_sel} selected rows",
                       "loop": plan.loop, "n_split": plan.n_split,
@@ -1080,13 +1208,53 @@ def check_sparse_select(torch, dev, cfg):
                       "bound_ms": b_ms, "bound_by": b_by,
                       "mla_decode_gathered_ms": dense_ms,
                       "bits_equal_mla_decode_gathered": bits,
+                      "caches": typed,
                       **({"resources": res} if not cases else {})})
         log(f"[kernels] sparse_select {tag}: loop {plan.loop} x "
             f"{plan.n_split} spans, {ms:.4f} ms device, {host_ms:.4f} ms as "
             f"issued (plain {plain_ms:.4f}, sdpa with mask {lib_ms}, bound "
             f"{b_ms:.5f} by {b_by}; mla_decode over the gathered rows "
-            f"{dense_ms}, bits equal: {bits})")
+            f"{dense_ms}, bits equal: {bits}); "
+            + ", ".join(f"{k} cache {v['ms']:.4f} ms"
+                        for k, v in typed.items()))
     return worst, cases
+
+
+# card 0's peak in (c3)'s unsharded long_500k decode, when the decode
+# wrappers cast a bf16 cache to f32 before each launch (PERF.md §6)
+LONG_PEAK_CAST_GIB = 52.94
+
+
+def long_unsharded_peak(torch, dev, v2_lite):
+    """5e (c3)'s unsharded long_500k decode on this card (V2-Lite as
+    published in bf16, one row, LONG_SLOTS slots, selection_k LONG_K,
+    LONG_STEPS steps, KERNELS): finite logits, and its peak memory held
+    below LONG_PEAK_CAST_GIB, the peak of the same run when sparse_select's
+    wrapper cast the bf16 cache to f32 (1.2 GB a layer) before each call."""
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(v2_lite, selection_k=LONG_K)
+    first = torch.randint(0, cfg.vocab, (1, 1), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(2))
+    t0 = time.perf_counter()
+    r = long_unsharded(torch, M, cfg, dev, first, M.KERNELS,
+                       dtype=torch.bfloat16)
+    wall = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(lg).all()) for lg in r["logits"])
+    peak = r["peak_gib"]
+    log(f"[long] 5e (c3)'s unsharded long_500k decode on card 0: "
+        f"{cfg.name} ({cfg.n_layers} layers) in bf16, {LONG_SLOTS} slots, "
+        f"selection_k {LONG_K}, {LONG_STEPS} steps, KERNELS: peak "
+        f"{peak:.2f} GiB (with the f32 cast of the cache: "
+        f"{LONG_PEAK_CAST_GIB:.2f} GiB); steps "
+        + ", ".join(f"{w * 1e3:.1f}" for w in r["decode_s"])
+        + f" ms; logits finite: {finite}; {wall:.1f} s")
+    if not finite:
+        fail("long_500k unsharded: non-finite logits")
+    if peak >= LONG_PEAK_CAST_GIB:
+        fail(f"long_500k unsharded: peak {peak:.2f} GiB, not below the "
+             f"{LONG_PEAK_CAST_GIB:.2f} GiB of the run that cast its cache")
+    return {"peak_gib": peak, "peak_cast_gib": LONG_PEAK_CAST_GIB,
+            "decode_s": r["decode_s"], "wall_s": wall}
 
 
 def check_flash_prefill(torch, dev, cfg, dtype):
@@ -7154,6 +7322,10 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
               "ssd_chunk": check_ssd_chunk(torch, dev, mamba2.ssm,
                                            zamba2.ssm)}
 
+    # 3b. the long_500k decode of 5e (c3), unsharded, on this card
+    long_res, long_launches = counted(
+        lambda: long_unsharded_peak(torch, dev, v2_lite))
+
     from repro_torch.launch import serve
 
     def run_serve(extra):
@@ -7276,7 +7448,8 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
     ex_s = time.perf_counter() - t0
     log(f"[examples] phase 5f wall {ex_s:.1f} s; launches by example "
         f"{ex_launches}")
-    by_phase = {"serve": serve_launches, "selection_serve": sel_launches,
+    by_phase = {"long_500k_unsharded": long_launches,
+                "serve": serve_launches, "selection_serve": sel_launches,
                 **mesh_phases,
                 "goldens": golden_launches, "model_v2_lite": full_launches,
                 "model_verify": verify_launches,
@@ -7310,6 +7483,8 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
                 if sum(p[k] for p in model_phases) <= 0]
     if fam_launches["families_zamba2"]["ssd_chunk"] <= 0:
         missing.append("ssd_chunk (families)")
+    if long_launches["sparse_select"] <= 0:   # one shard: no merge
+        missing.append("sparse_select (long_500k)")
     missing += [f"{k} (dist_serve)" for k in SERVE_PATH["c1"]
                 + FAMILY_PATH["a"] if sharded_launches[k] <= 0]
     # 5f: the routed decode of the examples on the kernels
@@ -7358,7 +7533,9 @@ def main(mesh_only: bool = False, dist_only: bool = False) -> int:
                if "bound_3xtf32_ms" in c else {}),
             **({"copy_ms": c["copy_ms"]} if "copy_ms" in c else {}),
             "library_ms": c["library_ms"], "cases": cases})
-    log(f"[summary] serve {serve_s:.2f} s, selection serve {sel_s:.2f} s, "
+    log(f"[summary] long_500k unsharded peak {long_res['peak_gib']:.2f} GiB "
+        f"(cast: {long_res['peak_cast_gib']:.2f}), "
+        f"serve {serve_s:.2f} s, selection serve {sel_s:.2f} s, "
         f"mesh serve {sum(mesh_walls.values()):.2f} s (oracle "
         f"{mesh_worst['oracle']:.3e}, fused vs serial "
         f"{mesh_worst['modes']:.3e}, {mesh_conc['streams']} streams), "

@@ -1,6 +1,6 @@
 // The decode kernels that mla_decode.cu (a dense span of the cache) and
 // sparse_select.cu (the cache rows that selected blocks cover) share: their
-// arguments, the span a block walks, the three loops, the in-launch combine
+// arguments, the span a block walks, the four loops, the in-launch combine
 // of split spans, and the launch.
 //
 // Both attend q (B, R, D) over a position axis of T positions per batch
@@ -8,39 +8,61 @@
 // row's length; sparse_select's are t in [0, kb_max bt), position t reading
 // cache row block_idx[b, t / bt] bt + t % bt (attend::BlockRows), ended at
 // the row's kb[b] bt, and rows at or past the row's length hold nothing.
-// The wrapper's decode_plan picks one of three loops and a split of the T
-// positions into n_split spans of whole tiles (span z holds tiles
-// [z tiles / n, (z + 1) tiles / n)); a split launch is cooperative, writes
-// each span's partial, synchronises the grid and merges the spans in slot
-// order (decode_tiled.cuh combine_spans). A span past a row's end is the
-// identity and merges as a no-op.
+// The cache is read in its own element type (dtype 0 f32, 1 bf16, 2 f16;
+// attend.cuh), q in f32. The wrapper's decode_plan picks one of four loops
+// and a split of the T positions into n_split spans of whole tiles (span z
+// holds tiles [z tiles / n, (z + 1) tiles / n)); a split launch is
+// cooperative, writes each span's partial, synchronises the grid and
+// merges the spans in slot order (decode_tiled.cuh combine_spans). A span
+// past a row's end is the identity and merges as a no-op.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <mutex>
 
 #include "attend.cuh"
+#include "decode_group.cuh"
 #include "decode_tiled.cuh"
 
 namespace decode {
 
+// The loops' codes in the C entries (kernels/mla_decode/ops.py LOOPS).
+enum Loop { GROUP = 0, TILED16 = 1, ATTEND16 = 2, GROUP32 = 3 };
+
 struct Args {
   const float* q;
   long q_b, q_r;
-  const float* ckv;
-  long c_b, c_r;
+  const void* ckv;           // in its own element type
+  long c_b, c_r;             // its strides, in elements
   const int* lengths;        // (B,) valid cache rows, or null: all S
   const int* block_idx;      // sparse: (B, KB) selected block ids
   long i_b;                  // its batch stride
   const int* kb;             // sparse: (B,) ids that count, or null: all
   int bt, kb_max;            // sparse: rows a block, ids a row
-  int B, R, S, T, D, DP, d_v;
+  int B, R, S, T, D, d_v;
   float scale;
   int n_split;
   float *o, *m, *l, *o_part, *m_part, *l_part;
+  unsigned long long* stamps;  // stamped launches: stamp::WORDS a block
 };
+
+// The element size of dtype code `dtype`, or 0 for none.
+inline int elem_bytes(int dtype) {
+  return dtype == 0 ? 4 : (dtype == 1 || dtype == 2 ? 2 : 0);
+}
+
+// The checks every entry makes: D and d_v whole 16-byte units of the
+// cache's type (the copies' unit), d_v within the PV lanes, a known loop.
+inline bool shapes_ok(int dtype, int D, int d_v, int loop, int n_split) {
+  const int eb = elem_bytes(dtype);
+  return eb && d_v <= tiled::MAX_DV && d_v % 4 == 0 && D % 4 == 0 &&
+         (D * eb) % 16 == 0 && (d_v * eb) % 16 == 0 && n_split >= 1 &&
+         loop >= GROUP && loop <= GROUP32;
+}
 
 __device__ __forceinline__ int clamp_to(int v, int hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
@@ -75,6 +97,11 @@ __device__ __forceinline__ auto rows_of(const Args& a, int b) {
     return attend::DenseRows{};
 }
 
+template <class T>
+__device__ __forceinline__ const T* cache_of(const Args& a, int b) {
+  return static_cast<const T*>(a.ckv) + b * a.c_b;
+}
+
 // After every span's partial is written: merge them (split launches only).
 template <int THREADS, int ROWS>
 __device__ __forceinline__ void combine(const Args& a, int b, int z,
@@ -85,30 +112,55 @@ __device__ __forceinline__ void combine(const Args& a, int b, int z,
       (long)b * a.R + r0, min(ROWS, a.R - r0), a.d_v, z, a.o, a.m, a.l);
 }
 
-template <class Sh, bool kSplit, bool kSparse>
+// Each kernel writes its span's partial straight to o, m, l when the launch
+// has one span (kSplit false), and otherwise to the *_part slabs, then
+// merges them: the split is a template parameter, so a one-span launch
+// carries none of the combine's registers.
+template <class Sh, class T, bool kSplit, bool kSparse, bool kStamp>
+__global__ void __launch_bounds__(Sh::THREADS, 1) group_kernel(Args a) {
+  stamp::Clock<kStamp> clk;
+  clk.start();
+  const int b = blockIdx.y, z = blockIdx.z, r0 = blockIdx.x * group::ROWS;
+  int s_begin, s_end;
+  span_of<kSparse>(a, group::BS, b, z, s_begin, s_end);
+  group::attend_group<Sh, T>(
+      a.q + b * a.q_b, a.q_r, cache_of<T>(a, b), a.c_r, a.R, r0, a.D,
+      a.d_v, a.scale, s_begin, s_end, rows_of<kSparse>(a, b),
+      kSplit ? a.o_part : a.o, kSplit ? a.m_part : a.m,
+      kSplit ? a.l_part : a.l, ((long)z * a.B + b) * a.R, clk);
+  if constexpr (kSplit) combine<Sh::THREADS, group::ROWS>(a, b, z, r0);
+  clk.mark(stamp::COMBINE);
+  clk.finish(a.stamps);
+}
+
+template <class Sh, class T, bool kSplit, bool kSparse, bool kStamp>
 __global__ void __launch_bounds__(Sh::THREADS, Sh::MIN_BLOCKS)
 tiled_kernel(Args a) {
+  stamp::Clock<kStamp> clk;
+  clk.start();
   const int b = blockIdx.y, z = blockIdx.z, r0 = blockIdx.x * Sh::ROWS;
   int s_begin, s_end;
   span_of<kSparse>(a, Sh::BS, b, z, s_begin, s_end);
-  tiled::attend_tiles<Sh>(
-      a.q + b * a.q_b, a.q_r, a.ckv + b * a.c_b, a.c_r, a.R, r0, a.D, a.DP,
+  tiled::attend_tiles<Sh, T>(
+      a.q + b * a.q_b, a.q_r, cache_of<T>(a, b), a.c_r, a.R, r0, a.D,
       a.d_v, a.scale, s_begin, s_end, rows_of<kSparse>(a, b),
       kSplit ? a.o_part : a.o, kSplit ? a.m_part : a.m,
-      kSplit ? a.l_part : a.l, ((long)z * a.B + b) * a.R);
+      kSplit ? a.l_part : a.l, ((long)z * a.B + b) * a.R, clk);
   if constexpr (kSplit) combine<Sh::THREADS, Sh::ROWS>(a, b, z, r0);
+  clk.mark(stamp::COMBINE);
+  clk.finish(a.stamps);
 }
 
-template <bool kSplit, bool kSparse>
+template <class T, bool kSplit, bool kSparse>
 __global__ void __launch_bounds__(attend::THREADS, 2) attend_kernel(Args a) {
   const int b = blockIdx.y, z = blockIdx.z, r0 = blockIdx.x * attend::ROWS;
   int s_begin, s_end;
   span_of<kSparse>(a, attend::BS, b, z, s_begin, s_end);
-  attend::attend_span(a.q + b * a.q_b, a.q_r, a.ckv + b * a.c_b, a.c_r,
-                      a.R, r0, a.D, a.DP, a.d_v, a.scale, s_begin, s_end,
-                      rows_of<kSparse>(a, b), kSplit ? a.o_part : a.o,
-                      kSplit ? a.m_part : a.m, kSplit ? a.l_part : a.l,
-                      ((long)z * a.B + b) * a.R);
+  attend::attend_span<T>(
+      a.q + b * a.q_b, a.q_r, cache_of<T>(a, b), a.c_r, a.R, r0, a.D,
+      a.d_v, a.scale, s_begin, s_end, rows_of<kSparse>(a, b),
+      kSplit ? a.o_part : a.o, kSplit ? a.m_part : a.m,
+      kSplit ? a.l_part : a.l, ((long)z * a.B + b) * a.R);
   if constexpr (kSplit) combine<attend::THREADS, attend::ROWS>(a, b, z, r0);
 }
 
@@ -122,7 +174,7 @@ inline cudaError_t allow_smem(const void* kernel, int smem) {
     int smem;
   };
   static std::mutex mu;
-  static Set done[64];
+  static Set done[256];
   static int n_done = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -138,80 +190,93 @@ inline cudaError_t allow_smem(const void* kernel, int smem) {
   if (err != cudaSuccess) return err;
   if (hit)
     hit->smem = smem;
-  else if (n_done < 64)
+  else if (n_done < 256)
     done[n_done++] = Set{dev, kernel, smem};
   return cudaSuccess;
 }
 
-template <class Kernel>
-int launch(Kernel kernel, int rows, int threads, int loop_smem, Args a,
-           cudaStream_t st) {
+// A loop's kernel, its query rows and threads a block, and its shared
+// memory at D.
+struct Kernel {
+  const void* fn;
+  int rows, threads, smem;
+};
+
+template <class T, bool kSplit, bool kSparse, bool kStamp>
+Kernel kernel_of(int loop, int D) {
+  switch (loop) {
+    case GROUP: {
+      using Sh = group::Wide;
+      return {(const void*)group_kernel<Sh, T, kSplit, kSparse, kStamp>,
+              group::ROWS, Sh::THREADS, group::smem_bytes<Sh, T>(kSparse)};
+    }
+    case GROUP32: {
+      using Sh = tiled::Group32;
+      return {(const void*)tiled_kernel<Sh, T, kSplit, kSparse, kStamp>,
+              Sh::ROWS, Sh::THREADS, tiled::smem_bytes<Sh, T>(D, kSparse)};
+    }
+    case TILED16: {
+      using Sh = tiled::Single;
+      return {(const void*)tiled_kernel<Sh, T, kSplit, kSparse, false>,
+              Sh::ROWS, Sh::THREADS, tiled::smem_bytes<Sh, T>(D, kSparse)};
+    }
+    default:
+      return {(const void*)attend_kernel<T, kSplit, kSparse>, attend::ROWS,
+              attend::THREADS, attend::smem_bytes<T>(D, kSparse)};
+  }
+}
+
+// The kernel of `loop` for a launch of n_split spans.
+template <class T, bool kSparse, bool kStamp>
+Kernel kernel_for(int loop, int D, int n_split) {
+  return n_split > 1 ? kernel_of<T, true, kSparse, kStamp>(loop, D)
+                     : kernel_of<T, false, kSparse, kStamp>(loop, D);
+}
+
+inline int launch(const Kernel& k, Args a, cudaStream_t st) {
   const bool split = a.n_split > 1;
   const int merge_smem =
-      split ? tiled::combine_smem_bytes(rows, a.n_split, threads) : 0;
-  const int smem = loop_smem > merge_smem ? loop_smem : merge_smem;
-  cudaError_t err = allow_smem((const void*)kernel, smem);
+      split ? tiled::combine_smem_bytes(k.rows, a.n_split, k.threads) : 0;
+  const int smem = k.smem > merge_smem ? k.smem : merge_smem;
+  cudaError_t err = allow_smem(k.fn, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.R + rows - 1) / rows, a.B, a.n_split);
-  if (split) {                            // every block co-resident
-    void* args[] = {&a};
-    err = cudaLaunchCooperativeKernel((const void*)kernel, grid,
-                                      dim3(threads), args, smem, st);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    kernel<<<grid, threads, smem, st>>>(a);
-  }
+  const dim3 grid((a.R + k.rows - 1) / k.rows, a.B, a.n_split);
+  void* args[] = {&a};
+  if (split)                              // every block co-resident
+    err = cudaLaunchCooperativeKernel(k.fn, grid, dim3(k.threads), args,
+                                      smem, st);
+  else
+    err = cudaLaunchKernel(k.fn, grid, dim3(k.threads), args, smem, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Launch loop 0 "group", 1 "tiled16" or 2 "attend16" on checked arguments.
-template <bool kSparse>
-int run(int loop, const Args& a, cudaStream_t st) {
-  const bool split = a.n_split > 1;
-  if (loop == 0) {
-    using Sh = tiled::Group;
-    return launch(split ? tiled_kernel<Sh, true, kSparse>
-                        : tiled_kernel<Sh, false, kSparse>,
-                  Sh::ROWS, Sh::THREADS, tiled::smem_bytes<Sh>(a.D, kSparse),
+// Launch `loop` over a cache of element type `dtype` on checked arguments;
+// kStamp: the stamped build of the group loops (a.stamps set).
+template <bool kSparse, bool kStamp = false>
+int run(int loop, int dtype, const Args& a, cudaStream_t st) {
+  if (dtype == 1)
+    return launch(
+        kernel_for<__nv_bfloat16, kSparse, kStamp>(loop, a.D, a.n_split), a,
+        st);
+  if (dtype == 2)
+    return launch(kernel_for<__half, kSparse, kStamp>(loop, a.D, a.n_split),
                   a, st);
-  }
-  if (loop == 1) {
-    using Sh = tiled::Single;
-    return launch(split ? tiled_kernel<Sh, true, kSparse>
-                        : tiled_kernel<Sh, false, kSparse>,
-                  Sh::ROWS, Sh::THREADS, tiled::smem_bytes<Sh>(a.D, kSparse),
-                  a, st);
-  }
-  return launch(split ? attend_kernel<true, kSparse>
-                      : attend_kernel<false, kSparse>,
-                attend::ROWS, attend::THREADS,
-                attend::smem_bytes(a.D, kSparse), a, st);
+  return launch(kernel_for<float, kSparse, kStamp>(loop, a.D, a.n_split), a,
+                st);
 }
 
-// The dynamic shared memory of loop `loop`'s split kernel at D (its loop;
-// the combine of n_split <= 132 spans needs less) and the blocks one SM
-// holds with it, as the occupancy API reports them; 0 on an error.
+// The dynamic shared memory of loop `loop`'s block over an f32 cache at D
+// (its loop; the combine of n_split <= 132 spans needs less) and the blocks
+// one SM holds with it, as the occupancy API reports them; 0 on an error.
 template <bool kSparse>
 int resources(int loop, int D, int* smem) {
-  const void* kernel;
-  int threads;
-  if (loop == 0) {
-    kernel = (const void*)tiled_kernel<tiled::Group, true, kSparse>;
-    threads = tiled::Group::THREADS;
-    *smem = tiled::smem_bytes<tiled::Group>(D, kSparse);
-  } else if (loop == 1) {
-    kernel = (const void*)tiled_kernel<tiled::Single, true, kSparse>;
-    threads = tiled::Single::THREADS;
-    *smem = tiled::smem_bytes<tiled::Single>(D, kSparse);
-  } else {
-    kernel = (const void*)attend_kernel<true, kSparse>;
-    threads = attend::THREADS;
-    *smem = attend::smem_bytes(D, kSparse);
-  }
+  const Kernel k = kernel_of<float, true, kSparse, false>(loop, D);
+  *smem = k.smem;
   int n = 0;
-  if (allow_smem(kernel, *smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
-                                                    *smem) != cudaSuccess)
+  if (allow_smem(k.fn, k.smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k.fn, k.threads,
+                                                    k.smem) != cudaSuccess)
     return 0;
   return n;
 }

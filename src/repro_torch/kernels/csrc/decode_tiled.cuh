@@ -1,41 +1,46 @@
-// The register-tiled f32 decode loop of mla_decode.cu, and the combine of
-// its split spans.
+// The register-tiled f32 decode loop of mla_decode.cu at 32- and 16-row
+// cache tiles ("group32", "tiled16"), the combine of split spans that every
+// decode loop shares, the cp.async helpers, and the phase stamps of a
+// measurement launch.
 //
 // attend_tiles: one block owns Sh::ROWS query rows, keeps their (ROWS, D)
-// tile resident in shared memory for its whole span of positions, and
-// streams the span in (BS, D) tiles copied with cp.async (16-byte copies
-// that write the padded pitch). A `Rows` functor (attend.cuh) maps a span
-// position to the cache row it reads: DenseRows (mla_decode) reads row s
-// at position s; BlockRows (sparse_select) looks the row up in a block
-// table. A gathered tile's rows are looked up once, one lane a row, into
-// a table in shared memory while the previous tile's copies are in flight,
-// so each tile row is still one contiguous 16-byte-copied run of D floats.
-// A position that holds no row (past the span, or a table entry of -1) is
-// zero-filled and scores -inf. Per tile, three phases:
+// f32 tile resident in shared memory for its whole span of positions, and
+// streams the span in (BS, D) cache tiles copied with cp.async in 16-byte
+// units, in the cache's own element type T (attend.cuh: a bf16 tile takes
+// half an f32 tile's room, each value becomes f32 where it is used). A
+// `Rows` functor (attend.cuh) maps a span position to the cache row it
+// reads: DenseRows (mla_decode) reads row s at position s; BlockRows
+// (sparse_select) looks the row up in a block table. A gathered tile's rows
+// are looked up once, one lane a row, into a table in shared memory while
+// the previous tile's copies are in flight, so each tile row is still one
+// contiguous run of 16-byte units. A position that holds no row (past the
+// span, or a table entry of -1) is zero-filled and scores -inf. Per tile,
+// three phases:
 // * Scores, by the first SW warps. A thread owns an RI x CJ micro-tile:
 //   rows srow + 8 i, columns scol + 4 j. Each score is one FMA chain over
 //   c = 0, 1, 2, ... from 0, multiplied by `scale` after the chain: the
 //   chain of attend.cuh (and of the cuBLAS product in the plain version at
 //   the group shapes), so the scores are bit-identical to its. A warp's
 //   8 row groups and 4 column groups read 8 consecutive Q rows and 4
-//   consecutive K rows per 16-byte load, which the pitch of 4 mod 32 words
-//   keeps on distinct banks; but each such load still delivers 512 bytes
-//   to the warp's registers, 4 clocks of the SM's 128 bytes a clock, so
-//   shared memory, not the FMA pipes, sets the pace unless a thread does
-//   about 4 FMAs per float it loads: the group's 4 x 4 micro-tile (2 FMAs
-//   per float) in 4 of its 8 warps beats a 4 x 2 one in all 8. The scores
-//   go to shared memory transposed, P (BS, ROWS + 4).
+//   consecutive K rows per 16-byte load, which the pitch of 16 mod 128
+//   bytes keeps on distinct banks; but each such load still delivers 512
+//   bytes to the warp's registers, 4 clocks of the SM's 128 bytes a clock,
+//   so shared memory, not the FMA pipes, sets the pace unless a thread does
+//   about 4 FMAs per float it loads: at a 32-row cache tile the 4 x 4
+//   micro-tile (2 FMAs per float) in 4 of the 8 warps beats a 4 x 2 one in
+//   all 8. (decode_group.cuh's 256-row tile does 4 in all 8.) The
+//   scores go to shared memory transposed, P (BS, ROWS + 4).
 // * Online softmax. Warp w owns rows [w RPW, (w + 1) RPW), 32 / RPW lanes
 //   a row, all rows at once, with (m, l) in registers and attend.cuh's
 //   -inf pin: a row with nothing to attend returns the identity (o = 0,
 //   m = -inf, l = 0).
 // * PV. The same warp owns the same rows for all d_v <= 512 columns, lane
 //   j the columns 4 j + 128 k + u: per cache row RPW weights in broadcast
-//   loads and 16 values in four 16-byte loads that together read the V
-//   row once, for RPW x 16 FMAs into RPW x 16 accumulators, rescaled by
-//   alpha first and summed in s order (again attend.cuh's order). V is the
-//   first d_v columns of the same cache tile, so each cache row is copied
-//   from L2 once per block.
+//   loads and 16 values in four loads that together read the V row once,
+//   for RPW x 16 FMAs into RPW x 16 accumulators, rescaled by alpha first
+//   and summed in s order (again attend.cuh's order). V is the first d_v
+//   columns of the same cache tile, so each cache row is copied from L2
+//   once per block.
 //
 // combine_spans: after every span's partial (o, m, l) is written and the
 // grid synchronised, block (x, b, z) merges the rows of its own row tile
@@ -50,6 +55,64 @@
 
 #include "attend.cuh"
 #include "merge.cuh"
+
+// Per-block phase stamps of a measurement launch (mla_decode.cu's
+// mla_decode_stamped): thread 0 reads %globaltimer at the block's start
+// and end and clock64 at each phase boundary, and adds each interval's
+// cycles to its phase. A boundary after a barrier charges the slowest
+// warp's lag to the phase before it. Clock<false> compiles to nothing.
+namespace stamp {
+
+enum Phase { WAIT, SCORES, SOFTMAX, PV, COMBINE, N_PHASE };
+// a block's words: start ns, end ns, clock64 cycles in all, then by phase
+constexpr int WORDS = 3 + N_PHASE;
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+template <bool kOn>
+struct Clock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void finish(unsigned long long*) {}
+};
+
+template <>
+struct Clock<true> {
+  unsigned long long g0;
+  long long c0, last, acc[N_PHASE];
+  __device__ __forceinline__ void start() {
+    if (threadIdx.x != 0) return;
+    g0 = globaltimer();
+    c0 = last = clock64();
+#pragma unroll
+    for (int i = 0; i < N_PHASE; ++i) acc[i] = 0;
+  }
+  __device__ __forceinline__ void mark(int phase) {
+    if (threadIdx.x != 0) return;
+    const long long now = clock64();
+#pragma unroll
+    for (int i = 0; i < N_PHASE; ++i)     // constant indices: registers
+      if (i == phase) acc[i] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void finish(unsigned long long* out) {
+    if (threadIdx.x != 0 || out == nullptr) return;
+    const long blk = ((long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
+                     + blockIdx.x;
+    unsigned long long* w = out + blk * WORDS;
+    w[0] = g0;
+    w[1] = globaltimer();
+    w[2] = (unsigned long long)(clock64() - c0);
+#pragma unroll
+    for (int i = 0; i < N_PHASE; ++i) w[3 + i] = (unsigned long long)acc[i];
+  }
+};
+
+}  // namespace stamp
 
 namespace tiled {
 
@@ -75,9 +138,9 @@ struct Shape {
 };
 
 
-// A ROUTE group: 64 rows, 32-row cache tiles, 8 warps; 4 of them compute
-// the scores in 4 x 4 micro-tiles.
-using Group = Shape<64, 32, 8, 4, 4, 1>;
+// A small ROUTE group: 64 rows, 32-row cache tiles, 8 warps; 4 of them
+// compute the scores in 4 x 4 micro-tiles.
+using Group32 = Shape<64, 32, 8, 4, 4, 1>;
 // A single request: 16 rows, 16-row cache tiles (so that its spans fill
 // the card), 8 warps (so that the combine has many lanes), 4 of them
 // computing the scores in 2 x 1 micro-tiles; one block an SM, as the plan
@@ -86,10 +149,12 @@ using Single = Shape<16, 16, 8, 2, 1, 1>;
 
 // Dynamic shared memory of attend_tiles; a gathered span adds the row
 // tables of two tiles (this one and the next).
-template <class Sh>
+template <class Sh, class T>
 inline int smem_bytes(int D, bool table = false) {
-  return (int)(((Sh::ROWS + Sh::BS) * attend::pitch_of(D) + Sh::BS * Sh::PP)
-               * sizeof(float) + (table ? 2 * Sh::BS * sizeof(int) : 0));
+  return (int)(Sh::ROWS * attend::pitch_of<float>(D) * sizeof(float)
+               + Sh::BS * attend::pitch_of<T>(D) * sizeof(T)
+               + Sh::BS * Sh::PP * sizeof(float)
+               + (table ? 2 * Sh::BS * sizeof(int) : 0));
 }
 
 // Shared memory of combine_spans for `rows` rows over n spans.
@@ -98,7 +163,8 @@ inline int combine_smem_bytes(int rows, int n, int threads) {
   return (int)((floats + 4 * threads) * sizeof(float));
 }
 
-__device__ __forceinline__ void cp16(float* dst, const float* src,
+// 16 bytes from src to shared dst, or 16 zero bytes where !valid.
+__device__ __forceinline__ void cp16(void* dst, const void* src,
                                      bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -109,19 +175,21 @@ __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N = 0>
 __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // The scores of one tile, S = (Q K^T) * scale, into ps transposed, -inf
 // at positions at or past s_end (kTable: at positions whose entry in the
 // tile's row table tab is -1). Score warp w owns rows (w / WC) WROWS +
 // lane % 8 + 8 i and columns (w % WC) WCOLS + lane / 8 + 4 j.
-template <class Sh, bool kTable>
-__device__ __forceinline__ void scores(const float* qs, const float* ks,
-                                       float* ps, int D, int DP, float scale,
-                                       int s0, int s_end, const int* tab,
-                                       int warp, int lane) {
+template <class Sh, class T, bool kTable>
+__device__ __forceinline__ void scores(const float* qs, const T* ks,
+                                       float* ps, int D, int DP, int KP,
+                                       float scale, int s0, int s_end,
+                                       const int* tab, int warp, int lane) {
   constexpr int RI = Sh::RI, CJ = Sh::CJ, PP = Sh::PP;
   const int srow = (warp / Sh::WC) * Sh::WROWS + lane % 8;
   const int scol = (warp % Sh::WC) * Sh::WCOLS + lane / 8;
@@ -131,7 +199,7 @@ __device__ __forceinline__ void scores(const float* qs, const float* ks,
 #pragma unroll
     for (int j = 0; j < CJ; ++j) sc[i][j] = 0.f;
   const float* qp = qs + srow * DP;
-  const float* kp = ks + scol * DP;
+  const T* kp = ks + scol * KP;
   constexpr int UNROLL = RI * CJ >= 16 ? 2 : 4;   // loads ahead of the FMAs
 #pragma unroll UNROLL
   for (int c = 0; c < D; c += 4) {
@@ -140,8 +208,7 @@ __device__ __forceinline__ void scores(const float* qs, const float* ks,
     for (int i = 0; i < RI; ++i)
       x[i] = *reinterpret_cast<const float4*>(qp + 8 * i * DP + c);
 #pragma unroll
-    for (int j = 0; j < CJ; ++j)
-      k[j] = *reinterpret_cast<const float4*>(kp + 4 * j * DP + c);
+    for (int j = 0; j < CJ; ++j) k[j] = attend::load4(kp + 4 * j * KP + c);
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -165,32 +232,34 @@ __device__ __forceinline__ void scores(const float* qs, const float* ks,
 }
 
 // Attend query rows [r0, r0 + ROWS) of qb (row stride q_r) over span
-// positions [s_begin, s_end), cache rows from cb (row stride c_r) through
-// `rows`. Writes o (R-row slab at out_base, d_v columns, d_v % 4 == 0), m
-// and l.
-template <class Sh, class Rows>
+// positions [s_begin, s_end), cache rows from cb (row stride c_r, in
+// elements of T) through `rows`. Writes o (R-row slab at out_base, d_v
+// columns, d_v % 4 == 0), m and l.
+template <class Sh, class T, class Rows, class Clk>
 __device__ __forceinline__ void attend_tiles(
-    const float* __restrict__ qb, long q_r, const float* __restrict__ cb,
-    long c_r, int R, int r0, int D, int DP, int d_v, float scale,
-    int s_begin, int s_end, Rows rows, float* __restrict__ o,
-    float* __restrict__ m_out, float* __restrict__ l_out, long out_base) {
+    const float* __restrict__ qb, long q_r, const T* __restrict__ cb,
+    long c_r, int R, int r0, int D, int d_v, float scale, int s_begin,
+    int s_end, Rows rows, float* __restrict__ o, float* __restrict__ m_out,
+    float* __restrict__ l_out, long out_base, Clk& clk) {
   constexpr int ROWS = Sh::ROWS, BS = Sh::BS, THREADS = Sh::THREADS;
-  constexpr int RPW = Sh::RPW, PP = Sh::PP;
+  constexpr int RPW = Sh::RPW, PP = Sh::PP, PER16 = 16 / sizeof(T);
+  const int DP = attend::pitch_of<float>(D), KP = attend::pitch_of<T>(D);
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                       // (ROWS, DP), resident
-  float* ks = qs + ROWS * DP;             // (BS, DP), one cache tile
-  float* ps = ks + BS * DP;               // (BS, PP): scores, then P
+  T* ks = reinterpret_cast<T*>(qs + ROWS * DP);   // (BS, KP), a cache tile
+  float* ps = reinterpret_cast<float*>(ks + BS * KP);  // (BS, PP): S, then P
   // kTable: (2, BS) cache rows of this tile and the next, -1 for none
   int* tab = reinterpret_cast<int*>(ps + BS * PP);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int D4 = D / 4;
+  const int D4 = D / 4, U = D / PER16;    // a row's float4s / 16-byte units
   // the Q copies complete with the first tile's (none for an empty span,
   // whose shared memory the combine may take over)
   for (int i = tid; s_begin < s_end && i < ROWS * D4; i += THREADS) {
     const int r = i / D4, c = (i % D4) * 4;
     const bool ok = r0 + r < R;           // rows past R stay zero
-    cp16(qs + r * DP + c, ok ? qb + (long)(r0 + r) * q_r + c : qb, ok);
+    tiled::cp16(qs + r * DP + c, ok ? qb + (long)(r0 + r) * q_r + c : qb,
+                ok);
   }
 
   const int prow = warp * RPW;            // softmax / PV rows of this warp
@@ -209,15 +278,16 @@ __device__ __forceinline__ void attend_tiles(
 
   for (int s0 = s_begin; s0 < s_end; s0 += BS) {
     __syncthreads();                      // the previous tile is consumed
+    clk.mark(stamp::PV);
     const int* rows_s = tab + cur * BS;
-    for (int i = tid; i < BS * D4; i += THREADS) {
-      const int s = i / D4, c = (i % D4) * 4;
+    for (int i = tid; i < BS * U; i += THREADS) {
+      const int s = i / U, c = (i % U) * PER16;
       if constexpr (Rows::kTable) {
         const int r = rows_s[s];
-        cp16(ks + s * DP + c, r >= 0 ? cb + (long)r * c_r + c : cb, r >= 0);
+        cp16(ks + s * KP + c, r >= 0 ? cb + (long)r * c_r + c : cb, r >= 0);
       } else {
         const bool ok = s0 + s < s_end;
-        cp16(ks + s * DP + c, ok ? cb + (long)(s0 + s) * c_r + c : cb, ok);
+        cp16(ks + s * KP + c, ok ? cb + (long)(s0 + s) * c_r + c : cb, ok);
       }
     }
     cp_commit();
@@ -230,11 +300,13 @@ __device__ __forceinline__ void attend_tiles(
     }
     cp_wait();
     __syncthreads();
+    clk.mark(stamp::WAIT);
 
     if (warp < Sh::SW)
-      scores<Sh, Rows::kTable>(qs, ks, ps, D, DP, scale, s0, s_end, rows_s,
-                               warp, lane);
+      scores<Sh, T, Rows::kTable>(qs, ks, ps, D, DP, KP, scale, s0, s_end,
+                                  rows_s, warp, lane);
     __syncthreads();
+    clk.mark(stamp::SCORES);
 
     // online softmax of this warp's RPW rows: LPR lanes a row, each taking
     // the columns part + LPR j in order, the LPR partial maxima and sums
@@ -274,6 +346,7 @@ __device__ __forceinline__ void attend_tiles(
         alpha[i] = __shfl_sync(0xffffffffu, al, i * LPR);
     }
     __syncwarp();
+    clk.mark(stamp::SOFTMAX);
 
     // acc = acc * alpha + P V, V = the first d_v columns of the same tile
 #pragma unroll
@@ -299,7 +372,7 @@ __device__ __forceinline__ void attend_tiles(
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int c = 4 * lane + 128 * k;
-        v[k] = c < d_v ? *reinterpret_cast<const float4*>(ks + s * DP + c)
+        v[k] = c < d_v ? attend::load4(ks + s * KP + c)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -314,6 +387,7 @@ __device__ __forceinline__ void attend_tiles(
     }
     cur ^= 1;
   }
+  clk.mark(stamp::PV);
 
   float m_r[RPW], l_r[RPW];
 #pragma unroll

@@ -5,12 +5,13 @@ Replaces src/repro/kernels/sparse_select/kernel.py:sparse_select_pallas. On
 this card one request (R = 16 rows) over 512 selected rows is byte-bound
 and a large ROUTE group operation-bound, as for mla_decode, whose decode
 loops it runs over a gathered row table (csrc/decode_launch.cuh): each tile
-row's cache row is looked up in the block table. Its plan is mla_decode's
-decode_plan over T = KB * block_tokens positions (select_plan): the 64-row
-group loop from 64 query rows, a 16-row loop below, and spans that fill
-the card, merged in the same cooperative launch, so a call is one launch.
-The serving backend folds a request's query rows into R and passes the
-holder's chunk in place.
+row's cache row is looked up in the block table, in the cache's own type
+(f32, bf16 or f16: a bf16 cache is read in place, never cast whole). Its
+plan is mla_decode's decode_plan over T = KB * block_tokens positions
+(select_plan): a 64-row group loop from 64 query rows, a 16-row loop
+below, and spans that fill the card, merged in the same cooperative
+launch, so a call is one launch. The serving backend folds a request's
+query rows into R and passes the holder's chunk in place.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import torch
 
 from repro_torch.core.merge import Partial
 from repro_torch.kernels import build
-from repro_torch.kernels.mla_decode.ops import (LOOPS, MAX_D, MAX_DV,
-                                                DecodePlan, decode_plan,
+from repro_torch.kernels.mla_decode.ops import (DTYPES, LOOPS, MAX_D, MAX_DV,
+                                                DecodePlan, cache_operands,
+                                                check_cache, decode_plan,
                                                 partial_buffers)
 from repro_torch.kernels.sparse_select.ref import sparse_select_ref
 
@@ -41,19 +43,19 @@ def select_plan(B: int, R: int, KB: int, block_tokens: int,
 
 
 def _launcher():
-    fn = build.library("sparse_select").sparse_select_f32
+    fn = build.library("sparse_select").sparse_select
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
-        fn.argtypes = [P, L, L, P, L, L, P, L, P, P, I, I, I, I, I,
+        fn.argtypes = [P, L, L, P, L, L, I, P, L, P, P, I, I, I, I, I,
                        ctypes.c_float, I, I, I, I, P, P, P, P, P, P,
-                       P]         # bt, kb_max, loop, n_split
+                       P]         # dtype; bt, kb_max, loop, n_split
         fn.restype = ctypes.c_int
     return fn
 
 
 def resources(loop: str, D: int):
     """(dynamic shared memory bytes of a block, blocks one SM holds) of
-    loop `loop` at D, the latter as
+    loop `loop` at D over an f32 cache, the latter as
     cudaOccupancyMaxActiveBlocksPerMultiprocessor reports it (needs the
     card)."""
     fn = build.library("sparse_select").sparse_select_resources
@@ -101,13 +103,7 @@ def _check_cuda(q, ckv, block_idx, kb, lengths, d_v, block_tokens) -> None:
                          f"{MAX_D} (the group loop's shared memory), "
                          f"d_v % 4 == 0 and d_v <= {MAX_DV}, got D={D}, "
                          f"d_v={d_v}")
-    if not q.is_contiguous():
-        raise ValueError("sparse_select kernel: q must be contiguous")
-    if (ckv.stride(2) != 1 or ckv.stride(1) % 4 or ckv.stride(0) % 4
-            or ckv.data_ptr() % 16 or q.data_ptr() % 16):
-        raise ValueError(f"sparse_select kernel: ckv needs unit column "
-                         f"stride, row/batch strides divisible by 4 and "
-                         f"16-byte alignment, got strides {ckv.stride()}")
+    check_cache(q, ckv, d_v, "sparse_select")
     if block_idx.dtype != torch.int32 or block_idx.stride(1) != 1:
         raise TypeError("sparse_select kernel: block_idx must be int32 with "
                         "unit column stride")
@@ -134,9 +130,12 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
     (None: S) skipped. Values are the first d_v columns of ckv.
 
     Returns Partial(o (B, R, d_v), m (B, R), l (B, R)) in f32; a row with
-    nothing selected is the merge identity. q and ckv may be bf16 or f16:
-    they are cast to f32 first, as the reference's kernel casts them. CPU
-    tensors take the plain version. A DTensor raises TypeError: selection
+    nothing selected is the merge identity. q may be bf16 or f16: it is cast
+    to f32. On a card the kernel reads a bf16 or f16 cache in place, each
+    selected value cast to f32 where it is used, as the reference's kernel
+    casts each block: bit for bit the kernel on ckv.float(), with no copy
+    of the cache. CPU tensors take the plain version, on the cache cast to
+    f32. A DTensor raises TypeError: selection
     over a sequence-sharded cache goes through
     repro_torch.distributed.sharding.local_seq_selected, which passes each
     rank's chosen rows as local tensors."""
@@ -146,7 +145,7 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
         "global top-k over the shards, each rank's chosen rows attended on "
         "its local tensors)", q, ckv, block_idx, kb, lengths)
     _check(q, ckv, block_idx, kb, lengths, d_v, block_tokens)
-    q, ckv = build.as_f32("sparse_select", q, ckv)
+    q, ckv = cache_operands("sparse_select", q, ckv)
     if q.device.type == "cpu":
         return sparse_select_ref(q, ckv, block_idx, kb, lengths, d_v,
                                  block_tokens, scale)
@@ -163,7 +162,7 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
         parts = partial_buffers(plan.n_split, B, R, d_v, q.device)
         status = _launcher()(
             q.data_ptr(), q.stride(0), q.stride(1),
-            ckv.data_ptr(), ckv.stride(0), ckv.stride(1),
+            ckv.data_ptr(), ckv.stride(0), ckv.stride(1), DTYPES[ckv.dtype],
             block_idx.data_ptr(), block_idx.stride(0),
             None if kb is None else kb.data_ptr(),
             None if lengths is None else lengths.data_ptr(),
@@ -172,7 +171,7 @@ def sparse_select(q: torch.Tensor, ckv: torch.Tensor,
             l.data_ptr(), *(None if t is None else t.data_ptr()
                             for t in parts),
             build.stream_of(q))
-        build.check(status, "sparse_select")
+        build.check(status, f"sparse_select ({ckv.dtype} cache)")
         sparse_select.launches += 1
         sparse_select.launches_by_card[q.device.index] += 1
     return Partial(o=o, m=m, l=l)

@@ -953,9 +953,9 @@ def test_batch_on_the_card_equals_the_cpus(dev):
                                   "softmax_merge", "softmax_merge_parts",
                                   "ssd_intra_chunk"])
 def test_kernels_take_narrow_operands_and_return_f32(dev, name, dtype):
-    """C.3 on the card: bf16 / f16 operands launch the f32 kernel on their
-    upcast and return f32, bit for bit the kernel's result on the f32
-    operands."""
+    """C.3 on the card: bf16 / f16 operands return f32, bit for bit the
+    kernel's result on the f32 operands (mla_decode and sparse_select read
+    the 16-bit cache in place; the others launch on the upcast)."""
     from repro_torch.core.merge import Partial
     from repro_torch.kernels.mla_decode import ops as mla_ops
     from repro_torch.kernels.softmax_merge import ops as merge_ops

@@ -97,11 +97,13 @@ def test_plan_fills_the_card_and_stays_co_resident(B, R, S):
 
 
 def test_plan_shapes_of_the_main_path():
-    """The splits the kernel's design names (csrc/mla_decode.cu)."""
+    """The splits the kernel's design names (csrc/mla_decode.cu): the ROUTE
+    groups of 4096 and 16 384 rows on the 256-row tiles of "group", 256
+    rows on group32's 32-row spans."""
     plan = mla_ops.decode_plan
     assert plan(1, 4096, 2048, N_SM) == ("group", 2)       # 128 blocks
     assert plan(1, 16384, 2048, N_SM) == ("group", 1)      # 256 blocks
-    assert plan(1, 256, 2048, N_SM) == ("group", 33)       # 132 blocks
+    assert plan(1, 256, 2048, N_SM) == ("group32", 33)     # 132 blocks
     assert _blocks(2, 16, plan(2, 16, 2056, N_SM)) >= 120
 
 
@@ -109,30 +111,103 @@ def test_plan_shapes_of_the_main_path():
 @pytest.mark.parametrize("B", [1, 2, 3, 60])
 def test_group_loop_exactly_from_64_rows(B, R):
     plan = mla_ops.decode_plan(B, R, 2048, N_SM)
-    assert (plan.loop == "group") == (R >= 64)
+    assert (plan.loop in ("group", "group32")) == (R >= 64)
     assert plan == mla_ops.loop_plan(plan.loop, B, R, 2048, N_SM)
 
 
 @pytest.mark.parametrize("B,R,S", [s for s in SHAPES if s[1] < 64])
 def test_16_row_loop_is_the_one_whose_busiest_sm_walks_fewer_rows(B, R, S):
-    """decode_plan's rule below 64 rows, attend16 on a tie."""
-    rows = {name: mla_ops.busiest_sm_rows(
-                mla_ops.loop_plan(name, B, R, S, N_SM), B, R, S, N_SM)
-            for name in ("tiled16", "attend16")}
-    want = "tiled16" if rows["tiled16"] < rows["attend16"] else "attend16"
+    """decode_plan's rule below 64 rows: attend16 on a tie, unless its spans
+    outnumber the SMs."""
+    plans = {name: mla_ops.loop_plan(name, B, R, S, N_SM)
+             for name in ("tiled16", "attend16")}
+    rows = {name: mla_ops.busiest_sm_rows(p, B, R, S, N_SM)
+            for name, p in plans.items()}
+    tie_to_tiled = (rows["tiled16"] == rows["attend16"]
+                    and plans["attend16"].n_split > N_SM)
+    want = ("tiled16" if rows["tiled16"] < rows["attend16"] or tie_to_tiled
+            else "attend16")
     assert mla_ops.decode_plan(B, R, S, N_SM).loop == want
 
 
 # (B, R, S) -> loop: the 16-row shapes of chip_smoke.py phase 3, where the
-# rule picks the loop the card timed faster but for (1, 16, 8192)
-# (PERF.md, the 16-row rule)
+# rule picks the loop the card timed faster (PERF.md, the 16-row rule; at
+# (1, 16, 8192) a tie whose attend16 merges 256 spans, tiled16 132)
 @pytest.mark.parametrize("B,R,S,loop", [
     (1, 16, 2048, "tiled16"), (2, 16, 2056, "attend16"),
     (3, 16, 2048, "tiled16"), (4, 16, 2048, "attend16"),
     (16, 16, 2048, "attend16"), (1, 48, 2048, "tiled16"),
-    (2, 16, 520, "tiled16"), (1, 16, 8192, "attend16")])
+    (2, 16, 520, "tiled16"), (1, 16, 8192, "tiled16")])
 def test_16_row_loop_of_the_timed_shapes(B, R, S, loop):
     assert mla_ops.decode_plan(B, R, S, N_SM).loop == loop
+
+
+@pytest.mark.parametrize("B,R,S", [(1, 16, 8192), (2, 16, 8192),
+                                   (1, 16, 16384), (4, 16, 2048),
+                                   (2, 16, 2056), (16, 16, 2048)])
+def test_16_row_tie_goes_to_tiled16_past_one_span_an_sm(B, R, S):
+    """On a tie of busiest-SM rows, attend16 merges its spans in every
+    block of a row tile: past n_sm spans tiled16, whose split stops at
+    n_sm, merges fewer."""
+    tiled, attend = (mla_ops.loop_plan(name, B, R, S, N_SM)
+                     for name in ("tiled16", "attend16"))
+    assert (mla_ops.busiest_sm_rows(tiled, B, R, S, N_SM)
+            == mla_ops.busiest_sm_rows(attend, B, R, S, N_SM))
+    want = "tiled16" if attend.n_split > N_SM else "attend16"
+    assert mla_ops.decode_plan(B, R, S, N_SM).loop == want
+    assert tiled.n_split <= N_SM
+
+
+GROUP_SHAPES = [(1, 64, 2048), (1, 256, 2048), (1, 512, 2048),
+                (1, 1024, 2048), (1, 4096, 2048), (1, 16384, 2048),
+                (2, 256, 2048), (1, 256, 8192), (3, 64, 2048), (4, 64, 5000),
+                (1, 65536, 8), (1, 640, 300)]
+
+
+@pytest.mark.parametrize("B,R,S", GROUP_SHAPES)
+def test_group_loop_is_the_one_whose_busiest_sm_does_less_work(B, R, S):
+    """decode_plan's rule from 64 rows: the group loop whose busiest SM
+    walks fewer query-row x cache-row pairs, "group" on a tie."""
+    work = {name: mla_ops.busiest_sm_rows(
+                mla_ops.loop_plan(name, B, R, S, N_SM), B, R, S, N_SM)
+            * mla_ops.LOOPS[name].rows for name in ("group", "group32")}
+    assert work == {name: mla_ops.busiest_sm_work(
+        mla_ops.loop_plan(name, B, R, S, N_SM), B, R, S, N_SM)
+        for name in ("group", "group32")}
+    want = "group32" if work["group32"] < work["group"] else "group"
+    assert mla_ops.decode_plan(B, R, S, N_SM).loop == want
+
+
+def test_group_loop_geometry():
+    """The group loop: 64 query rows over 256-row cache tiles, one block an
+    SM (csrc/decode_group.cuh); group32 the same rows over 32-row tiles
+    (csrc/decode_tiled.cuh Group32); their codes in the C entries."""
+    assert mla_ops.LOOPS["group"] == (0, 64, 256, 1)
+    assert mla_ops.LOOPS["group32"] == (3, 64, 32, 1)
+    assert mla_ops.LOOPS["tiled16"] == (1, 16, 16, 1)
+    assert mla_ops.LOOPS["attend16"] == (2, 16, 32, 2)
+
+
+# (B, R, S, loop) -> (n_split, busiest-SM cache rows): the group loops'
+# split and the cache rows the busiest SM walks, by hand: 4096 rows are 64
+# row tiles, two spans of 4 256-row tiles fill 128 SMs; 16 384 rows are 256
+# row tiles, two a busiest SM, each over all 8 tiles; 256 rows are 4 row
+# tiles, group32 cuts 64 tiles into 33 spans (132 blocks, 2 tiles the
+# longest), group 8 tiles into 8 spans (32 blocks, 1 tile each)
+@pytest.mark.parametrize("B,R,S,loop,n,rows", [
+    (1, 4096, 2048, "group", 2, 1024), (1, 4096, 2048, "group32", 2, 1024),
+    (1, 16384, 2048, "group", 1, 4096),
+    (1, 16384, 2048, "group32", 1, 4096),
+    (1, 256, 2048, "group", 8, 256), (1, 256, 2048, "group32", 33, 64),
+    (1, 1024, 2048, "group", 8, 256), (1, 1024, 2048, "group32", 8, 256)])
+def test_group_loop_spans_and_busiest_sm(B, R, S, loop, n, rows):
+    plan = mla_ops.loop_plan(loop, B, R, S, N_SM)
+    assert plan.n_split == n
+    assert mla_ops.busiest_sm_rows(plan, B, R, S, N_SM) == rows
+    spans = decode_spans(plan, S)
+    assert all((e - b) <= math.ceil(math.ceil(S / mla_ops.LOOPS[loop].tile)
+                                    / n) * mla_ops.LOOPS[loop].tile
+               for b, e in spans)
 
 
 @pytest.mark.parametrize("B,R,S,lengths", [

@@ -36,16 +36,19 @@ def select_spans(plan, T, end):
 
 
 # (tag, B, R, KB, block_tokens) -> (loop, n_split): a serve request at
-# m_q = 1, 4, 8, 16 over 8 selected 64-token blocks, a 16-request group over
-# all 32 blocks, model (b)'s selection decode (512 token ids, B = 2), a
+# m_q = 1, 4, 8, 16 over 8 selected 64-token blocks, 16-, 64- and
+# 256-request groups over all 32 blocks (group32's 32-row tiles, then the
+# group loop's 256-row tiles), model (b)'s selection decode (512 token ids, B = 2), a
 # ragged batch, and absorbed_partial's per-row masks (R = 1 a batch row):
 # 40 rows split, 300 rows unsplit
 PLAN_SHAPES = {
     "serve m_q=1": ((1, 16, 8, 64), ("tiled16", 32)),
-    "serve m_q=4": ((1, 64, 8, 64), ("group", 16)),
-    "serve m_q=8": ((1, 128, 8, 64), ("group", 16)),
-    "serve m_q=16": ((1, 256, 8, 64), ("group", 16)),
-    "R=256 kb=32": ((1, 256, 32, 64), ("group", 33)),
+    "serve m_q=4": ((1, 64, 8, 64), ("group32", 16)),
+    "serve m_q=8": ((1, 128, 8, 64), ("group32", 16)),
+    "serve m_q=16": ((1, 256, 8, 64), ("group32", 16)),
+    "R=256 kb=32": ((1, 256, 32, 64), ("group32", 33)),
+    "R=1024 kb=32": ((1, 1024, 32, 64), ("group", 8)),
+    "R=4096 kb=32": ((1, 4096, 32, 64), ("group", 2)),
     "model (b)": ((2, 16, 512, 1), ("tiled16", 32)),
     "ragged": ((3, 16, 8, 64), ("tiled16", 32)),
     "per-row 40": ((40, 1, 60, 1), ("attend16", 2)),

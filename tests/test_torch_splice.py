@@ -12,9 +12,9 @@ between XLA and torch, which can move a rounding by one bf16 step (and a
 near-cancelling f32 result by ~1e-7). The latent columns are held bit for
 bit in both types."""
 
-import ctypes
-import ctypes.util
-import warnings
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -36,6 +36,8 @@ from repro_torch.models import layers as TL
 from repro_torch.serving.backends.torch_exec import TINY_MLA
 
 ATOL, RTOL = 2e-6, 1e-5
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
 
 
 def _close(got, want, atol=ATOL):
@@ -43,34 +45,43 @@ def _close(got, want, atol=ATOL):
                                rtol=RTOL)
 
 
-@pytest.fixture
-def round_to_nearest():
-    """The calling thread's IEEE rounding mode pinned to round-to-nearest
-    (fesetround) for the test, the mode it found restored after, and a
-    warning naming that mode where it was another. At positions up to 4095
-    one step of f32 rounding in the angle moves cos and sin by up to
-    2.4e-4: a thread left in another mode by native code an earlier test
-    ran in this process would round torch's angle products, computed on
-    this thread, differently from XLA's."""
-    libm = ctypes.CDLL(ctypes.util.find_library("m"))
-    before = libm.fegetround()
-    if before != 0:                         # FE_TONEAREST
-        warnings.warn(f"test_rope_helpers_match found the thread's rounding "
-                      f"mode at {before:#x}, not round-to-nearest")
-    assert libm.fesetround(0) == 0
-    yield
-    libm.fesetround(before)
+# The rope helpers' check, run in an interpreter of its own: in the whole
+# suite it failed now and then (up to 1.511e-04 on 11-23% of the elements:
+# one f32 rounding of the angle at positions up to 4095 moves cos and sin
+# by up to 2.4e-4) after other tests had run in the same process, and
+# never alone; a fresh interpreter holds it to the same tolerance with no
+# state left by an earlier test.
+_ROPE_PROG = """
+import jax.numpy as jnp
+import numpy as np
+import torch
+from repro.models import layers as JL
+from repro_torch.models import layers as TL
+
+def close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol={atol},
+                               rtol={rtol})
+
+pos = np.arange(0, 4096, 7, dtype=np.int32)
+np.testing.assert_array_equal(TL.rope_freqs(64), JL.rope_freqs(64))
+for got, want in zip(TL.rope_cos_sin(torch.tensor(pos), 64),
+                     JL.rope_cos_sin(jnp.asarray(pos), 64)):
+    close(got, want)
+x = np.random.default_rng(0).standard_normal((5, 64)).astype(np.float32)
+close(TL.delta_rotate(torch.tensor(x), 17, 64),
+      JL.delta_rotate(jnp.asarray(x), 17, 64))
+print("ROPE-OK")
+"""
 
 
-def test_rope_helpers_match(round_to_nearest):
-    pos = np.arange(0, 4096, 7, dtype=np.int32)
-    np.testing.assert_array_equal(TL.rope_freqs(64), JL.rope_freqs(64))
-    for got, want in zip(TL.rope_cos_sin(torch.tensor(pos), 64),
-                         JL.rope_cos_sin(jnp.asarray(pos), 64)):
-        _close(got, want)
-    x = np.random.default_rng(0).standard_normal((5, 64)).astype(np.float32)
-    _close(TL.delta_rotate(torch.tensor(x), 17, 64),
-           JL.delta_rotate(jnp.asarray(x), 17, 64))
+def test_rope_helpers_match():
+    proc = subprocess.run(
+        [sys.executable, "-c", _ROPE_PROG.format(atol=ATOL, rtol=RTOL)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (SRC, os.environ.get("PYTHONPATH")) if p)))
+    assert proc.returncode == 0 and "ROPE-OK" in proc.stdout, \
+        proc.stdout[-2000:] + proc.stderr[-4000:]
 
 
 @pytest.mark.parametrize("delta", [1, 17, 4095])
